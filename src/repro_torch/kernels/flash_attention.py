@@ -1,0 +1,81 @@
+"""Dense flash attention: the hand-written Hopper kernel and its front door.
+
+``flash_attention_bhsd`` keeps the JAX kernel's signature and layouts
+(q (B,H,Sq,D), k/v (B,Hkv,Skv,D), q_pos (Sq,), k_pos (Skv,), k_valid
+(Skv,)).  On CPU tensors it runs the plain version
+(``ref.flash_attention_ref``); on CUDA tensors it launches
+``csrc/flash_attention.cu`` or raises -- there is no fallback.
+
+Shape contract on CUDA: q, k, v contiguous, one dtype in {float32,
+bfloat16}, D in {64, 128}, H a multiple of Hkv; q_pos, k_pos, k_valid
+contiguous int32 of lengths Sq, Skv, Skv; everything on one device.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels import ref as R
+
+HEAD_DIMS = (64, 128)
+
+
+def check_flash_contract(q, k, v, q_pos, k_pos, k_valid):
+    """Raise ValueError unless the operands fit the CUDA kernel's
+    contract; returns (B, H, Hkv, Sq, Skv, D)."""
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
+        raise ValueError("q, k, v must be 4-D (B,H,S,D)")
+    b, h, sq, d = q.shape
+    _, hkv, skv, _ = k.shape
+    if k.shape != (b, hkv, skv, d) or v.shape != k.shape:
+        raise ValueError(f"k/v shape {tuple(k.shape)}/{tuple(v.shape)} does "
+                         f"not match q {tuple(q.shape)}")
+    if d not in HEAD_DIMS:
+        raise ValueError(f"head_dim {d} outside the kernel's {HEAD_DIMS}")
+    if hkv == 0 or h % hkv:
+        raise ValueError(f"{h} heads is not a multiple of {hkv} kv heads")
+    if not (q.dtype == k.dtype == v.dtype):
+        raise ValueError("q, k, v must share one dtype")
+    _build.dtype_code(q.dtype)
+    for name, t, n in (("q_pos", q_pos, sq), ("k_pos", k_pos, skv),
+                       ("k_valid", k_valid, skv)):
+        if t.dtype != torch.int32 or t.shape != (n,):
+            raise ValueError(f"{name} must be int32 of shape ({n},), got "
+                             f"{t.dtype} {tuple(t.shape)}")
+    tensors = (q, k, v, q_pos, k_pos, k_valid)
+    if any(not t.is_contiguous() for t in tensors):
+        raise ValueError("flash attention operands must be contiguous")
+    if any(t.device != q.device for t in tensors):
+        raise ValueError("flash attention operands must share one device")
+    return b, h, hkv, sq, skv, d
+
+
+def flash_attention_bhsd(q, k, v, q_pos, k_pos, k_valid, *, causal=True,
+                         window=0, softcap=0.0):
+    """q: (B,H,Sq,D), k/v: (B,Hkv,Skv,D) -> (B,H,Sq,D)."""
+    if q.device.type == "cpu":
+        return R.flash_attention_ref(q, k, v, q_pos, k_pos, k_valid,
+                                     causal=causal, window=window,
+                                     softcap=softcap)
+    if q.device.type != "cuda":
+        raise ValueError(f"no flash attention kernel for {q.device}")
+    b, h, hkv, sq, skv, d = check_flash_contract(q, k, v, q_pos, k_pos,
+                                                 k_valid)
+    lib = _build.load_library()
+    out = torch.empty_like(q)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.repro_flash_attention(
+            _build.dtype_code(q.dtype), q.data_ptr(), k.data_ptr(),
+            v.data_ptr(), q_pos.data_ptr(), k_pos.data_ptr(),
+            k_valid.data_ptr(), out.data_ptr(), b, h, hkv, sq, skv, d,
+            int(bool(causal)), int(window), float(softcap),
+            1.0 / math.sqrt(d), stream)
+    _build.check(err, "flash_attention_bhsd")
+    flash_attention_bhsd.launches += 1
+    return out
+
+
+flash_attention_bhsd.launches = 0

@@ -1,0 +1,4 @@
+"""Models of the port: layer primitives, the stack, and the facade."""
+from repro_torch.models.model import Model, build_model
+
+__all__ = ["Model", "build_model"]
