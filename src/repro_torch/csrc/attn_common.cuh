@@ -1,13 +1,17 @@
 // Shared pieces of the port's attention kernels (sm_90a, plain CUDA cores).
 //
-// Storage types are float and __nv_bfloat16; every kernel computes in f32.
-// The C entry points take a dtype code (0 = float32, 1 = bfloat16), launch
-// on the caller's stream, allocate nothing, and return cudaGetLastError().
+// Activation types are float and __nv_bfloat16; paged KV pools hold the
+// activation type or int8 with one f32 scale per (row, kv head).  Every
+// kernel computes in f32.  The C entry points take a dtype code (0 =
+// float32, 1 = bfloat16) for the activations, a null or non-null scale
+// pointer for the pools, launch on the caller's stream, allocate nothing,
+// and return cudaGetLastError().
 //
 // tile_attention() is the online-softmax engine behind flash_attention.cu
 // and paged_prefill.cu: one block of 128 threads owns BQ = 64 query rows,
 // two threads per row.  The block walks the keys in tiles of BK = 32: it
-// stages the tile's K and V in shared memory as f32, each thread scores its
+// stages the tile's K and V in shared memory as f32 (int8 pools are
+// dequantized here, one row scale per key), each thread scores its
 // row against its half of the tile's keys, the pair exchanges its row max
 // and row sum with one shuffle, and each thread accumulates half of the
 // row's output columns (interleaved, so the two threads of a pair read
@@ -30,6 +34,18 @@ constexpr unsigned kFull = 0xffffffffu;
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
   return __bfloat162float(x);
+}
+__device__ __forceinline__ float to_f32(int8_t x) { return (float)x; }
+
+// One pool element in f32: fp pools as stored, int8 pools times the row
+// scale (one rounding, as the plain version's ``q.float() * scale``).
+template <typename TP>
+__device__ __forceinline__ float pool_f32(TP x, float scale) {
+  return to_f32(x);
+}
+template <>
+__device__ __forceinline__ float pool_f32<int8_t>(int8_t x, float scale) {
+  return __fmul_rn((float)x, scale);
 }
 
 template <typename T>
@@ -68,7 +84,7 @@ struct TileSmem {
 //   int qpos(int r);                          absolute position of row r
 //   void key_meta(int t, int& kpos, int& kvalid);
 //   bool admit(int qpos, int kpos);           mask beyond k_valid
-//   const T* k_row(int t); const T* v_row(int t);
+//   void load_kv(int t, int d, float& k, float& v);  element d of key t, f32
 template <typename T, int D, typename Prob>
 __device__ __forceinline__ void tile_attention(const Prob& pb, float scale,
                                                float softcap) {
@@ -122,10 +138,7 @@ __device__ __forceinline__ void tile_attention(const Prob& pb, float scale,
       const int j = idx / D, d = idx - (idx / D) * D;
       const int t = t0 + j;
       float kx = 0.f, vx = 0.f;
-      if (t < pb.n_keys) {
-        kx = to_f32(pb.k_row(t)[d]);
-        vx = to_f32(pb.v_row(t)[d]);
-      }
+      if (t < pb.n_keys) pb.load_kv(t, d, kx, vx);
       Ks[j * S::kKStride + d] = kx;
       Vs[j * D + d] = vx;
     }

@@ -47,8 +47,10 @@ struct FlashProb {
     if (window > 0 && rel >= window) return false;
     return true;
   }
-  __device__ const T* k_row(int t) const { return k + (size_t)t * D; }
-  __device__ const T* v_row(int t) const { return v + (size_t)t * D; }
+  __device__ void load_kv(int t, int d, float& kx, float& vx) const {
+    kx = to_f32(k[(size_t)t * D + d]);
+    vx = to_f32(v[(size_t)t * D + d]);
+  }
 };
 
 template <typename T, int D>

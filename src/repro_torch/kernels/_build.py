@@ -36,14 +36,15 @@ SIGNATURES = {
     # causal, window, softcap, scale, stream
     "repro_flash_attention": [_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                               _I, _I, _I, _I, _I, _F, _F, _P],
-    # dtype, q, k_pages, v_pages, bt, out, B, Hkv, G, S, D, P, NB, offset,
-    # softcap, scale, stream
-    "repro_paged_prefill": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                            _I, _I, _F, _F, _P],
-    # dtype, q, k_new, v_new, k_pages, v_pages, bt, positions, inv_freq,
-    # out, B, Hkv, G, D, P, NB, softcap, scale, stream
+    # dtype, q, k_pages, v_pages, k_scales, v_scales, bt, offsets, out,
+    # B, Hkv, G, S, D, P, NB, softcap, scale, stream
+    "repro_paged_prefill": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                            _I, _I, _I, _I, _F, _F, _P],
+    # dtype, q, k_new, v_new, k_pages, v_pages, k_scales, v_scales, bt,
+    # positions, inv_freq, out, B, Hkv, G, D, P, NB, softcap, scale, stream
     "repro_fused_paged_decode": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                                 _I, _I, _I, _I, _I, _I, _F, _F, _P],
+                                 _P, _P, _I, _I, _I, _I, _I, _I, _F, _F,
+                                 _P],
 }
 
 _lib = None            # the loaded library (one per process)

@@ -41,6 +41,32 @@ def decode_rope_ref(x, positions, theta):
     return out.to(x.dtype)
 
 
+def quantize_int8_rows(x):
+    """Symmetric per-row int8 quantization over the last axis.
+
+    x: (..., D) -> (q int8 (..., D), scale f32 (...,)).  Zero rows get
+    scale 1 so dequant is exact.  ``torch.round`` rounds half to even, as
+    ``jnp.round`` does, so ties quantize as on the JAX side.
+
+    The scale is the correctly rounded quotient amax / 127 on every
+    device, as the kernels compute it (``__fdiv_rn``).  The divisor is a
+    tensor on purpose: PyTorch's CUDA kernel for ``tensor / 127.0``
+    multiplies by the rounded reciprocal instead, which is 1 ulp off for
+    a few percent of inputs (as is ``amax / 127.0`` under ``jax.jit``,
+    which XLA rewrites the same way)."""
+    xf = x.to(torch.float32)
+    amax = xf.abs().amax(dim=-1)
+    scale = torch.where(amax > 0.0, amax / torch.full_like(amax, 127.0),
+                        torch.ones_like(amax))
+    q = torch.round(xf / scale[..., None]).to(torch.int8)
+    return q, scale
+
+
+def dequantize_int8(q, scale):
+    """Inverse of ``quantize_int8_rows``: (..., D) int8 + (...,) f32."""
+    return q.to(torch.float32) * scale[..., None]
+
+
 def _gather_pages(k_pages, v_pages, bt, k_scales, v_scales, b, nb, p, hk, d):
     """Gather (and dequantize, when scales are given) pool pages through
     in-range block tables into logical-ordered (B, NB*P, Hkv, D) f32."""
@@ -104,19 +130,22 @@ def paged_attention_ref(q, k_pages, v_pages, block_tables, lengths, *,
 
 
 def fused_paged_decode_ref(q, k_new, v_new, k_pages, v_pages, block_tables,
-                           positions, *, theta, softcap=0.0):
-    """RoPE + page write + decode attention in one step (fp pools).
+                           positions, *, theta, softcap=0.0, k_scales=None,
+                           v_scales=None):
+    """RoPE + page write + decode attention in one step.
 
     q: (B, Hkv, G, D) un-roped; k_new/v_new: (B, Hkv, D) un-roped fresh
     K/V; pools (N, P, Hkv, D); block_tables (B, NB) int32 in range;
-    positions (B,) int32 write position per slot.  Ropes q and k_new at
-    ``positions``, writes the fresh row into page
-    ``bt[b, min(pos // P, NB-1)]`` row ``pos % P`` (cast to the pool
-    dtype), then attends at ``lengths = positions + 1``.
+    positions (B,) int32 write position per slot; k_scales/v_scales
+    (N, P, Hkv) f32 on int8 pools (None on fp).  Ropes q and k_new at
+    ``positions`` (the roped key comes back in the activation dtype),
+    writes the fresh row into page ``bt[b, min(pos // P, NB-1)]`` row
+    ``pos % P`` -- cast to the pool dtype, or on int8 pools quantized
+    with its row scale -- then attends at ``lengths = positions + 1``.
 
     Unlike the JAX version, which returns new pools, this one writes the
-    fresh rows into ``k_pages``/``v_pages`` IN PLACE and returns them
-    (``(out, k_pages, v_pages)``)."""
+    fresh rows (and scales) into the given tensors IN PLACE and returns
+    them: ``(out, k_pages, v_pages, k_scales, v_scales)``."""
     b, hk, g, d = q.shape
     page = k_pages.shape[1]
     nb = block_tables.shape[1]
@@ -128,20 +157,26 @@ def fused_paged_decode_ref(q, k_new, v_new, k_pages, v_pages, block_tables,
     blk = torch.clamp(positions.long() // page, 0, nb - 1)
     pages = torch.gather(block_tables.long(), 1, blk[:, None])[:, 0]
     rows = positions.long() % page
-    k_pages[pages, rows] = kr.to(cdt)
-    v_pages[pages, rows] = v_new.to(cdt)
+    if k_scales is not None:
+        kq, ks = quantize_int8_rows(kr)
+        vq, vs = quantize_int8_rows(v_new)
+        k_pages[pages, rows] = kq
+        v_pages[pages, rows] = vq
+        k_scales[pages, rows] = ks
+        v_scales[pages, rows] = vs
+    else:
+        k_pages[pages, rows] = kr.to(cdt)
+        v_pages[pages, rows] = v_new.to(cdt)
     out = paged_attention_ref(qr, k_pages, v_pages, block_tables,
-                              positions + 1, softcap=softcap)
-    return out, k_pages, v_pages
+                              positions + 1, softcap=softcap,
+                              k_scales=k_scales, v_scales=v_scales)
+    return out, k_pages, v_pages, k_scales, v_scales
 
 
-def paged_prefill_attention_ref(q, k_pages, v_pages, block_tables, offset,
-                                *, softcap=0.0, k_scales=None,
-                                v_scales=None):
-    """Suffix/chunk prefill attention over a paged pool.  q: (B, Hkv, G, S,
-    D) at positions ``offset .. offset+S-1`` (their K/V already in the
-    pool); block_tables (B, NB) over every mapped block; offset int.
-    Pure causal mask ``kpos <= qpos``.  Returns (B, Hkv, G, S, D)."""
+def _paged_window_attention(q, k_pages, v_pages, block_tables, qpos, *,
+                            softcap, k_scales, v_scales):
+    """S queries per slot at absolute positions ``qpos`` ((S,) shared or
+    (B, S) per slot) attending every mapped position ``kpos <= qpos``."""
     b, hk, g, s, d = q.shape
     n, p = k_pages.shape[:2]
     nb = block_tables.shape[1]
@@ -153,10 +188,39 @@ def paged_prefill_attention_ref(q, k_pages, v_pages, block_tables, offset,
                       k) / math.sqrt(d)
     if softcap > 0:
         sc = softcap * torch.tanh(sc / softcap)
-    qpos = int(offset) + torch.arange(s, device=q.device)       # (S,)
     kpos = torch.arange(nb * p, device=q.device)                # (T,)
-    ok = kpos[None, :] <= qpos[:, None]                         # (S, T)
-    sc = torch.where(ok[None, None, None], sc, NEG_INF)
+    ok = kpos <= qpos[..., None]                                # (.., S, T)
+    if ok.dim() == 3:                                           # per slot
+        ok = ok[:, None, None]
+    sc = torch.where(ok, sc, NEG_INF)
     probs = torch.softmax(sc, dim=-1)
     out = torch.einsum("bhgst,bthd->bhgsd", probs.to(dt), v.to(dt))
     return out.to(dt)
+
+
+def paged_prefill_attention_ref(q, k_pages, v_pages, block_tables, offset,
+                                *, softcap=0.0, k_scales=None,
+                                v_scales=None):
+    """Suffix/chunk prefill attention over a paged pool.  q: (B, Hkv, G, S,
+    D) at positions ``offset .. offset+S-1`` (their K/V already in the
+    pool); block_tables (B, NB) over every mapped block; offset int;
+    k_scales/v_scales (N, P, Hkv) on int8 pools.  Pure causal mask
+    ``kpos <= qpos``.  Returns (B, Hkv, G, S, D)."""
+    qpos = int(offset) + torch.arange(q.shape[3], device=q.device)
+    return _paged_window_attention(q, k_pages, v_pages, block_tables, qpos,
+                                   softcap=softcap, k_scales=k_scales,
+                                   v_scales=v_scales)
+
+
+def paged_verify_attention_ref(q, k_pages, v_pages, block_tables, offset,
+                               *, softcap=0.0, k_scales=None,
+                               v_scales=None):
+    """Speculative-verify attention over a paged pool: as
+    ``paged_prefill_attention_ref`` with a PER-SLOT ``offset`` (B,) --
+    slot b's S-token window sits at ``offset[b] .. offset[b]+S-1``."""
+    s = q.shape[3]
+    qpos = offset.to(device=q.device, dtype=torch.int64)[:, None] \
+        + torch.arange(s, device=q.device)[None, :]            # (B, S)
+    return _paged_window_attention(q, k_pages, v_pages, block_tables, qpos,
+                                   softcap=softcap, k_scales=k_scales,
+                                   v_scales=v_scales)

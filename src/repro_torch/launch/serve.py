@@ -2,6 +2,8 @@
 monolithic continuous-batching engine, on the GPU by default.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --paged
+    PYTHONPATH=src python -m repro_torch.launch.serve --paged \\
+        --kv-dtype int8 --speculate 4
     PYTHONPATH=src python -m repro_torch.launch.serve --layers 2 --paged \\
         --requests 4 --new-tokens 8
 
@@ -12,8 +14,11 @@ seeded ``torch.Generator``; ``--layers N`` cuts the depth to N layers.
 (the fused decode and paged prefill kernels); without it the dense slot
 cache (flash attention at admission).  ``--prefix-cache`` /
 ``--no-prefix-cache`` (paged only; default on) toggles prefix compute
-reuse.  ``--device cpu`` runs the plain PyTorch versions instead of the
-CUDA kernels.
+reuse.  ``--kv-dtype int8`` (paged only) stores the pools as int8 rows
+with per-row scales; ``--speculate K`` drafts up to K tokens per slot by
+prompt lookup and verifies them in one batched step (``--no-speculate``
+forces it off).  ``--device cpu`` runs the plain PyTorch versions instead
+of the CUDA kernels.
 """
 from __future__ import annotations
 
@@ -51,11 +56,24 @@ def main(argv=None):
                     default=None,
                     help="with --paged: prefill only the suffix of a warm "
                          "prefix (default: on)")
+    ap.add_argument("--speculate", type=int, default=0, metavar="K",
+                    help="speculative decode: draft up to K tokens per slot "
+                         "(prompt-lookup n-grams) and verify them in one "
+                         "batched step; greedy verify keeps streams equal "
+                         "to plain decode (0: disabled)")
+    ap.add_argument("--no-speculate", action="store_const", const=0,
+                    dest="speculate", help="force speculation off")
+    ap.add_argument("--kv-dtype", default="fp", choices=("fp", "int8"),
+                    help="with --paged: K/V block-pool storage dtype; int8 "
+                         "adds per-row scales for ~1.9x capacity in bf16")
     ap.add_argument("--device", default="cuda",
                     help="cuda (hand-written kernels) or cpu (plain "
                          "PyTorch versions)")
     args = ap.parse_args(argv)
 
+    if args.kv_dtype != "fp" and not args.paged:
+        raise SystemExit("--kv-dtype int8 requires --paged: quantized K/V "
+                         "blocks live in the paged block pool")
     if args.prefix_cache and not args.paged:
         raise SystemExit("--prefix-cache requires --paged: prefix blocks "
                          "live in the paged block pool")
@@ -73,7 +91,8 @@ def main(argv=None):
     eng = ServingEngine(model, params, slots=args.slots,
                         max_seq=args.max_seq, paged=args.paged,
                         page_size=args.page_size, num_blocks=args.num_blocks,
-                        prefix_cache=prefix_cache)
+                        prefix_cache=prefix_cache, speculate=args.speculate,
+                        kv_dtype=args.kv_dtype)
     eos = None if args.eos < 0 else args.eos
     rng = np.random.default_rng(0)
     t0 = time.perf_counter()
@@ -95,6 +114,16 @@ def main(argv=None):
         if c["prefix_cache"]:
             extra += (f", prefix: hit_rate={c['prefill_hit_rate']:.2f}"
                       f" reused_tok={c['reused_prefill_tokens']}")
+        if c["kv_dtype"] != "fp":
+            extra += (f", kv={c['kv_dtype']}"
+                      f" capacity_x={c['kv_capacity_x']:.1f}")
+    if st["spec_steps"]:
+        extra += (f", spec k={args.speculate}: "
+                  f"tok_per_step={st['tokens_per_step']:.2f}"
+                  f" accept={st['acceptance_rate']:.2f}")
+    elif args.speculate:
+        extra += (", spec: no drafts" if eng._spec_k else
+                  ", spec: gated off (family not verify-decomposable)")
     print(f"[serve] {len(done)} requests, {st['gen_tokens']} tokens, "
           f"{st['gen_tokens'] / wall:.1f} tok/s, "
           f"occupancy={st['slot_occupancy']:.2f}, "

@@ -24,6 +24,7 @@ import torch
 
 from repro_torch.backend import dispatch as kops
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels import ref as R
 
 NEG_INF = -1e30
 
@@ -157,15 +158,33 @@ def ring_k_positions(last, W: int):
 
 
 def _paged_write(kv_cache, pages, rows, k, v):
-    """Scatter fresh K/V rows (cast to the pool dtype) into pool pages, in
-    place.  ``pages``/``rows`` index physical (page, row) per fresh token;
-    pages outside the pool drop the write, as JAX's ``mode="drop"`` does."""
+    """Scatter fresh K/V rows into pool pages, in place: cast to the pool
+    dtype, or on int8 pools quantized with their row scales
+    (``k_scales``/``v_scales`` written alongside).  ``pages``/``rows``
+    index physical (page, row) per fresh token, with the leading shape of
+    ``k``/``v``; pages outside the pool drop the write, as JAX's
+    ``mode="drop"`` does."""
     kp, vp = kv_cache["k_pages"], kv_cache["v_pages"]
     keep = (pages >= 0) & (pages < kp.shape[0])
-    pages, rows = pages[keep], rows[keep]
-    kp[pages, rows] = k[keep].to(kp.dtype)
-    vp[pages, rows] = v[keep].to(vp.dtype)
+    pages, rows, k, v = pages[keep], rows[keep], k[keep], v[keep]
+    if "k_scales" in kv_cache:
+        kq, ks = R.quantize_int8_rows(k)
+        vq, vs = R.quantize_int8_rows(v)
+        kp[pages, rows] = kq
+        vp[pages, rows] = vq
+        kv_cache["k_scales"][pages, rows] = ks
+        kv_cache["v_scales"][pages, rows] = vs
+    else:
+        kp[pages, rows] = k.to(kp.dtype)
+        vp[pages, rows] = v.to(vp.dtype)
     return kv_cache
+
+
+def _scale_kw(cache):
+    """Dequant-scale kwargs for the paged dispatch calls (empty on fp)."""
+    if "k_scales" in cache:
+        return {"k_scales": cache["k_scales"], "v_scales": cache["v_scales"]}
+    return {}
 
 
 def multi_head_attention(p, x, cfg: ModelConfig, *, kv_cache=None,
@@ -180,11 +199,15 @@ def multi_head_attention(p, x, cfg: ModelConfig, *, kv_cache=None,
         lock-step decode (write, then attend the ring);
       * dense cache, (B,) ``cache_index``: per-slot decode, each slot at its
         own position;
-      * paged cache ``{"k_pages", "v_pages"}: (N, P, Hkv, D)`` with
+      * paged cache ``{"k_pages", "v_pages"}: (N, P, Hkv, D)`` (int8
+        pools add ``k_scales``/``v_scales`` (N, P, Hkv)) with
         ``block_tables``: one-token per-slot decode through the fused
-        RoPE + page-write + attention kernel, or batch-1 suffix prefill
-        (scalar ``cache_index`` = tokens already cached; K/V written through
-        ``write_tables``, then every query attends all mapped pages).
+        RoPE + page-write + attention kernel; a per-slot window of S > 1
+        tokens (the speculative verify: written at each slot's positions,
+        then attended causally over the slot's pages); or batch-1 suffix
+        prefill (scalar ``cache_index`` = tokens already cached; K/V
+        written through ``write_tables``, then every query attends all
+        mapped pages).
     Returns (out, kv_cache) -- the cache written in place."""
     b, s, _ = x.shape
     h, hk, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
@@ -224,15 +247,28 @@ def multi_head_attention(p, x, cfg: ModelConfig, *, kv_cache=None,
                 "paged KV caches are addressed through block_tables")
         page = kv_cache["k_pages"].shape[1]
         if fuse_decode:
-            out, _, _ = kops.dispatch_fused_paged_decode(
+            out = kops.dispatch_fused_paged_decode(
                 q, k, v, kv_cache["k_pages"], kv_cache["v_pages"],
                 block_tables, offset, theta=cfg.rope_theta,
-                softcap=cfg.attn_logit_softcap)
+                softcap=cfg.attn_logit_softcap, **_scale_kw(kv_cache))[0]
             out = out.to(dt)
         elif per_slot:
-            raise NotImplementedError(
-                "paged decode runs one token per slot through the fused "
-                "kernel (speculative verify windows are not ported)")
+            # speculative verify: each slot writes its S-token window at
+            # its own positions (blocks past the table go to the drop
+            # sentinel), then every window query attends the slot's
+            # mapped prefix under a per-slot causal mask
+            n = kv_cache["k_pages"].shape[0]
+            nb = block_tables.shape[1]
+            blk = pos_bs // page                                  # (B, S)
+            phys = torch.where(
+                blk < nb,
+                torch.gather(block_tables.long(), 1,
+                             torch.clamp(blk, 0, nb - 1)), n)
+            _paged_write(kv_cache, phys, pos_bs % page, k, v)
+            out = kops.dispatch_paged_verify_attention(
+                q, kv_cache["k_pages"], kv_cache["v_pages"], block_tables,
+                offset, softcap=cfg.attn_logit_softcap,
+                **_scale_kw(kv_cache)).to(dt)
         else:
             if b != 1:
                 raise NotImplementedError(
@@ -250,7 +286,8 @@ def multi_head_attention(p, x, cfg: ModelConfig, *, kv_cache=None,
             _paged_write(kv_cache, phys, rows, k[0], v[0])
             out = kops.dispatch_paged_prefill_attention(
                 q, kv_cache["k_pages"], kv_cache["v_pages"], block_tables,
-                offset, softcap=cfg.attn_logit_softcap).to(dt)
+                offset, softcap=cfg.attn_logit_softcap,
+                **_scale_kw(kv_cache)).to(dt)
     else:
         kc, vc = kv_cache["k"], kv_cache["v"]
         W = kc.shape[1]

@@ -130,10 +130,12 @@ class Model:
 
     def decode_step(self, params, cache, tokens, cache_index,
                     block_tables=None):
-        """One decode step.  tokens (B, 1); ``cache_index`` an int (all
-        rows in lock-step) or a (B,) vector of per-slot positions;
-        ``block_tables`` (B, NB) when ``cache`` is pool-backed.  Returns
-        (logits (B, 1, V), cache written in place)."""
+        """One decode step.  tokens (B, S): S = 1 for plain decode, or
+        S = K+1 for a speculative-verify window (current token + K drafted
+        tokens per slot, scored in one step, at per-slot ``cache_index``).
+        ``cache_index`` an int (all rows in lock-step) or a (B,) vector of
+        per-slot positions; ``block_tables`` (B, NB) when ``cache`` is
+        pool-backed.  Returns (logits (B, S, V), cache written in place)."""
         x = self._embed(params, tokens)
         if not isinstance(cache_index, int):
             cache_index = torch.as_tensor(cache_index, device=self.device)

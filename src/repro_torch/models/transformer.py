@@ -115,20 +115,46 @@ def make_paged_cache(cfg: ModelConfig, batch: int, max_seq: int, *,
     "v_pages"}}`` of shape (num_groups, num_blocks + 1, page_size, Hkv, D).
     The extra page is the write sink the manager's sentinel
     (``num_blocks``) indexes: writes that cannot be dropped land there,
-    and no table maps it for reading."""
+    and no table maps it for reading.
+
+    kv_dtype: "fp" stores K/V at ``dtype``; "int8" stores int8 rows plus
+    per-(row, kv head) f32 dequant scales, ``k_scales``/``v_scales`` of
+    shape (num_groups, num_blocks + 1, page_size, Hkv)
+    (``paged_kv_capacity_ratio`` more tokens per byte)."""
     if max_seq % page_size:
         raise ValueError(f"max_seq={max_seq} must be a multiple of "
                          f"page_size={page_size}")
-    if kv_dtype != "fp":
-        raise NotImplementedError("int8 KV pools are not ported yet")
-    dt = getattr(torch, dtype or cfg.dtype)
+    if kv_dtype not in ("fp", "int8"):
+        raise ValueError(f"kv_dtype={kv_dtype!r} must be 'fp' or 'int8'")
+    dt = torch.int8 if kv_dtype == "int8" else getattr(torch,
+                                                       dtype or cfg.dtype)
     shp = (cfg.num_groups, num_blocks + 1, page_size, cfg.num_kv_heads,
            cfg.head_dim)
-    return {f"b{j}": {"kv": {"k_pages": torch.zeros(shp, dtype=dt,
-                                                    device=device),
-                             "v_pages": torch.zeros(shp, dtype=dt,
-                                                    device=device)}}
+
+    def leaves():
+        kv = {"k_pages": torch.zeros(shp, dtype=dt, device=device),
+              "v_pages": torch.zeros(shp, dtype=dt, device=device)}
+        if kv_dtype == "int8":
+            for n in ("k_scales", "v_scales"):
+                kv[n] = torch.zeros(shp[:-1], dtype=torch.float32,
+                                    device=device)
+        return kv
+
+    return {f"b{j}": {"kv": leaves()}
             for j, _ in enumerate(cfg.block_pattern)}
+
+
+def paged_kv_capacity_ratio(cfg: ModelConfig, kv_dtype: str,
+                            dtype=None) -> float:
+    """Tokens-per-byte multiplier of a ``kv_dtype`` pool over the fp
+    layout at the same byte budget: int8 rows cost ``head_dim`` bytes plus
+    one f32 scale against ``head_dim * itemsize`` fp bytes (1.94x for bf16
+    pools at head_dim 128)."""
+    if kv_dtype == "fp":
+        return 1.0
+    itemsize = getattr(torch, dtype or cfg.dtype).itemsize
+    d = cfg.head_dim
+    return (d * itemsize) / float(d + 4)
 
 
 def _block_is_paged(sub) -> bool:

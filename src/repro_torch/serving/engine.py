@@ -1,21 +1,29 @@
 """Serving engine of the port: per-slot continuous batching, monolithic and
-synchronous, over a dense or a paged KV cache.
+synchronous, over a dense or a paged KV cache, with int8 paged pools and
+prompt-lookup speculative decoding.
 
 The counterpart of the JAX package's ``serving/engine.py`` without plans,
-speculation, the overlapped runtime, int8 pools, adaptive re-planning and
-tracing (the constructor raises on each of them).  The engine owns a
+the overlapped runtime, adaptive re-planning and tracing (the constructor
+raises on each of them).  The engine owns a
 slot-indexed cache for its whole lifetime.  Admission prefills one request
 (batch 1) into a free slot: on a dense cache through ``prefill_into_slot``
 (flash attention, then a slot scatter), on a paged cache through
 ``prefill_suffix_paged`` (only the suffix a warm prefix leaves, written
 straight into the pool).  Every tick then runs one batched greedy decode
 step over all slots at per-slot positions; on a paged cache that step is
-the fused RoPE + page-write + attention kernel.  A retiring slot never
-interrupts the others.
+the fused RoPE + page-write + attention kernel.  With ``speculate=K`` a
+tick whose drafter finds something runs one batched VERIFY step instead:
+every slot scores a (K+1)-token window (its current token and up to K
+drafted tokens) at its own positions, keeps the longest drafted prefix the
+model agrees with, and rolls the rejected tail back.  With
+``kv_dtype="int8"`` the paged pools hold int8 rows with per-row f32
+scales.  A retiring slot never interrupts the others.
 
 Guarantee (held by ``tests/test_torch_serving.py``): each request's token
-stream equals an isolated one-shot greedy decode of that request, and the
-JAX engine's stream for it.
+stream equals the JAX engine's stream for it and, on fp caches, an
+isolated one-shot greedy decode of that request, with or without
+speculation.  int8 pools change the numbers the decode sees, so their
+streams are held to the JAX engine's int8 streams.
 
 The cache is updated in place: the steps return the same cache object.
 """
@@ -45,6 +53,39 @@ def make_serve_step(model: Model):
         return nxt[:, None], logits, cache
 
     return serve_step
+
+
+def make_verify_step(model: Model):
+    """verify_step(params, cache, tokens, cache_index, block_tables=None)
+    -> (argmax_tokens (B, K+1), cache) -- one speculative-verify step over
+    the (B, K+1) window per slot (current token + K drafted tokens): the
+    argmaxes score every window position in one batched step, exactly as
+    K+1 sequential greedy decodes would."""
+
+    def verify_step(params, cache, tokens, cache_index, block_tables=None):
+        logits, cache = model.decode_step(params, cache, tokens, cache_index,
+                                          block_tables=block_tables)
+        return torch.argmax(logits, dim=-1).to(torch.int32), cache
+
+    return verify_step
+
+
+def ngram_draft(ctx, k: int, max_ngram: int = 3) -> List[int]:
+    """Model-free prompt-lookup drafting: find the most recent earlier
+    occurrence of the context's trailing n-gram (longest n first) and
+    propose the up-to-``k`` tokens that followed it.  Returns [] when the
+    context never repeats -- the tick then runs plain decode."""
+    n_ctx = len(ctx)
+    if k <= 0 or n_ctx < 2:
+        return []
+    for n in range(min(max_ngram, n_ctx - 1), 0, -1):
+        tail = ctx[n_ctx - n:]
+        for i in range(n_ctx - n - 1, -1, -1):
+            if np.array_equal(ctx[i:i + n], tail):
+                follow = ctx[i + n:i + n + k]
+                if len(follow):
+                    return [int(t) for t in follow]
+    return []
 
 
 def make_prefill_slot_step(model: Model, max_seq: int):
@@ -104,9 +145,18 @@ class ServingEngine:
     ``prefix_cache`` turns on registry lookups and suffix-only prefill on
     warm prefixes.
 
-    The remaining fields exist to name the JAX engine's features this port
-    does not have yet: anything but their defaults raises
-    NotImplementedError.
+    speculate: draft up to K tokens per slot by prompt lookup
+    (``ngram_draft``) and verify them in one batched step; greedy verify
+    keeps every stream equal to plain decode.  Forced to 0 where a window
+    cannot be replayed through the cache (``supports_prefix_compute_reuse``
+    false).
+
+    kv_dtype: "int8" stores the paged pools as int8 rows with per-row f32
+    scales (needs ``paged=True``); "fp" at the model dtype.
+
+    ``plan``, ``overlap``, ``adapt`` and ``trace`` name the JAX engine's
+    features this port does not have yet: anything but their defaults
+    raises NotImplementedError.
     """
     model: Model
     params: Any
@@ -126,15 +176,13 @@ class ServingEngine:
 
     def __post_init__(self):
         for name, off in (("plan", self.plan is None),
-                          ("speculate", self.speculate == 0),
                           ("overlap", not self.overlap),
-                          ("kv_dtype", self.kv_dtype == "fp"),
                           ("adapt", self.adapt is None),
                           ("trace", not self.trace)):
             if not off:
                 raise NotImplementedError(
                     f"ServingEngine({name}=...) is not ported yet: the port "
-                    f"serves the monolithic synchronous engine with fp KV")
+                    f"serves the monolithic synchronous engine")
         self.cfg = self.model.cfg
         self.device = torch.device(self.model.device)
         self.kernel_path = dispatch.kernel_path(self.device)
@@ -142,6 +190,21 @@ class ServingEngine:
         self._prefill_slot = make_prefill_slot_step(self.model, self.max_seq)
         self._suffix_reuse = (self.paged and self.prefix_cache
                               and T.supports_prefix_compute_reuse(self.cfg))
+        # a verify window replays K+1 positions through the cache: exact
+        # only where every mixer is global attention and the FFN dense
+        self._spec_k = (self.speculate
+                        if (self.speculate > 0
+                            and T.supports_prefix_compute_reuse(self.cfg))
+                        else 0)
+        if self._spec_k:
+            self._verify_step = make_verify_step(self.model)
+        if self.kv_dtype not in ("fp", "int8"):
+            raise ValueError(
+                f"kv_dtype={self.kv_dtype!r} must be 'fp' or 'int8'")
+        if self.kv_dtype != "fp" and not self.paged:
+            raise ValueError(
+                "kv_dtype='int8' quantizes paged K/V pools -- pass "
+                "paged=True")
         self._pager = None
         if self.paged:
             if self.max_seq % self.page_size:
@@ -154,10 +217,12 @@ class ServingEngine:
                      or self.slots * (self.max_seq // self.page_size))
             self._pager = PagedCacheManager(
                 self.slots, self.max_seq, self.page_size, total,
-                prefix_cache=self.prefix_cache)
+                prefix_cache=self.prefix_cache, kv_dtype=self.kv_dtype,
+                kv_capacity_ratio=T.paged_kv_capacity_ratio(
+                    self.cfg, self.kv_dtype))
             self._cache = self.model.init_paged_cache(
                 self.slots, self.max_seq, page_size=self.page_size,
-                num_blocks=total)
+                num_blocks=total, kv_dtype=self.kv_dtype)
         else:
             self._cache = self.model.init_cache(self.slots, self.max_seq)
         self._pos = np.zeros((self.slots,), np.int32)    # tokens in cache
@@ -222,6 +287,9 @@ class ServingEngine:
         self.prefill_batch_sizes: List[int] = []
         self.prefill_token_counts: List[int] = []
         self.ticks = 0
+        self.spec_steps = 0               # decode ticks that ran a verify
+        self.spec_proposed = 0            # drafted tokens offered to verify
+        self.spec_accepted = 0            # drafted tokens accepted
         self.phase_time = {"admission": 0.0, "prefill": 0.0, "decode": 0.0,
                            "idle": 0.0, "host_sync": 0.0}
         self._prefill_window = 0.0
@@ -279,8 +347,17 @@ class ServingEngine:
             "gen_tokens": gen,
             "decode_steps": self.decode_steps,
             "decode_tokens": self.decode_tokens,
+            # per-slot tokens per decode step: exactly 1.0 for plain
+            # decode, > 1 when speculation accepts drafted tokens
             "tokens_per_step": (self.decode_tokens
                                 / max(self._decode_slot_steps, 1)),
+            "spec_steps": self.spec_steps,
+            "spec_proposed": self.spec_proposed,
+            "spec_accepted": self.spec_accepted,
+            "acceptance_rate": (self.spec_accepted
+                                / max(self.spec_proposed, 1)),
+            "spec_acceptance_rate": (self.spec_accepted
+                                     / max(self.spec_proposed, 1)),
             "slot_occupancy": self._occupied_step_sum / cap,
             "throughput_tok_s": gen / wall if wall > 0 else 0.0,
             "ttft_s": [r.t_first - r.t_submit for r in reqs],
@@ -322,7 +399,10 @@ class ServingEngine:
         the pool cannot supply the prompt's blocks yet."""
         plen = len(req.prompt)
         if self._pager is not None:
-            ap = self._pager.admit(slot, req.prompt, req.max_new_tokens,
+            # speculation headroom: a verify window may write K positions
+            # past the plain-decode frontier before rolling back
+            ap = self._pager.admit(slot, req.prompt,
+                                   req.max_new_tokens + self._spec_k,
                                    reuse_compute=self._suffix_reuse)
             if ap is None:
                 return False
@@ -375,21 +455,133 @@ class ServingEngine:
     def _decode_once(self):
         """One batched decode step at per-slot positions.  Idle slots ride
         along at fixed shape: on a paged cache their tables are all
-        sentinel, so their writes land in the sink page."""
+        sentinel, so their writes land in the sink page.  With
+        speculation on, a tick whose drafter finds something runs a
+        batched verify step instead."""
         act = self.active
-        bt = None
-        if self._pager is not None:
-            self._prepare_paged_writes()
-            bt = torch.from_numpy(self._pager.table_matrix()).to(self.device)
-        nxt, _, self._cache = self.serve_step(
-            self.params, self._cache,
-            torch.from_numpy(self._cur).to(self.device),
-            torch.from_numpy(self._pos).to(self.device), bt)
-        arr = self._sync(nxt)
-        self._collect_decoded(arr, time.perf_counter())
+        drafts = self._draft_all() if self._spec_k else None
+        if drafts is not None:
+            self._decode_verify(drafts)
+        else:
+            bt = None
+            if self._pager is not None:
+                self._prepare_paged_writes()
+                bt = torch.from_numpy(self._pager.table_matrix()).to(
+                    self.device)
+            nxt, _, self._cache = self.serve_step(
+                self.params, self._cache,
+                torch.from_numpy(self._cur).to(self.device),
+                torch.from_numpy(self._pos).to(self.device), bt)
+            arr = self._sync(nxt)
+            self._collect_decoded(arr, time.perf_counter())
         self.decode_steps += 1
         self._decode_slot_steps += act
         self._occupied_step_sum += self.active
+
+    # -- speculative decode ------------------------------------------------
+    def _draft_all(self):
+        """Prompt-lookup drafts for every active slot, or None when this
+        tick should run plain decode instead (no slot drafted anything,
+        or some active slot's window would run past the slot cache).  A
+        slot's draft is clamped so accepted tokens never overshoot its
+        remaining budget."""
+        k = self._spec_k
+        drafts: Dict[int, List[int]] = {}
+        any_draft = False
+        for slot in range(self.slots):
+            req = self._slot_req[slot]
+            if req is None:
+                continue
+            if int(self._pos[slot]) + k > self.max_seq - 2:
+                # the window would write past the last position the gold
+                # decode ever writes (max_seq - 2): plain-decode this tick
+                return None
+            # accepting all K drafts emits K+1 tokens: cap at the budget
+            budget = min(k, req.max_new_tokens - len(req.out_tokens) - 1)
+            ctx = np.concatenate([req.prompt,
+                                  np.asarray(req.out_tokens, np.int32)])
+            d = ngram_draft(ctx, budget)
+            drafts[slot] = d
+            any_draft = any_draft or bool(d)
+        return drafts if any_draft else None
+
+    def _prepare_verify_writes(self, sw: int):
+        """Before a verify step: make every window position's block
+        writable for every active slot (boundary blocks allocate; a shared
+        or registered block copies-on-write, which can happen only at the
+        first window position -- the rest of the window grows fresh
+        blocks)."""
+        for slot in range(self.slots):
+            if self._slot_req[slot] is None:
+                continue
+            pos = int(self._pos[slot])
+            for j in range(sw):
+                cow = self._pager.prepare_decode(slot, pos + j)
+                if cow is not None:
+                    T.copy_cache_pages(self._cache, *cow)
+
+    def _decode_verify(self, drafts: Dict[int, List[int]]):
+        """One speculative tick: write and score each slot's (K+1)-token
+        window in one batched step, accept the longest prefix of drafts
+        the model agrees with (greedy verify), roll the rejected tail
+        back, and continue from the last accepted token.  Slots that
+        drafted nothing degenerate to plain decode (their window is the
+        current token plus ignored padding)."""
+        sw = self._spec_k + 1
+        window = np.zeros((self.slots, sw), np.int32)
+        window[:, 0] = self._cur[:, 0]
+        for slot, d in drafts.items():
+            if d:
+                window[slot, 1:1 + len(d)] = d
+        bt = None
+        if self._pager is not None:
+            self._prepare_verify_writes(sw)
+            bt = torch.from_numpy(self._pager.table_matrix()).to(self.device)
+        outs, self._cache = self._verify_step(
+            self.params, self._cache, torch.from_numpy(window).to(self.device),
+            torch.from_numpy(self._pos).to(self.device), bt)
+        arr = self._sync(outs)
+        self._collect_verified(window, arr, drafts, time.perf_counter())
+        self.spec_steps += 1
+
+    def _collect_verified(self, window, outs, drafts, now: float):
+        """Greedy acceptance per slot: position j's argmax is what a
+        sequential decode would emit after consuming window[0..j], so the
+        emitted prefix extends exactly while each argmax equals the next
+        drafted token (and is not EOS)."""
+        for slot in range(self.slots):
+            req = self._slot_req[slot]
+            if req is None:
+                continue
+            d = drafts.get(slot, [])
+            pos = int(self._pos[slot])
+            row = outs[slot]
+            emitted: List[int] = []
+            j = 0
+            while True:
+                tok = int(row[j])
+                emitted.append(tok)
+                if req.eos_token is not None and tok == req.eos_token:
+                    break
+                if j < len(d) and int(window[slot, j + 1]) == tok:
+                    j += 1
+                else:
+                    break
+            m = len(emitted)
+            if self._pager is not None:
+                # the step wrote the window's K/V at pos..pos+K: keep the
+                # accepted inputs' chain, then roll the rejected tail back
+                for i in range(m):
+                    self._pager.note_written(slot, int(window[slot, i]),
+                                             pos + i)
+                self._pager.rollback(slot, pos + m)
+            self._pos[slot] = pos + m    # dense caches just rewind here
+            req.out_tokens.extend(emitted)
+            self._cur[slot, 0] = emitted[-1]
+            self.decode_tokens += m
+            self.spec_proposed += len(d)
+            self.spec_accepted += m - 1
+            self._maybe_retire(slot, now)
 
     def _collect_decoded(self, arr, now: float):
         for slot in range(self.slots):

@@ -8,6 +8,8 @@ with the card:
 
 Tolerances: f32 at 2e-5 (order of summation); bf16 at 2e-2 (the plain
 version rounds its softmax probabilities to bf16, the kernels keep f32).
+The int8 rows and scales the fused decode writes must equal the plain
+version's.
 """
 import pytest
 
@@ -64,9 +66,9 @@ def test_paged_kernels_match_plain(cuda_device, dtype):
     kp, vp = rnd(n, page, hk, d), rnd(n, page, hk, d)
     pos = torch.tensor([0, 37, 95], dtype=torch.int32, device=cuda_device)
     q, kn, vn = rnd(b, hk, grp, d), rnd(b, hk, d), rnd(b, hk, d)
-    out, kp1, vp1 = TP.fused_paged_decode_grouped(
+    out, kp1, vp1, _, _ = TP.fused_paged_decode_grouped(
         q, kn, vn, kp.clone(), vp.clone(), bt, pos, theta=5e6)
-    ro, kp2, vp2 = TR.fused_paged_decode_ref(
+    ro, kp2, vp2, _, _ = TR.fused_paged_decode_ref(
         q, kn, vn, kp.clone(), vp.clone(), bt, pos, theta=5e6)
     torch.cuda.synchronize()
     _close(out, ro, dtype)
@@ -77,3 +79,47 @@ def test_paged_kernels_match_plain(cuda_device, dtype):
         out = TP.paged_prefill_attention_grouped(qs, kp, vp, bt, offset)
         ref = TR.paged_prefill_attention_ref(qs, kp, vp, bt, offset)
         _close(out, ref, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_int8_paged_kernels_match_plain(cuda_device, dtype):
+    """The fused decode's int8 mode (rows and scales bit-equal), and the
+    paged prefill kernel over int8 pools with one offset and with
+    per-slot offsets (the verify window)."""
+    g = torch.Generator(device=cuda_device).manual_seed(2)
+    b, hk, grp, d, page, nb = 3, 2, 8, 128, 16, 6
+    n = b * nb + 1
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=g, device=cuda_device)
+
+    bt = torch.randperm(b * nb, generator=g, device=cuda_device).reshape(
+        b, nb).to(torch.int32)
+    kp, ks = TR.quantize_int8_rows(rnd(n, page, hk, d))
+    vp, vs = TR.quantize_int8_rows(rnd(n, page, hk, d))
+    pos = torch.tensor([0, 37, 95], dtype=torch.int32, device=cuda_device)
+    q, kn, vn = (rnd(b, hk, grp, d).to(dtype), rnd(b, hk, d).to(dtype),
+                 rnd(b, hk, d).to(dtype))
+    got = TP.fused_paged_decode_grouped(
+        q, kn, vn, kp.clone(), vp.clone(), bt, pos, theta=5e6,
+        k_scales=ks.clone(), v_scales=vs.clone())
+    ref = TR.fused_paged_decode_ref(
+        q, kn, vn, kp.clone(), vp.clone(), bt, pos, theta=5e6,
+        k_scales=ks.clone(), v_scales=vs.clone())
+    torch.cuda.synchronize()
+    _close(got[0], ref[0], dtype)
+    for a, r in zip(got[1:], ref[1:]):
+        assert torch.equal(a, r)
+    sc = dict(k_scales=ks, v_scales=vs)
+    qs = rnd(b, hk, grp, 20, d).to(dtype)
+    out = TP.paged_prefill_attention_grouped(qs, kp, vp, bt, 50, **sc)
+    _close(out, TR.paged_prefill_attention_ref(qs, kp, vp, bt, 50, **sc),
+           dtype)
+    qv = rnd(b, hk, grp, 5, d).to(dtype)
+    offs = torch.tensor([3, 47, 90], dtype=torch.int32, device=cuda_device)
+    for kw in ({}, sc):
+        pools = (kp, vp) if kw else (TR.dequantize_int8(kp, ks).to(dtype),
+                                     TR.dequantize_int8(vp, vs).to(dtype))
+        out = TP.paged_verify_attention_grouped(qv, *pools, bt, offs, **kw)
+        _close(out, TR.paged_verify_attention_ref(qv, *pools, bt, offs,
+                                                  **kw), dtype)

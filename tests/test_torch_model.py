@@ -4,12 +4,16 @@ JAX draws the weights; ``repro_torch.bridge.params_from_numpy`` carries
 them across.  Then the same tokens go through both: the full forward, a
 dense prefill followed by lock-step and per-slot dense decode, and a
 paged suffix prefill (cold and warm) followed by paged decode through the
-fused kernel's front door.  Two shapes: ``reduced(yi-6b, layers=2)``
-(head_dim 16) and a head_dim-128 variant.
+fused kernel's front door, on fp and int8 pools; then a speculative
+verify window of K+1 tokens per slot at per-slot positions, on the dense
+cache and on fp and int8 pools.  Two shapes: ``reduced(yi-6b,
+layers=2)`` (head_dim 16) and a head_dim-128 variant.
 
 Tolerance: f32 logits at atol = rtol = 1e-4 (random weights give logits
 of order 1-10; the frameworks sum in different orders through two layers
-of matmuls), and greedy tokens must be identical.
+of matmuls), and greedy tokens must be identical.  int8 rows must be
+equal; their scales, which are amax/127 of activations, are held to the
+logits' tolerance.
 """
 import dataclasses
 
@@ -109,19 +113,26 @@ def test_prefill_and_dense_decode_match_jax(pair):
     _close(tc["b0"]["kv"]["k"], jc["b0"]["kv"]["k"])
 
 
-def test_paged_suffix_prefill_and_fused_decode_match_jax(pair):
+def _assert_pools(tcache, jcache):
+    for name, t in tcache["b0"]["kv"].items():
+        a = jcache["b0"]["kv"][name]
+        if t.dtype == torch.int8:
+            np.testing.assert_array_equal(t.numpy(), np.asarray(a))
+        else:
+            _close(t, a)
+
+
+def _admit_two(jm, jp, tm, tp, kv_dtype, page=4, nb=8, max_seq=32,
+               num_blocks=16):
     """Cold admission into slot 0, warm admission (offset > 0, shared
-    first page, sentinel write entry) into slot 1, then batched paged
-    decode at per-slot positions -- logits, tokens and pools."""
-    jm, jp, tm, tp = pair
-    page, nb, max_seq = 4, 8, 32
-    num_blocks = 16
+    first page, sentinel write entry) into slot 1.  Returns the caches,
+    tables, first tokens and the prompt."""
     rng = np.random.default_rng(3)
     prompt = rng.integers(1, tm.cfg.vocab_size, 10).astype(np.int32)
     jcache = jm.init_paged_cache(2, max_seq, page_size=page,
-                                 num_blocks=num_blocks)
+                                 num_blocks=num_blocks, kv_dtype=kv_dtype)
     tcache = tm.init_paged_cache(2, max_seq, page_size=page,
-                                 num_blocks=num_blocks)
+                                 num_blocks=num_blocks, kv_dtype=kv_dtype)
     sentinel = num_blocks
     bt = np.full((2, nb), sentinel, np.int32)
     bt[0, :4] = [5, 2, 9, 1]
@@ -142,8 +153,18 @@ def test_paged_suffix_prefill_and_fused_decode_match_jax(pair):
             tp, tcache, toks, slot, offset, len(suffix), max_seq, btab, wtab)
         _close(tl, jl)
         first.append(int(tl[0, -1].argmax()))
+    return jcache, tcache, bt, first, prompt
+
+
+@pytest.mark.parametrize("kv_dtype", ["fp", "int8"])
+def test_paged_suffix_prefill_and_fused_decode_match_jax(pair, kv_dtype):
+    """Cold and warm paged admissions, then batched paged decode at
+    per-slot positions through the fused front door -- logits, tokens and
+    pools (int8 rows and their scales on int8 pools)."""
+    jm, jp, tm, tp = pair
+    jcache, tcache, bt, first, _ = _admit_two(jm, jp, tm, tp, kv_dtype)
     assert first[0] == first[1]        # same prompt, cold and warm
-    _close(tcache["b0"]["kv"]["k_pages"], jcache["b0"]["kv"]["k_pages"])
+    _assert_pools(tcache, jcache)
     cur = np.array([[first[0]], [first[1]]], np.int32)
     pos = np.array([10, 10], np.int32)
     for _ in range(4):
@@ -157,5 +178,38 @@ def test_paged_suffix_prefill_and_fused_decode_match_jax(pair):
         assert np.array_equal(tl[:, -1].argmax(-1).numpy(), nxt)
         cur = nxt[:, None]
         pos = pos + 1
-    for name in ("k_pages", "v_pages"):
-        _close(tcache["b0"]["kv"][name], jcache["b0"]["kv"][name])
+    _assert_pools(tcache, jcache)
+
+
+@pytest.mark.parametrize("cache", ["dense", "fp", "int8"])
+def test_verify_window_decode_matches_jax(pair, cache):
+    """A (B, K+1) verify window at per-slot positions (slot 0 crosses a
+    page boundary, slot 1's window runs past its mapped blocks into the
+    drop sentinel) -- logits of every window position and the caches."""
+    jm, jp, tm, tp = pair
+    window = np.array([[7, 3, 9, 1, 4], [2, 8, 8, 5, 6]], np.int32)
+    if cache == "dense":
+        toks = np.random.default_rng(4).integers(
+            1, tm.cfg.vocab_size, (2, 9)).astype(np.int32)
+        _, jcache = jm.prefill(jp, {"tokens": jnp.asarray(toks)}, 32)
+        _, tcache = tm.prefill(tp, {"tokens": toks}, 32)
+        pos = np.array([9, 6], np.int32)
+        kw_j = kw_t = {}
+    else:
+        jcache, tcache, bt, _, _ = _admit_two(jm, jp, tm, tp, cache)
+        bt[1, 3] = 16                  # slot 1's window passes its table
+        pos = np.array([10, 9], np.int32)
+        kw_j = dict(block_tables=jnp.asarray(bt))
+        kw_t = dict(block_tables=bt)
+    jl, jcache = jm.decode_step(jp, jcache, jnp.asarray(window),
+                                jnp.asarray(pos), **kw_j)
+    tl, tcache = tm.decode_step(tp, tcache, window, torch.from_numpy(pos),
+                                **kw_t)
+    assert tl.shape == (2, 5, tm.cfg.vocab_size)
+    _close(tl, jl)
+    assert np.array_equal(tl.argmax(-1).numpy(),
+                          np.asarray(jnp.argmax(jl, -1)))
+    if cache == "dense":
+        _close(tcache["b0"]["kv"]["k"], jcache["b0"]["kv"]["k"])
+    else:
+        _assert_pools(tcache, jcache)
