@@ -19,24 +19,34 @@ device it fails (it never runs on the CPU instead).  Phases, in order:
      yardstick (timed here only: the port never calls it); then the fused
      decode's int8 mode (written rows and scales bit-equal), the paged
      prefill over int8 pools, and the verify window (B=4, S=5, per-slot
-     offsets 100-1000) over fp and int8 pools;
+     offsets 100-1000) over fp and int8 pools; then jamba's kernels: the
+     unfused paged decode (B=4, Hkv=8, G=8, lengths up to 1000) over fp
+     and int8 pools, and the linear scan at mamba's decode (N=4, S=1,
+     F=262,144, with h0) and prefill (N=1, S=512) shapes, bit-equal;
   4. f32 end-to-end parity: yi-6b at full width, 2 layers; the paged
      engine (4 slots, 6 staggered requests, one warm-prefix admission)
      must give each request the same greedy stream as the port's one-shot
      gold (dense prefill through the flash kernel, then dense decode);
      with a repeated segment in every prompt, so that drafting engages,
      ``speculate=4`` (dense and paged fp) must give the gold's streams,
-     and int8 pools the same streams with ``speculate=4`` as without;
+     and int8 pools the same streams with ``speculate=4`` as without.
+     Then the jamba hybrid (jamba-1.5-large-398b-dense-ffn) at full width,
+     one period (8 layers), f32: the dense and the paged engine must give
+     the gold's streams on a staggered schedule whose warm admission
+     shares blocks without compute reuse, a paged prefill + unfused
+     decode must give ``Model.forward``'s logits, and int8 pools the fp
+     run's first tokens;
   5. the main path at full size: yi-6b, all 32 layers, bf16, random
      weights from ``torch.Generator`` seed 0, served by the paged engine
      (4 slots, max_seq 1024, 8 requests of 100-600 prompt tokens, four
      sharing a 256-token prefix, 64 new tokens each), plus one full-size
      ``Model.forward`` through the flash kernel; then served again on
      int8 pools with ``speculate=4`` (8 prompts that each repeat a
-     32-token segment).  The kernels' launch counters are zeroed just
-     before each serve and read just after: each must be nonzero, and
-     every logit finite.  A short profiled decode window follows each
-     serve.
+     32-token segment); then serve-hybrid: the jamba hybrid at full
+     width, 16 layers, bf16, the same engine size and request shape.
+     The kernels' launch counters are zeroed just before each serve and
+     read just after: each must be nonzero, and every logit finite.  A
+     short profiled decode window follows each serve.
 
 It prints a ``{"kernels": [...]}`` JSON line, then as its last line
 ``{"ok": true, "device": {...}}``.  Any failed check exits non-zero
@@ -419,6 +429,119 @@ def int8_kernel_phase(dev, flush, results):
     return results
 
 
+def hybrid_kernel_phase(dev, flush, results):
+    """Phase 3, the jamba hybrid's kernels: the unfused paged decode
+    (jamba's rope-free attention: B=4, Hkv=8, G=8, D=128, page 16,
+    64-entry tables, lengths up to 1000) on fp and int8 pools in f32 and
+    bf16, and the linear scan (f32 only) at mamba's decode shape (N=4,
+    S=1, F=d_inner*d_state=262,144, with h0) and prefill shape (N=1,
+    S=512, no h0), whose states must equal the plain version's bit for
+    bit.  SDPA over the gathered (dequantized) K/V is the attention's
+    library yardstick; ``torch.addcmul(b, a, h0)`` computes the scan at
+    S = 1; no single PyTorch call computes it over S > 1."""
+    from repro_torch.kernels import linear_scan as TS
+    from repro_torch.kernels import paged_attention as TP
+    from repro_torch.kernels import ref as TR
+    F = torch.nn.functional
+    hk, g, d, page, b, nb = 8, 8, 128, 16, 4, 64
+    h = hk * g
+    n = b * nb + 1
+    gen = torch.Generator(device=dev).manual_seed(4)
+
+    def rnd(shape, dtype=torch.float32):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    lengths = torch.tensor([1000, 17, 512, 256], dtype=torch.int32,
+                           device=dev)
+    bt = torch.randperm(b * nb, generator=gen, device=dev).reshape(
+        b, nb).to(torch.int32)
+    kq, ks = TR.quantize_int8_rows(rnd((n, page, hk, d)))
+    vq, vs = TR.quantize_int8_rows(rnd((n, page, hk, d)))
+    keys = int(lengths.long().sum())
+    tables = int(((lengths.long() + page - 1) // page).sum())
+    mask = (torch.arange(nb * page, device=dev)[None, :]
+            < lengths[:, None].long())[:, None, None, :]
+    for dtype in (torch.float32, torch.bfloat16):
+        el = torch.tensor([], dtype=dtype).element_size()
+        q = rnd((b, hk, g, d), dtype)
+        for pool in ("fp", "int8"):
+            if pool == "int8":
+                pools, sc, row_bytes = (kq, vq), dict(k_scales=ks,
+                                                      v_scales=vs), d + 4
+            else:
+                pools = (TR.dequantize_int8(kq, ks).to(dtype),
+                         TR.dequantize_int8(vq, vs).to(dtype))
+                sc, row_bytes = {}, d * el
+            out = TP.paged_attention_grouped(q, *pools, bt, lengths, **sc)
+            ref = TR.paged_attention_ref(q, *pools, bt, lengths, **sc)
+            torch.cuda.synchronize()
+            err = assert_close(f"paged_attention {pool} pools", out, ref,
+                               dtype)
+            ms = bench(lambda: TP.paged_attention_grouped(
+                q, *pools, bt, lengths, **sc), flush)
+            pl = bench(lambda: TR.paged_attention_ref(
+                q, *pools, bt, lengths, **sc), flush)
+            kg = (TR.dequantize_int8(kq, ks) if sc else pools[0].float())
+            vg = (TR.dequantize_int8(vq, vs) if sc else pools[1].float())
+            kg = kg[bt.long()].reshape(b, nb * page, hk, d).transpose(1, 2)
+            vg = vg[bt.long()].reshape(b, nb * page, hk, d).transpose(1, 2)
+            kg = kg.repeat_interleave(g, 1).to(dtype).contiguous()
+            vg = vg.repeat_interleave(g, 1).to(dtype).contiguous()
+            qs = q.reshape(b, h, 1, d)
+            lib = bench(lambda: F.scaled_dot_product_attention(
+                qs, kg, vg, attn_mask=mask), flush)
+            nbytes = 2 * b * h * d * el + 2 * keys * hk * row_bytes \
+                + 4 * (tables + b)
+            bnd, by = bound_ms(nbytes, 4 * keys * hk * g * d, dtype)
+            name = "paged_attention" if pool == "fp" else \
+                "paged_attention_int8"
+            results[(name, dtype)] = dict(
+                max_abs_err=err, ms=ms, plain_ms=pl, library_ms=lib,
+                bound_ms=bnd, bound_by=by, shape=f"B={b} Hkv={hk} G={g} "
+                f"D={d} P={page} NB={nb} lengths<=1000 {pool} pools")
+
+    f = 262_144
+    for name, (n_, s_, with_h0) in (("linear_scan", (4, 1, True)),
+                                    ("linear_scan_prefill", (1, 512, False))):
+        a = torch.rand((n_, s_, f), generator=gen, device=dev) * 0.5 + 0.5
+        bb = rnd((n_, s_, f))
+        h0 = rnd((n_, f)) if with_h0 else None
+        out = TS.linear_scan(a, bb, h0)
+        ref = TR.linear_scan_ref(a, bb, h0)
+        torch.cuda.synchronize()
+        same = torch.equal(out, ref)
+        err = max_err(out, ref)
+        print(f"[kernels] {name} float32 N={n_} S={s_} F={f}: states "
+              f"bit-equal to the plain version: {same} (max_abs_err {err})")
+        check(same, f"{name}: the kernel's states differ from the plain "
+                    f"version's")
+        ms = bench(lambda: TS.linear_scan(a, bb, h0), flush)
+        pl = bench(lambda: TR.linear_scan_ref(a, bb, h0), flush)
+        lib = None
+        if s_ == 1:
+            h0s = h0[:, None]
+            lib = bench(lambda: torch.addcmul(bb, a, h0s), flush)
+        nbytes = 12 * n_ * s_ * f + (4 * n_ * f if with_h0 else 0)
+        bnd, by = bound_ms(nbytes, 2 * n_ * s_ * f, torch.float32)
+        results[(name, torch.float32)] = dict(
+            max_abs_err=err, ms=ms, plain_ms=pl, library_ms=lib,
+            bound_ms=bnd, bound_by=by,
+            shape=f"N={n_} S={s_} F={f} {'with' if with_h0 else 'no'} h0")
+    for key in (("paged_attention", torch.float32),
+                ("paged_attention", torch.bfloat16),
+                ("paged_attention_int8", torch.float32),
+                ("paged_attention_int8", torch.bfloat16),
+                ("linear_scan", torch.float32),
+                ("linear_scan_prefill", torch.float32)):
+        r = results[key]
+        lib = ("no single call" if r["library_ms"] is None
+               else f"{r['library_ms']:.4f} ms")
+        print(f"[kernels] {key[0]} {str(key[1])[6:]} ({r['shape']}): "
+              f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, library "
+              f"{lib}, bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
+    return results
+
+
 # ---------------------------------------------------------------------------
 # phases 4 and 5: the serving path
 # ---------------------------------------------------------------------------
@@ -641,6 +764,119 @@ def parity_phase(dev):
     return dict(spec=spec, int8_equal_fp_gold=agree)
 
 
+HYBRID = "jamba-1.5-large-398b-dense-ffn"
+LOGIT_TOL = 1e-3
+# f32 logits of the paged path against Model.forward on the same tokens:
+# the two sum in different orders (paged prefill + unfused decode kernels
+# and per-step scans against flash attention and one scan over the whole
+# sequence) through 8 layers of width 8192; logits are of order 1-10.
+
+
+def hybrid_parity_phase(dev):
+    """Phase 4, the hybrid: jamba-dense-ffn at full width cut to one
+    period (8 layers: 7 mamba, 1 attention), f32.  A staggered schedule
+    (one request sharing a 64-token prefix with an earlier one) through
+    the dense and the paged engine must give the one-shot gold's streams;
+    the warm admission must share the prefix's blocks without reusing
+    their compute; a paged prefill + unfused decode must give the logits
+    of ``Model.forward`` on the same tokens; and int8 pools must give the
+    fp run's first tokens."""
+    from repro_torch.configs import REGISTRY
+    from repro_torch.models import build_model
+    from repro_torch.serving import Request, ServingEngine
+    cfg = dataclasses.replace(REGISTRY[HYBRID], num_layers=8,
+                              dtype="float32", param_dtype="float32")
+    model = build_model(cfg, device=dev)
+    params = model.init(torch.Generator(device=dev).manual_seed(1))
+    nparam = model.param_count(params)
+    print(f"[parity] hybrid f32, 8 layers: {nparam / 1e9:.3f} B params, "
+          f"{nparam * 4 / 1e9:.1f} GB")
+    rng = np.random.default_rng(2)
+    v = cfg.vocab_size
+
+    def toks(n):
+        return rng.integers(1, v, n).astype(np.int32)
+
+    prefix = toks(64)
+    sched = [(np.concatenate([prefix, toks(16)]), 4, 0),
+             (toks(50), 10, 0), (toks(120), 8, 0), (toks(33), 12, 1),
+             (np.concatenate([prefix, toks(30)]), 10, 3),   # shares 4 blocks
+             (toks(70), 9, 5)]
+    max_seq = 256
+    golds, gaps = {}, {}
+    for uid, (prompt, max_new, _) in enumerate(sched):
+        golds[uid], lgs = gold_decode(model, params, prompt, max_new,
+                                      max_seq)
+        gaps[uid] = [top2_gap(x) for x in lgs]
+    streams = {}
+    for label, kw in (("dense", {}),
+                      ("paged fp", dict(paged=True, page_size=16)),
+                      ("paged int8", dict(paged=True, page_size=16,
+                                          kv_dtype="int8"))):
+        eng = ServingEngine(model, params, slots=4, max_seq=max_seq, **kw)
+        finite, _ = watch_engine(eng, model, max_seq)
+        got = run_schedule(eng, sched, Request)
+        check(bool(torch.stack(finite).all()), f"hybrid {label}: non-finite "
+                                               f"logits")
+        check(eng.prefill_bucket == 1, "the hybrid must prefill at the "
+                                       "exact prompt length")
+        streams[label] = {u: r.out_tokens for u, r in got.items()}
+        if label == "paged int8":
+            firsts = all(streams[label][u][0] == golds[u][0] for u in golds)
+            agree = sum(streams[label][u] == golds[u] for u in golds)
+            print(f"[parity] hybrid paged int8: first tokens equal the fp "
+                  f"gold's: {firsts}; streams equal in full: {agree} of "
+                  f"{len(golds)} (printed, not checked: int8 rounds K/V)")
+            check(firsts, "hybrid int8: a first token differs from fp's")
+            continue
+        compare_streams(f"hybrid {label} vs one-shot gold", got, golds,
+                        gaps)
+        if label == "paged fp":
+            st = eng.cache_stats()
+            print(f"[parity] hybrid paged warm admission: prefix_hits "
+                  f"{st['prefix_hits']}, prefill_compute_hits "
+                  f"{st['prefill_compute_hits']}, reused tokens "
+                  f"{st['reused_prefill_tokens']}")
+            check(st["prefix_hits"] >= 4 and st["prefill_compute_hits"] == 0
+                  and st["reused_prefill_tokens"] == 0,
+                  "hybrid warm prefix: blocks must be shared without "
+                  "compute reuse")
+
+    # paged prefill + unfused decode against the full forward
+    prompt, new = sched[2][0], 4
+    nb = max_seq // 16
+    cache = model.init_paged_cache(1, max_seq, page_size=16, num_blocks=nb)
+    bt = np.arange(nb, dtype=np.int32)[None]
+    logits, cache = model.prefill_suffix_paged(
+        params, cache, prompt[None], 0, 0, len(prompt), max_seq, bt, bt)
+    seq = list(prompt)
+    worst = 0.0
+    for step in range(new + 1):
+        ref, _ = model.forward(params, {"tokens": np.asarray(seq)[None]})
+        mine, ref = logits[0, -1], ref[0, -1]
+        err = float((mine - ref).abs().max())
+        scale = max(1.0, float(ref.abs().max()))
+        worst = max(worst, err / scale)
+        check(err <= LOGIT_TOL * scale,
+              f"hybrid paged logits at step {step} differ from "
+              f"Model.forward by {err:.3g} (scale {scale:.3g})")
+        if step == new:
+            break
+        tok = int(mine.argmax())
+        seq.append(tok)
+        logits, cache = model.decode_step(
+            params, cache, np.array([[tok]], np.int32),
+            torch.tensor([len(seq) - 1], device=dev), block_tables=bt)
+    print(f"[parity] hybrid paged prefill + {new} unfused decode steps vs "
+          f"Model.forward: max |logit error| / max(1, max |logit|) = "
+          f"{worst:.3g} (tolerance {LOGIT_TOL})")
+    del params, cache
+    torch.cuda.empty_cache()
+    return dict(logit_rel_err=worst,
+                int8_equal_fp_gold=sum(streams["paged int8"][u] == golds[u]
+                                       for u in golds))
+
+
 def serve_prompts(cfg, seed, repeat_segment):
     """8 prompts of 100-600 tokens, the first four sharing a 256-token
     prefix.  With ``repeat_segment`` every prompt holds a 32-token segment
@@ -774,6 +1010,40 @@ def serve_phase(dev, kernels):
                 launches={**fp["launches"], **q8["launches"]})
 
 
+def serve_hybrid_phase(dev, kernels):
+    """Phase 5, serve-hybrid: jamba-dense-ffn at full width, 16 layers
+    (2 periods: 14 mamba, 2 attention), bf16, random weights from
+    ``torch.Generator`` seed 0, served by the paged engine with
+    serve-full's engine size and request shape; then a profiled decode
+    window."""
+    from repro_torch.configs import REGISTRY
+    from repro_torch.models import build_model
+    from repro_torch.serving import Request
+    cfg = dataclasses.replace(REGISTRY[HYBRID], num_layers=16)
+    model = build_model(cfg, device=dev)
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    nparam = model.param_count(params)
+    print(f"[serve] {HYBRID} bf16, 16 layers: {nparam / 1e9:.3f} B params, "
+          f"{nparam * 2 / 1e9:.1f} GB, init {time.perf_counter() - t0:.1f} s")
+    for fn in kernels.values():
+        fn.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    path = {k: kernels[k] for k in ("paged_attention", "linear_scan",
+                                    "paged_prefill")}
+    prompts = serve_prompts(cfg, 0, repeat_segment=False)
+    eng, hy = serve_run("hybrid paged", model, params, prompts, path)
+    check(eng.prefill_bucket == 1 and not eng._suffix_reuse
+          and eng._spec_k == 0, "the hybrid engine must prefill at the "
+          "exact length, without compute reuse or speculation")
+    hy["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    print(f"[serve] hybrid paged: peak device memory "
+          f"{hy['peak_memory_gb']:.1f} GB")
+    hy["profile"] = profile_decode(eng, prompts[4:], Request)
+    return hy
+
+
 def profile_decode(eng, prompts, request_cls):
     """Where a decode tick's time goes: a short served window (4 requests
     of 16 tokens, after the measured run) under ``torch.profiler``.
@@ -801,7 +1071,8 @@ def profile_decode(eng, prompts, request_cls):
         if evt.device_type == DeviceType.CUDA and evt.self_device_time_total:
             by_kernel[evt.key] = (by_kernel.get(evt.key, 0.0)
                                   + evt.self_device_time_total / 1e6)
-    classes = {"fused_paged_decode": 0.0, "paged_verify": 0.0, "gemm": 0.0,
+    classes = {"fused_paged_decode": 0.0, "paged_verify": 0.0,
+               "paged_attention": 0.0, "linear_scan": 0.0, "gemm": 0.0,
                "copy": 0.0, "other": 0.0}
     for key, sec in by_kernel.items():
         low = key.lower()
@@ -809,6 +1080,10 @@ def profile_decode(eng, prompts, request_cls):
             classes["fused_paged_decode"] += sec
         elif "paged_prefill_kernel" in key:    # the verify windows
             classes["paged_verify"] += sec
+        elif "paged_attention_kernel" in key:
+            classes["paged_attention"] += sec
+        elif "linear_scan_kernel" in key:
+            classes["linear_scan"] += sec
         elif any(w in low for w in ("gemm", "gemv", "nvjet", "xmma",
                                     "cutlass")):
             classes["gemm"] += sec
@@ -863,9 +1138,10 @@ def main():
 
     from repro_torch.kernels import _build
     from repro_torch.kernels.flash_attention import flash_attention_bhsd
+    from repro_torch.kernels.linear_scan import linear_scan
     from repro_torch.kernels.paged_attention import (
-        fused_paged_decode_grouped, paged_prefill_attention_grouped,
-        paged_verify_attention_grouped)
+        fused_paged_decode_grouped, paged_attention_grouped,
+        paged_prefill_attention_grouped, paged_verify_attention_grouped)
     t0 = time.perf_counter()
     _build.load_library(verbose=True)
     print(f"[build] kernels built and loaded in "
@@ -876,16 +1152,24 @@ def main():
         t0 = time.perf_counter()
         results = kernel_phase(dev, flush)
         int8_kernel_phase(dev, flush, results)
+        hybrid_kernel_phase(dev, flush, results)
+        del flush
+        torch.cuda.empty_cache()
         print(f"[kernels] phase {time.perf_counter() - t0:.1f} s")
         t0 = time.perf_counter()
         parity = parity_phase(dev)
+        parity["hybrid"] = hybrid_parity_phase(dev)
         print(f"[parity] phase {time.perf_counter() - t0:.1f} s")
         kernels = {"fused_paged_decode": fused_paged_decode_grouped,
+                   "paged_attention": paged_attention_grouped,
                    "paged_prefill": paged_prefill_attention_grouped,
                    "paged_verify": paged_verify_attention_grouped,
-                   "flash_attention": flash_attention_bhsd}
+                   "flash_attention": flash_attention_bhsd,
+                   "linear_scan": linear_scan}
         t0 = time.perf_counter()
         served = serve_phase(dev, kernels)
+        torch.cuda.empty_cache()
+        served["hybrid"] = serve_hybrid_phase(dev, kernels)
         print(f"[serve] phase {time.perf_counter() - t0:.1f} s")
     except CheckFailed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
@@ -905,13 +1189,26 @@ def main():
                          "src/repro/backend/dispatch.py:232"),
         "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
                             "src/repro/kernels/flash_attention.py:85"),
+        "paged_attention": ("src/repro_torch/csrc/paged_attention.cu",
+                            "src/repro/kernels/paged_attention.py:394"),
+        "linear_scan": ("src/repro_torch/csrc/linear_scan.cu",
+                        "src/repro/kernels/linear_scan.py:46"),
+        "linear_scan_prefill": ("src/repro_torch/csrc/linear_scan.cu",
+                                "src/repro/kernels/linear_scan.py:46"),
     }
+    # launches: serve-full and serve-int8-spec for yi-6b's kernels,
+    # serve-hybrid for jamba's (both scan rows are one wrapper's count)
+    hy = served["hybrid"]["launches"]
+    launches = {**served["launches"], "paged_attention": hy["paged_attention"],
+                "linear_scan": hy["linear_scan"],
+                "linear_scan_prefill": hy["linear_scan"]}
     line = []
     for name, (src, tpu) in meta.items():
-        r = results[(name, torch.bfloat16)]
+        r = results.get((name, torch.bfloat16),
+                        results.get((name, torch.float32)))
         line.append({"name": name, "route": "cuda", "source": src,
                      "replaces": tpu,
-                     "launches": served["launches"][name],
+                     "launches": launches[name],
                      "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                      "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                      "bound_by": r["bound_by"],

@@ -67,6 +67,28 @@ def _clip_tables(block_tables, n):
     return torch.clamp(block_tables, 0, n - 1).to(torch.int32).contiguous()
 
 
+def dispatch_paged_attention(q, k_pages, v_pages, block_tables, lengths, *,
+                             softcap=0.0, k_scales=None, v_scales=None):
+    """One-token decode attention through per-slot block tables, the
+    fresh row already in its page.  q (B, 1, H, D) model layout ->
+    (B, 1, H*D); block_tables (B, NB) may carry out-of-range entries for
+    unmapped blocks (clipped here; rows at or past ``lengths`` (B,) are
+    masked regardless); k_scales/v_scales (N, P, Hkv) f32 on int8 pools.
+    Unlike the JAX dispatch, which sends int8 pools to its jnp reference,
+    int8 pools go to the kernel too: it dequantizes in its loader."""
+    from repro_torch.kernels.paged_attention import paged_attention_grouped
+    b, s, h, d = q.shape
+    if s != 1:
+        raise ValueError(f"paged attention is a one-token path, got {s}")
+    hk = k_pages.shape[2]
+    qg = q[:, 0].reshape(b, hk, h // hk, d).contiguous()
+    out = paged_attention_grouped(
+        qg, k_pages, v_pages, _clip_tables(block_tables, k_pages.shape[0]),
+        _i32(lengths, q.device), softcap=softcap, k_scales=k_scales,
+        v_scales=v_scales)
+    return out.reshape(b, s, h * d)
+
+
 def dispatch_fused_paged_decode(q, k_new, v_new, k_pages, v_pages,
                                 block_tables, positions, *, theta,
                                 softcap=0.0, k_scales=None, v_scales=None):
@@ -127,6 +149,21 @@ def dispatch_paged_verify_attention(q, k_pages, v_pages, block_tables,
     return _ungrouped(out, b, s)
 
 
+# ---------------------------------------------------------------------------
+# linear recurrence scan
+# ---------------------------------------------------------------------------
+
+def dispatch_linear_scan(a, b, h0=None):
+    """a, b: (N, S, F); h0 (N, F) or None.  Returns all states (N, S, F).
+    The JAX door chooses between its Pallas kernel and a chunked
+    associative scan by backend; here the device decides, as for every
+    kernel."""
+    from repro_torch.kernels.linear_scan import linear_scan
+    return linear_scan(a.contiguous(), b.contiguous(),
+                       None if h0 is None else h0.contiguous())
+
+
 __all__ = ["kernel_path", "dispatch_flash_attention",
-           "dispatch_fused_paged_decode", "dispatch_paged_prefill_attention",
-           "dispatch_paged_verify_attention"]
+           "dispatch_paged_attention", "dispatch_fused_paged_decode",
+           "dispatch_paged_prefill_attention",
+           "dispatch_paged_verify_attention", "dispatch_linear_scan"]

@@ -44,22 +44,15 @@
 // What this design does about it: one block of 256 threads per (slot, kv
 // head).  The G query rows are loaded and roped once into shared memory
 // and then held in registers, so every cached key and value is read from
-// device memory exactly once and serves all G query heads of its group.
-// Each of the 8 warps walks every 8th key: a lane holds D/32 consecutive
-// dims (and on int8 pools one broadcast scale load per key), the G partial
-// scores are reduced with warp shuffles, and the warps' (m, l, acc) states
-// merge in shared memory at the end.  Keys past pos are never visited.
+// device memory exactly once and serves all G query heads of its group:
+// the walk over the keys is decode_walk() (attn_common.cuh), which
+// paged_attention.cu shares.  Keys past pos are never visited.
 // With few slots the grid is small (B*Hkv blocks); a split-KV variant with
 // a reduce pass is the next step.
-#include <type_traits>
-
 #include "attn_common.cuh"
 
 namespace repro_torch {
 namespace {
-
-constexpr int kDecodeWarps = 8;
-constexpr int kDecodeThreads = kDecodeWarps * 32;
 
 // Max of |x| over the D values of a shared row, by one warp.
 template <int D>
@@ -86,14 +79,11 @@ fused_decode_kernel(const T* __restrict__ q, const T* __restrict__ kn,
                     const float* __restrict__ inv_freq, T* __restrict__ out,
                     int Hkv, int P, int NB, float softcap, float scale) {
   constexpr int kHalf = D / 2;
-  constexpr int DL = D / 32;  // dims per lane
   constexpr bool kQuant = std::is_same<TP, int8_t>::value;
   __shared__ float cs[kHalf], sn[kHalf];
   __shared__ float fresh_sc[2];
   __shared__ float qs[G][D];
   __shared__ float kfresh[D], vfresh[D];
-  __shared__ float red_m[kDecodeWarps][G], red_l[kDecodeWarps][G];
-  __shared__ float red_acc[kDecodeWarps][G][D];
 
   const int h = blockIdx.x, b = blockIdx.y;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
@@ -170,96 +160,11 @@ fused_decode_kernel(const T* __restrict__ q, const T* __restrict__ kn,
   }
   __syncthreads();
 
-  float qreg[G][DL];
-#pragma unroll
-  for (int g = 0; g < G; ++g)
-#pragma unroll
-    for (int e = 0; e < DL; ++e) qreg[g][e] = qs[g][lane * DL + e];
-  float acc[G][DL], m[G], l[G];
-#pragma unroll
-  for (int g = 0; g < G; ++g) {
-    m[g] = kNegInf;
-    l[g] = 0.f;
-#pragma unroll
-    for (int e = 0; e < DL; ++e) acc[g][e] = 0.f;
-  }
-
   // every visited key is admissible: kpos <= pos, inside the table
-  const int t_end = min(pos + 1, NB * P);
-  const int t_fresh = jt * P + row_t;
-  for (int t = warp; t < t_end; t += kDecodeWarps) {
-    float kx[DL], vx[DL];
-    if (t == t_fresh) {
-#pragma unroll
-      for (int e = 0; e < DL; ++e) {
-        kx[e] = kfresh[lane * DL + e];
-        vx[e] = vfresh[lane * DL + e];
-      }
-    } else {
-      const int page = btb[t / P];
-      const size_t ridx = ((size_t)page * P + (t % P)) * Hkv + h;
-      const size_t off = ridx * D + lane * DL;
-      float ksc = 1.f, vsc = 1.f;
-      if constexpr (kQuant) {
-        ksc = ks[ridx];
-        vsc = vs[ridx];
-      }
-#pragma unroll
-      for (int e = 0; e < DL; ++e) {
-        kx[e] = pool_f32<TP>(kp[off + e], ksc);
-        vx[e] = pool_f32<TP>(vp[off + e], vsc);
-      }
-    }
-    float s[G];
-#pragma unroll
-    for (int g = 0; g < G; ++g) {
-      float part = 0.f;
-#pragma unroll
-      for (int e = 0; e < DL; ++e) part = fmaf(qreg[g][e], kx[e], part);
-      s[g] = part;
-    }
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1)
-#pragma unroll
-      for (int g = 0; g < G; ++g) s[g] += __shfl_xor_sync(kFull, s[g], off);
-#pragma unroll
-    for (int g = 0; g < G; ++g) {
-      const float sc = apply_softcap(s[g] * scale, softcap);
-      const float m_new = fmaxf(m[g], sc);
-      const float alpha = expf(m[g] - m_new);
-      const float p = expf(sc - m_new);
-      l[g] = l[g] * alpha + p;
-#pragma unroll
-      for (int e = 0; e < DL; ++e) acc[g][e] = fmaf(p, vx[e], acc[g][e] * alpha);
-      m[g] = m_new;
-    }
-  }
-
-#pragma unroll
-  for (int g = 0; g < G; ++g) {
-    if (lane == 0) {
-      red_m[warp][g] = m[g];
-      red_l[warp][g] = l[g];
-    }
-#pragma unroll
-    for (int e = 0; e < DL; ++e) red_acc[warp][g][lane * DL + e] = acc[g][e];
-  }
-  __syncthreads();
-  T* ob = out + ((size_t)b * Hkv + h) * G * D;
-  for (int idx = tid; idx < G * D; idx += kDecodeThreads) {
-    const int g = idx / D, c = idx % D;
-    float mx = kNegInf;
-#pragma unroll
-    for (int w = 0; w < kDecodeWarps; ++w) mx = fmaxf(mx, red_m[w][g]);
-    float lsum = 0.f, asum = 0.f;
-#pragma unroll
-    for (int w = 0; w < kDecodeWarps; ++w) {
-      const float f = red_m[w][g] == kNegInf ? 0.f : expf(red_m[w][g] - mx);
-      lsum += red_l[w][g] * f;
-      asum += red_acc[w][g][c] * f;
-    }
-    ob[g * D + c] = from_f32<T>(lsum > 0.f ? asum / lsum : 0.f);
-  }
+  decode_walk<T, TP, D, G>(&qs[0][0], kp, vp, ks, vs, btb, h, Hkv, P,
+                           min(pos + 1, NB * P), jt * P + row_t, kfresh,
+                           vfresh, softcap, scale,
+                           out + ((size_t)b * Hkv + h) * G * D);
 }
 
 template <typename T, typename TP, int D, int G>

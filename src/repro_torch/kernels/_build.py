@@ -22,7 +22,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build"
-SOURCES = ("flash_attention.cu", "paged_prefill.cu", "fused_paged_decode.cu")
+SOURCES = ("flash_attention.cu", "paged_prefill.cu", "fused_paged_decode.cu",
+           "paged_attention.cu", "linear_scan.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
 LIB_NAME = "librepro_torch_kernels.so"
@@ -45,6 +46,12 @@ SIGNATURES = {
     "repro_fused_paged_decode": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                                  _P, _P, _I, _I, _I, _I, _I, _I, _F, _F,
                                  _P],
+    # dtype, q, k_pages, v_pages, k_scales, v_scales, bt, lengths, out,
+    # B, Hkv, G, D, P, NB, softcap, scale, stream
+    "repro_paged_attention": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                              _I, _I, _I, _I, _F, _F, _P],
+    # a, b, h0, out, N, S, F, stream
+    "repro_linear_scan": [_P, _P, _P, _P, _I, _I, _I, _P],
 }
 
 _lib = None            # the loaded library (one per process)

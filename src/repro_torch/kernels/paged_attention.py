@@ -1,6 +1,6 @@
 """Paged attention over the block pool: the Hopper kernels and their doors.
 
-Two kernels, with the JAX kernels' signatures and layouts (pools
+Three kernels, with the JAX kernels' signatures and layouts (pools
 ``(N, P, Hkv, D)``, block tables ``(B, NB)`` int32 already in range, and
 on int8 pools per-row scales ``(N, P, Hkv)`` f32):
 
@@ -8,6 +8,11 @@ on int8 pools per-row scales ``(N, P, Hkv)`` f32):
     K/V row written into its page (quantized with its row scale on int8
     pools), and one-token GQA attention over the slot's pages
     (``csrc/fused_paged_decode.cu``);
+  * ``paged_attention_grouped`` -- the same one-token attention without
+    RoPE and without the write, masked at ``kpos < lengths[b]``: the
+    decode of rope-free attention (jamba), whose fresh row the model has
+    already written (``csrc/paged_attention.cu``; int8 pages dequantized
+    in the loader);
   * ``paged_prefill_attention_grouped`` -- S fresh queries at
     ``offset..offset+S-1`` attending every mapped page causally, int8
     pages dequantized in the tile loader (``csrc/paged_prefill.cu``).
@@ -27,10 +32,11 @@ contiguous and on one device; q and the fresh rows share one activation
 dtype in {float32, bfloat16}; the pools hold either that dtype or int8,
 and int8 pools come with f32 scales of shape (N, P, Hkv) (fp pools with
 none); D in {64, 128}; block tables (B, NB) and positions / offsets (B,)
-int32; for the fused decode G = H / Hkv in {1, 2, 4, 8}.  Table entries
-must lie in [0, N) and positions and offsets be >= 0: the front doors
-(``backend/dispatch.py``) clip the tables, and reading the values here
-would cost a device sync per launch.
+int32 (lengths (B,) int32 for ``paged_attention_grouped``); for both
+decode kernels G = H / Hkv in {1, 2, 4, 8}; any page size.  Table
+entries must lie in [0, N) and positions and offsets be >= 0: the front
+doors (``backend/dispatch.py``) clip the tables, and reading the values
+here would cost a device sync per launch.
 """
 from __future__ import annotations
 
@@ -102,6 +108,23 @@ def check_fused_decode_contract(q, k_new, v_new, k_pages, v_pages,
     return b, hk, g, d, k_pages.shape[1], block_tables.shape[1]
 
 
+def check_paged_decode_contract(q, k_pages, v_pages, block_tables, lengths,
+                                k_scales=None, v_scales=None):
+    """Raise ValueError outside the unfused paged decode kernel's
+    contract; returns (B, Hkv, G, D, P, NB)."""
+    if q.dim() != 4:
+        raise ValueError("q must be (B, Hkv, G, D)")
+    b, hk, g, d = q.shape
+    if g not in DECODE_GROUPS:
+        raise ValueError(f"{g} query heads per kv head outside the "
+                         f"kernel's {DECODE_GROUPS}")
+    if lengths.dtype != torch.int32 or lengths.shape != (b,):
+        raise ValueError(f"lengths must be int32 of shape ({b},)")
+    _check_common(q, k_pages, v_pages, block_tables, k_scales, v_scales, b,
+                  hk, d, (q, k_pages, v_pages, block_tables, lengths))
+    return b, hk, g, d, k_pages.shape[1], block_tables.shape[1]
+
+
 def check_paged_prefill_contract(q, k_pages, v_pages, block_tables, offset,
                                  k_scales=None, v_scales=None):
     """Raise ValueError outside the paged prefill kernel's contract.
@@ -162,6 +185,33 @@ def fused_paged_decode_grouped(q, k_new, v_new, k_pages, v_pages,
     _build.check(err, "fused_paged_decode_grouped")
     fused_paged_decode_grouped.launches += 1
     return out, k_pages, v_pages, k_scales, v_scales
+
+
+def paged_attention_grouped(q, k_pages, v_pages, block_tables, lengths, *,
+                            softcap=0.0, k_scales=None, v_scales=None):
+    """q: (B, Hkv, G, D); pools (N, P, Hkv, D); block_tables (B, NB) int32
+    in range; lengths (B,) int32 valid keys per slot; k_scales/v_scales
+    (N, P, Hkv) f32 on int8 pools.  Returns (B, Hkv, G, D)."""
+    if q.device.type == "cpu":
+        return R.paged_attention_ref(q, k_pages, v_pages, block_tables,
+                                     lengths, softcap=softcap,
+                                     k_scales=k_scales, v_scales=v_scales)
+    if q.device.type != "cuda":
+        raise ValueError(f"no paged attention kernel for {q.device}")
+    b, hk, g, d, page, nb = check_paged_decode_contract(
+        q, k_pages, v_pages, block_tables, lengths, k_scales, v_scales)
+    lib = _build.load_library()
+    out = torch.empty_like(q)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.repro_paged_attention(
+            _build.dtype_code(q.dtype), q.data_ptr(), k_pages.data_ptr(),
+            v_pages.data_ptr(), _ptr(k_scales), _ptr(v_scales),
+            block_tables.data_ptr(), lengths.data_ptr(), out.data_ptr(), b,
+            hk, g, d, page, nb, float(softcap), 1.0 / math.sqrt(d), stream)
+    _build.check(err, "paged_attention_grouped")
+    paged_attention_grouped.launches += 1
+    return out
 
 
 def _launch_paged_prefill(name, q, k_pages, v_pages, block_tables, offsets,
@@ -228,5 +278,6 @@ def paged_verify_attention_grouped(q, k_pages, v_pages, block_tables,
 
 
 fused_paged_decode_grouped.launches = 0
+paged_attention_grouped.launches = 0
 paged_prefill_attention_grouped.launches = 0
 paged_verify_attention_grouped.launches = 0

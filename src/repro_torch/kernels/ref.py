@@ -224,3 +224,20 @@ def paged_verify_attention_ref(q, k_pages, v_pages, block_tables, offset,
     return _paged_window_attention(q, k_pages, v_pages, block_tables, qpos,
                                    softcap=softcap, k_scales=k_scales,
                                    v_scales=v_scales)
+
+
+def linear_scan_ref(a, b, h0=None):
+    """a, b: (N, S, F) -> every state h_t = a_t * h_{t-1} + b_t, (N, S, F)
+    in ``a.dtype``, by a plain sequential scan with an f32 carry from
+    ``h0`` (N, F) (zeros when None).  The product and the sum are two
+    separately rounded f32 ops, so the CUDA kernel (``__fmul_rn`` then
+    ``__fadd_rn``) equals this bit for bit."""
+    n, s, f = a.shape
+    h = (torch.zeros((n, f), dtype=torch.float32, device=a.device)
+         if h0 is None else h0.to(torch.float32))
+    af, bf = a.to(torch.float32), b.to(torch.float32)
+    out = torch.empty((n, s, f), dtype=torch.float32, device=a.device)
+    for t in range(s):
+        h = af[:, t] * h + bf[:, t]
+        out[:, t] = h
+    return out.to(a.dtype)

@@ -6,10 +6,15 @@ monolithic continuous-batching engine, on the GPU by default.
         --kv-dtype int8 --speculate 4
     PYTHONPATH=src python -m repro_torch.launch.serve --layers 2 --paged \\
         --requests 4 --new-tokens 8
+    PYTHONPATH=src python -m repro_torch.launch.serve \\
+        --arch jamba-1.5-large-398b-dense-ffn --layers 16 --paged
 
 The model is the registry config at its published width (yi-6b: d_model
-4096, 32 heads, 4 KV heads, head_dim 128), with random weights from a
-seeded ``torch.Generator``; ``--layers N`` cuts the depth to N layers.
+4096, 32 heads, 4 KV heads, head_dim 128; the jamba hybrid with dense
+FFNs: d_model 8192, 64 heads, 8 KV heads, mamba d_inner 16384), with
+random weights from a seeded ``torch.Generator``; ``--layers N`` cuts
+the depth to N layers (a multiple of the block pattern's period: 8 for
+jamba).
 ``--paged [--page-size N --num-blocks M]`` serves from the block pool
 (the fused decode and paged prefill kernels); without it the dense slot
 cache (flash attention at admission).  ``--prefix-cache`` /
@@ -83,6 +88,10 @@ def main(argv=None):
     prefix_cache = True if args.prefix_cache is None else args.prefix_cache
 
     cfg = REGISTRY[args.arch]
+    if args.layers % len(cfg.block_pattern):
+        raise SystemExit(f"--layers {args.layers} is not a multiple of "
+                         f"{args.arch}'s period of "
+                         f"{len(cfg.block_pattern)} layers")
     if args.layers:
         cfg = dataclasses.replace(cfg, num_layers=args.layers)
     model = build_model(cfg, device=args.device)

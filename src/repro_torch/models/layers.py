@@ -1,8 +1,9 @@
 """Transformer layer primitives of the port (functional, on torch tensors).
 
 Counterparts of the JAX package's ``models/layers.py`` for the serving
-path of a dense GQA decoder (yi-6b): RMSNorm, RoPE, GQA attention over a
-dense or a paged KV cache, the gated MLP, embedding and LM head.
+path of a dense GQA decoder (yi-6b) and of the attention layers of the
+jamba hybrid (rope-free): RMSNorm, RoPE, GQA attention over a dense or a
+paged KV cache, the gated MLP, embedding and LM head.
 
 Conventions, as on the JAX side:
   * params are nested dicts of tensors, weights laid out (in, out) so the
@@ -202,7 +203,9 @@ def multi_head_attention(p, x, cfg: ModelConfig, *, kv_cache=None,
       * paged cache ``{"k_pages", "v_pages"}: (N, P, Hkv, D)`` (int8
         pools add ``k_scales``/``v_scales`` (N, P, Hkv)) with
         ``block_tables``: one-token per-slot decode through the fused
-        RoPE + page-write + attention kernel; a per-slot window of S > 1
+        RoPE + page-write + attention kernel (rope-free attention, which
+        cannot fuse, writes the fresh row and then runs the unfused paged
+        decode kernel); a per-slot window of S > 1
         tokens (the speculative verify: written at each slot's positions,
         then attended causally over the slot's pages); or batch-1 suffix
         prefill (scalar ``cache_index`` = tokens already cached; K/V
@@ -252,6 +255,20 @@ def multi_head_attention(p, x, cfg: ModelConfig, *, kv_cache=None,
                 block_tables, offset, theta=cfg.rope_theta,
                 softcap=cfg.attn_logit_softcap, **_scale_kw(kv_cache))[0]
             out = out.to(dt)
+        elif s == 1 and per_slot:
+            # one-token decode that cannot fuse (rope-free attention): the
+            # fresh row lands in its page row (the table entry of block
+            # offset // page, clipped into the table; the sentinel's sink
+            # page takes idle slots' writes), then the slot attends its
+            # pages at lengths = offset + 1
+            nb = block_tables.shape[1]
+            blk = torch.clamp(offset // page, 0, nb - 1)
+            pages = torch.gather(block_tables.long(), 1, blk[:, None])[:, 0]
+            _paged_write(kv_cache, pages, offset % page, k[:, 0], v[:, 0])
+            out = kops.dispatch_paged_attention(
+                q, kv_cache["k_pages"], kv_cache["v_pages"], block_tables,
+                offset + 1, softcap=cfg.attn_logit_softcap,
+                **_scale_kw(kv_cache)).to(dt)
         elif per_slot:
             # speculative verify: each slot writes its S-token window at
             # its own positions (blocks past the table go to the drop

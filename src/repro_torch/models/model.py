@@ -2,10 +2,11 @@
 
 ``build_model(cfg, device)`` returns a ``Model`` whose methods are plain
 functions of (params, inputs), like the JAX facade's, for the dense GQA
-decoders the port serves.  Params are nested dicts of tensors on
-``model.device``: ``{"embed": {"table"}, "stack": [per-group block dicts],
-"final_norm": {"scale"}, "head": {"w"}}``.  Inputs may be numpy arrays or
-tensors; they are moved to the model's device.
+decoders and the attention + mamba hybrids the port serves.  Params are
+nested dicts of tensors on ``model.device``: ``{"embed": {"table"},
+"stack": [per-group block dicts], "final_norm": {"scale"}, "head":
+{"w"}}``.  Inputs may be numpy arrays or tensors; they are moved to the
+model's device.
 """
 from __future__ import annotations
 
@@ -110,15 +111,17 @@ class Model:
                              offset: int, length: int, max_seq: int,
                              block_tables, write_tables):
         """Paged prefill into slot ``slot``: the right-padded prompt suffix
-        (1, S) streams straight into the pool.  ``offset`` counts the warm
-        prefix tokens already in shared pages (0 on a cold admission),
-        ``length`` the true suffix length; ``block_tables`` (1, NB) maps
-        every logical block for the gather, ``write_tables`` (1, NB) only
-        the fresh ones (sentinel elsewhere).  Returns (logits at the last
+        (1, S) streams straight into the pool (attention K/V), while mamba
+        state runs in a zeroed batch-1 part that lands in row ``slot``.
+        ``offset`` counts the warm prefix tokens already in shared pages
+        (0 on a cold admission), ``length`` the true suffix length;
+        ``block_tables`` (1, NB) maps every logical block for the gather,
+        ``write_tables`` (1, NB) only the fresh ones (sentinel elsewhere).  Returns (logits at the last
         valid suffix position (1, 1, V), full_cache written in place)."""
         x = self._embed(params, tokens)
         view = T.combine_prefill_parts(
-            full_cache, T.make_prefill_part(self.cfg, max_seq))
+            full_cache, T.make_prefill_part(self.cfg, max_seq,
+                                            device=self.device))
         dev = self.device
         hidden, view = self._lm_hidden(
             params, x, cache=view, cache_index=int(offset),
@@ -149,13 +152,10 @@ class Model:
         return self._head(params, hidden), cache
 
     def param_count(self, params) -> int:
-        n = sum(t.numel() for k, sub in params.items() if k != "stack"
-                for t in sub.values())
-        for gp in params["stack"]:
-            for blk in gp.values():
-                n += sum(t.numel() for part in blk.values()
-                         for t in part.values())
-        return n
+        if torch.is_tensor(params):
+            return params.numel()
+        items = params.values() if isinstance(params, dict) else params
+        return sum(self.param_count(p) for p in items)
 
 
 def build_model(cfg: ModelConfig, device: str = "cuda") -> Model:

@@ -8,8 +8,12 @@ dense ``(num_groups, B, W, Hkv, D)``, paged ``(num_groups, num_blocks + 1,
 page, Hkv, D)`` -- and each layer reads and writes its group's slice in
 place.
 
-The port serves ``BlockSpec("attn", "dense")`` stacks (the yi-6b family);
-other block kinds raise.
+The port serves stacks of ``attn`` and ``mamba`` mixers with dense FFNs
+(the yi-6b family; jamba with its MoE layers run dense); other block
+kinds raise.  A mamba block's cache is its recurrent state,
+``{"ssm_state": {"conv", "ssm"}}`` f32 leaves of shape (num_groups, B,
+...), dense per slot in both layouts (a paged cache pages only the
+attention K/V).
 """
 from __future__ import annotations
 
@@ -19,21 +23,27 @@ import torch
 
 from repro_torch.configs.base import BlockSpec, ModelConfig
 from repro_torch.models import layers as L
+from repro_torch.models import ssm as SSM
+
+SERVED_MIXERS = ("attn", "mamba")
 
 
 def check_supported(cfg: ModelConfig):
     """Raise NotImplementedError for what this port does not serve yet."""
-    if any(b != BlockSpec("attn", "dense") for b in cfg.block_pattern):
+    if any(b.mixer not in SERVED_MIXERS or b.ffn != "dense"
+           for b in cfg.block_pattern):
         raise NotImplementedError(
-            f"{cfg.name}: the port serves attn + dense blocks only, got "
-            f"{cfg.block_pattern}")
-    if cfg.family != "dense" or cfg.mrope_sections or cfg.qk_norm \
-            or cfg.post_block_norm or cfg.frontend or cfg.tie_embeddings \
-            or cfg.final_logit_softcap or cfg.norm_kind != "rmsnorm" \
-            or cfg.mlp_activation != "silu" or not cfg.gated_mlp:
+            f"{cfg.name}: the port serves {SERVED_MIXERS} mixers with dense "
+            f"FFNs only, got {cfg.block_pattern}")
+    if cfg.family not in ("dense", "hybrid") or cfg.mrope_sections \
+            or cfg.qk_norm or cfg.post_block_norm or cfg.frontend \
+            or cfg.tie_embeddings or cfg.final_logit_softcap \
+            or cfg.norm_kind != "rmsnorm" or cfg.mlp_activation != "silu" \
+            or not cfg.gated_mlp:
         raise NotImplementedError(
-            f"{cfg.name}: the port serves dense GQA decoders with RMSNorm, "
-            f"a gated SiLU MLP and an untied LM head")
+            f"{cfg.name}: the port serves GQA decoders (and attention + "
+            f"mamba hybrids) with RMSNorm, a gated SiLU MLP and an untied "
+            f"LM head")
 
 
 # ---------------------------------------------------------------------------
@@ -41,8 +51,10 @@ def check_supported(cfg: ModelConfig):
 # ---------------------------------------------------------------------------
 
 def init_block(generator, cfg: ModelConfig, blk: BlockSpec, device):
+    mixer = (SSM.init_mamba(generator, cfg, device) if blk.mixer == "mamba"
+             else L.init_attention(generator, cfg, device))
     return {"norm1": L.init_norm(cfg, device),
-            "mixer": L.init_attention(generator, cfg, device),
+            "mixer": mixer,
             "norm2": L.init_norm(cfg, device),
             "ffn": L.init_mlp(generator, cfg, device)}
 
@@ -52,14 +64,21 @@ def apply_block(p, x, cfg: ModelConfig, blk: BlockSpec, *, state=None,
     """Returns (x, state) -- ``state`` is the block's cache, written in
     place (None without a cache)."""
     h = L.apply_norm(p["norm1"], x, cfg)
-    h, kv = L.multi_head_attention(
-        p["mixer"], h, cfg, kv_cache=state.get("kv") if state else None,
-        cache_index=cache_index, block_tables=block_tables,
-        write_tables=write_tables)
+    if blk.mixer == "mamba":
+        st = state["ssm_state"] if state else None
+        h, new = SSM.apply_mamba(p["mixer"], h, cfg, state=st)
+        if st is not None:
+            st["conv"].copy_(new["conv"])
+            st["ssm"].copy_(new["ssm"])
+    else:
+        h, _ = L.multi_head_attention(
+            p["mixer"], h, cfg, kv_cache=state.get("kv") if state else None,
+            cache_index=cache_index, block_tables=block_tables,
+            write_tables=write_tables)
     x = x + h
     h = L.apply_norm(p["norm2"], x, cfg)
     x = x + L.apply_mlp(p["ffn"], h, cfg)
-    return x, ({"kv": kv} if kv is not None else None)
+    return x, state
 
 
 def group_view(cache, g: int):
@@ -93,15 +112,36 @@ def _is_global_attn(mixer: str) -> bool:
     return mixer.startswith("attn") and mixer != "attn_local"
 
 
+def block_state_shapes(cfg: ModelConfig, blk: BlockSpec, batch: int,
+                       max_seq: int):
+    """One pattern slot's cache leaf shapes, without the group axis."""
+    if blk.mixer == "mamba":
+        return {"ssm_state": SSM.mamba_state_shape(cfg, batch)}
+    shp = (batch, max_seq, cfg.num_kv_heads, cfg.head_dim)
+    return {"kv": {"k": shp, "v": shp}}
+
+
+def _dense_block_leaves(cfg: ModelConfig, blk: BlockSpec, batch: int,
+                        max_seq: int, dt, device):
+    """One pattern slot's dense leaves, zero-filled, group axis leading:
+    K/V in ``dt``, recurrent state in f32 (as on the JAX side)."""
+    return {key: {n: torch.zeros((cfg.num_groups,) + shp,
+                                 dtype=dt if key == "kv" else torch.float32,
+                                 device=device)
+                  for n, shp in val.items()}
+            for key, val in block_state_shapes(cfg, blk, batch,
+                                               max_seq).items()}
+
+
 def make_cache(cfg: ModelConfig, batch: int, max_seq: int, *, dtype=None,
                device="cuda"):
     """Dense decode cache: per pattern slot ``{"kv": {"k", "v"}}`` leaves of
-    shape (num_groups, batch, max_seq, Hkv, D), zero-filled."""
+    shape (num_groups, batch, max_seq, Hkv, D), or a mamba slot's
+    ``{"ssm_state": {"conv", "ssm"}}``, zero-filled."""
     dt = getattr(torch, dtype or cfg.dtype)
-    shp = (cfg.num_groups, batch, max_seq, cfg.num_kv_heads, cfg.head_dim)
-    return {f"b{j}": {"kv": {"k": torch.zeros(shp, dtype=dt, device=device),
-                             "v": torch.zeros(shp, dtype=dt, device=device)}}
-            for j, _ in enumerate(cfg.block_pattern)}
+    return {f"b{j}": _dense_block_leaves(cfg, blk, batch, max_seq, dt,
+                                         device)
+            for j, blk in enumerate(cfg.block_pattern)}
 
 
 def has_paged_layers(cfg: ModelConfig) -> bool:
@@ -111,8 +151,9 @@ def has_paged_layers(cfg: ModelConfig) -> bool:
 def make_paged_cache(cfg: ModelConfig, batch: int, max_seq: int, *,
                      page_size: int, num_blocks: int, dtype=None,
                      device="cuda", kv_dtype: str = "fp"):
-    """Pool-backed cache: per pattern slot ``{"kv": {"k_pages",
-    "v_pages"}}`` of shape (num_groups, num_blocks + 1, page_size, Hkv, D).
+    """Pool-backed cache: per attention slot ``{"kv": {"k_pages",
+    "v_pages"}}`` of shape (num_groups, num_blocks + 1, page_size, Hkv, D);
+    mamba slots keep their dense per-slot state leaves (as ``make_cache``).
     The extra page is the write sink the manager's sentinel
     (``num_blocks``) indexes: writes that cannot be dropped land there,
     and no table maps it for reading.
@@ -140,8 +181,10 @@ def make_paged_cache(cfg: ModelConfig, batch: int, max_seq: int, *,
                                     device=device)
         return kv
 
-    return {f"b{j}": {"kv": leaves()}
-            for j, _ in enumerate(cfg.block_pattern)}
+    return {f"b{j}": ({"kv": leaves()} if _is_global_attn(blk.mixer)
+                      else _dense_block_leaves(cfg, blk, batch, max_seq,
+                                               dt, device))
+            for j, blk in enumerate(cfg.block_pattern)}
 
 
 def paged_kv_capacity_ratio(cfg: ModelConfig, kv_dtype: str,
@@ -168,12 +211,16 @@ def supports_prefix_compute_reuse(cfg: ModelConfig) -> bool:
                for b in cfg.block_pattern)
 
 
-def make_prefill_part(cfg: ModelConfig, max_seq: int):
-    """The dense remainder of a paged prefill: empty for every
-    global-attention slot (its K/V streams into the pool), which is every
-    slot of the stacks the port serves."""
+def make_prefill_part(cfg: ModelConfig, max_seq: int, *, device="cuda"):
+    """The dense remainder of a paged prefill: zeroed batch-1 state for
+    every mamba slot, and an empty entry for every global-attention slot
+    (its K/V streams into the pool)."""
     check_supported(cfg)
-    return {f"b{j}": {} for j, _ in enumerate(cfg.block_pattern)}
+    dt = getattr(torch, cfg.dtype)
+    return {f"b{j}": ({} if _is_global_attn(blk.mixer)
+                      else _dense_block_leaves(cfg, blk, 1, max_seq, dt,
+                                               device))
+            for j, blk in enumerate(cfg.block_pattern)}
 
 
 def combine_prefill_parts(paged_cache, dense_part):

@@ -2,6 +2,12 @@
 synchronous, over a dense or a paged KV cache, with int8 paged pools and
 prompt-lookup speculative decoding.
 
+It serves the dense GQA decoders and the attention + mamba hybrid (jamba
+with dense FFNs): a hybrid's mamba state is dense per slot beside the
+paged attention pools, its prompts prefill at their exact length, and a
+warm prefix shares its blocks' memory but is prefilled in full
+(speculation is off for it, as in JAX).
+
 The counterpart of the JAX package's ``serving/engine.py`` without plans,
 the overlapped runtime, adaptive re-planning and tracing (the constructor
 raises on each of them).  The engine owns a
@@ -137,6 +143,7 @@ class ServingEngine:
     prefill_bucket: admitted prompts are right-padded to the next multiple
     of this (exact under causal attention: pad tokens sit after every real
     token and their rows are overwritten before any mask admits them).
+    Forced to 1 (exact-length prefill) when any mixer is recurrent.
 
     paged: global-attention KV lives in a pool of ``num_blocks`` pages of
     ``page_size`` tokens behind per-slot block tables, with content-hash
@@ -188,6 +195,15 @@ class ServingEngine:
         self.kernel_path = dispatch.kernel_path(self.device)
         self.serve_step = make_serve_step(self.model)
         self._prefill_slot = make_prefill_slot_step(self.model, self.max_seq)
+        if any(not b.mixer.startswith("attn")
+               for b in self.cfg.block_pattern):
+            # pad tokens are exactly neutral only under causal attention:
+            # a recurrent mixer folds them into its state.  Prefill such
+            # families at the exact prompt length.
+            self.prefill_bucket = 1
+        # compute reuse skips a warm prefix's prefill; a hybrid keeps only
+        # memory sharing (its recurrent state has no per-position cache to
+        # resume from)
         self._suffix_reuse = (self.paged and self.prefix_cache
                               and T.supports_prefix_compute_reuse(self.cfg))
         # a verify window replays K+1 positions through the cache: exact

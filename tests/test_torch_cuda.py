@@ -9,7 +9,8 @@ with the card:
 Tolerances: f32 at 2e-5 (order of summation); bf16 at 2e-2 (the plain
 version rounds its softmax probabilities to bf16, the kernels keep f32).
 The int8 rows and scales the fused decode writes must equal the plain
-version's.
+version's, and the linear scan's states must equal the plain version's
+bit for bit (both round the product and the sum separately in f32).
 """
 import pytest
 
@@ -123,3 +124,51 @@ def test_int8_paged_kernels_match_plain(cuda_device, dtype):
         out = TP.paged_verify_attention_grouped(qv, *pools, bt, offs, **kw)
         _close(out, TR.paged_verify_attention_ref(qv, *pools, bt, offs,
                                                   **kw), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_paged_attention_kernel_matches_plain(cuda_device, dtype):
+    """The unfused paged decode over fp and int8 pools, ragged lengths
+    (a page end, mid-page, the whole table), with and without softcap."""
+    g = torch.Generator(device=cuda_device).manual_seed(3)
+    b, hk, grp, d, page, nb = 3, 2, 8, 128, 16, 6
+    n = b * nb + 1
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=g, device=cuda_device)
+
+    bt = torch.randperm(b * nb, generator=g, device=cuda_device).reshape(
+        b, nb).to(torch.int32)
+    lengths = torch.tensor([16, 37, nb * page], dtype=torch.int32,
+                           device=cuda_device)
+    q = rnd(b, hk, grp, d).to(dtype)
+    kq, ks = TR.quantize_int8_rows(rnd(n, page, hk, d))
+    vq, vs = TR.quantize_int8_rows(rnd(n, page, hk, d))
+    fp = (TR.dequantize_int8(kq, ks).to(dtype),
+          TR.dequantize_int8(vq, vs).to(dtype))
+    for pools, sc in ((fp, {}), ((kq, vq), dict(k_scales=ks, v_scales=vs))):
+        for softcap in (0.0, 30.0):
+            out = TP.paged_attention_grouped(q, *pools, bt, lengths,
+                                             softcap=softcap, **sc)
+            ref = TR.paged_attention_ref(q, *pools, bt, lengths,
+                                         softcap=softcap, **sc)
+            torch.cuda.synchronize()
+            _close(out, ref, dtype)
+
+
+@pytest.mark.parametrize("n,s", [(4, 1), (1, 512), (3, 37)])
+@pytest.mark.parametrize("with_h0", [False, True])
+def test_linear_scan_kernel_equals_plain(cuda_device, n, s, with_h0):
+    """Bit-equal to the plain version in f32: mamba's decode (S = 1) and
+    prefill shapes at jamba's F = 262,144, and a ragged F."""
+    from repro_torch.kernels import linear_scan as TS
+    g = torch.Generator(device=cuda_device).manual_seed(n * 1000 + s)
+    f = 262_144 if s != 37 else 1000
+    a = torch.rand((n, s, f), generator=g, device=cuda_device) * 0.5 + 0.5
+    b = torch.randn((n, s, f), generator=g, device=cuda_device)
+    h0 = torch.randn((n, f), generator=g, device=cuda_device) \
+        if with_h0 else None
+    out = TS.linear_scan(a, b, h0)
+    ref = TR.linear_scan_ref(a, b, h0)
+    torch.cuda.synchronize()
+    assert torch.equal(out, ref)

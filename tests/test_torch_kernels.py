@@ -2,9 +2,10 @@
 
 Each plain PyTorch version in ``repro_torch.kernels.ref`` is held to its
 twin in ``repro.kernels.ref`` on the same inputs (made with numpy from a
-seed), and the three kernels on the serving path -- flash attention, the
-fused paged decode and the paged prefill -- are also held to their Pallas
-kernels run in interpret mode.  The CUDA kernels themselves run only on a
+seed), and the kernels on the serving path -- flash attention, the fused
+paged decode, the paged prefill, and jamba's unfused paged decode and
+linear scan -- are also held to their Pallas kernels run in interpret
+mode.  The CUDA kernels themselves run only on a
 GPU (``tests/test_torch_cuda.py``); here their front doors take the plain
 versions, and their shape contracts are checked on CPU tensors.
 
@@ -28,12 +29,15 @@ from repro.backend import dispatch as JD  # noqa: E402
 from repro.kernels import ref as JR  # noqa: E402
 from repro.kernels.flash_attention import (  # noqa: E402
     flash_attention_bhsd as pallas_flash)
+from repro.kernels.linear_scan import linear_scan as pallas_scan  # noqa: E402
 from repro.kernels.paged_attention import (  # noqa: E402
     fused_paged_decode_grouped as pallas_fused,
+    paged_attention_grouped as pallas_paged,
     paged_prefill_attention_grouped as pallas_prefill)
 from repro_torch.backend import dispatch as TD  # noqa: E402
 from repro_torch.bridge import tensor_from_numpy  # noqa: E402
 from repro_torch.kernels import flash_attention as TF  # noqa: E402
+from repro_torch.kernels import linear_scan as TS  # noqa: E402
 from repro_torch.kernels import paged_attention as TP  # noqa: E402
 from repro_torch.kernels import ref as TR  # noqa: E402
 
@@ -609,3 +613,184 @@ def test_int8_contracts_raise_outside_them(bad):
         kp = vp = _t(n, p, hk, d, dtype=torch.int16)
     with pytest.raises(ValueError):
         TP.check_paged_prefill_contract(q, kp, vp, bt, offs, ks, vs)
+
+
+# ---------------------------------------------------------------------------
+# jamba's kernels: the unfused paged decode and the linear scan
+# ---------------------------------------------------------------------------
+
+SCAN_SHAPES = [(2, 128, 256), (4, 256, 128), (1, 1, 384)]
+
+
+def _scan_inputs(seed, n, s, f):
+    r = np.random.default_rng(seed)
+    return (both(r.uniform(0.5, 0.999, (n, s, f))),
+            both(r.standard_normal((n, s, f))),
+            both(r.standard_normal((n, f))))
+
+
+@pytest.mark.parametrize("n,s,f", SCAN_SHAPES)
+@pytest.mark.parametrize("with_h0", [False, True])
+def test_linear_scan_ref_matches_jax(n, s, f, with_h0):
+    """The sequential f32 carry against the JAX ref's ``lax.scan``: both
+    round the product and the sum separately, so they agree to the last
+    bit up to XLA's choice to contract them (F32 tolerance)."""
+    (aj, at), (bj, bt_), (hj, ht) = _scan_inputs(n * s + f, n, s, f)
+    h0j, h0t = (hj, ht) if with_h0 else (None, None)
+    out = TR.linear_scan_ref(at, bt_, h0t)
+    assert out.dtype == torch.float32 and out.shape == (n, s, f)
+    close(out, JR.linear_scan_ref(aj, bj, h0j), F32)
+
+
+@pytest.mark.parametrize("n,s,f", SCAN_SHAPES[:2])
+def test_linear_scan_plain_matches_pallas_interpret(n, s, f):
+    """The wrapper's CPU path against the Pallas kernel in interpret mode
+    (block sizes as in tests/test_kernels.py), with h0."""
+    (aj, at), (bj, bt_), (hj, ht) = _scan_inputs(7 + s, n, s, f)
+    ja = pallas_scan(aj, bj, hj, block_s=128, block_f=128, interpret=True)
+    close(TS.linear_scan(at, bt_, ht), ja, F32)
+
+
+@pytest.mark.parametrize("softcap", [0.0, 30.0])
+def test_paged_attention_plain_matches_pallas_interpret(softcap):
+    """The unfused paged decode's CPU path against the Pallas kernel in
+    interpret mode: ragged lengths (one page, mid-page, the whole table
+    ending on the sink page)."""
+    o = _pool_setup(81, d=128, g=4, page=16)
+    lengths = np.array([48, 16, 21], np.int32)
+    ja = pallas_paged(o["q"][0], o["kp"][0], o["vp"][0], o["bt"][0],
+                      jnp.asarray(lengths), softcap=softcap, interpret=True)
+    to = TP.paged_attention_grouped(o["q"][1], o["kp"][1], o["vp"][1],
+                                    o["bt"][1], torch.from_numpy(lengths),
+                                    softcap=softcap)
+    close(to, ja, F32)
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_paged_attention_ref_with_scales_matches_jax(dtype):
+    jdt, tol = DTYPES[dtype]
+    o = _pool_setup(83, d=64, dtype=jdt)
+    kp, vp, ks, vs = _int8_pools(84, n=o["kp"][1].shape[0], page=16, hk=2,
+                                 d=64)
+    lengths = np.array([5, 16, 47], np.int32)
+    ja = JR.paged_attention_ref(o["q"][0], kp[0], vp[0], o["bt"][0],
+                                jnp.asarray(lengths), softcap=30.0,
+                                k_scales=ks[0], v_scales=vs[0])
+    to = TR.paged_attention_ref(o["q"][1], kp[1], vp[1], o["bt"][1],
+                                torch.from_numpy(lengths), softcap=30.0,
+                                k_scales=ks[1], v_scales=vs[1])
+    close(to, ja, tol)
+
+
+@pytest.mark.parametrize("pool", ["fp", "int8"])
+def test_dispatch_paged_attention_matches_jax(pool):
+    """The unfused decode front door (model layout in, out-of-range table
+    entries clipped) against the JAX dispatch, which sends int8 pools to
+    its reference."""
+    r = np.random.default_rng(85)
+    b, h, hk, d, page, nb = 2, 4, 2, 64, 8, 3
+    n = b * nb + 1
+    qa, qt = both(r.standard_normal((b, 1, h, d)))
+    bt = r.permutation(b * nb).reshape(b, nb).astype(np.int32)
+    bt[1, 2] = n + 5                                 # out of range: clipped
+    lengths = np.array([4, 17], np.int32)
+    if pool == "int8":
+        kp, vp, ks, vs = _int8_pools(86, n=n, page=page, hk=hk, d=d)
+        kw_j = dict(k_scales=ks[0], v_scales=vs[0])
+        kw_t = dict(k_scales=ks[1], v_scales=vs[1])
+    else:
+        kp, vp = (both(r.standard_normal((n, page, hk, d)))
+                  for _ in range(2))
+        kw_j = kw_t = {}
+    ja = JD.dispatch_paged_attention(qa, kp[0], vp[0], jnp.asarray(bt),
+                                     jnp.asarray(lengths), **kw_j)
+    to = TD.dispatch_paged_attention(qt, kp[1], vp[1], torch.from_numpy(bt),
+                                     torch.from_numpy(lengths), **kw_t)
+    assert to.shape == (b, 1, h * d)
+    close(to, ja, F32)
+
+
+@pytest.mark.parametrize("with_h0", [False, True])
+def test_dispatch_linear_scan_matches_jax(with_h0):
+    """The scan front door against the JAX dispatch (its ref path) on
+    non-contiguous inputs, as the mamba layer's reshapes can give them."""
+    (aj, at), (bj, bt_), (hj, ht) = _scan_inputs(87, 3, 9, 40)
+    h0j, h0t = (hj, ht) if with_h0 else (None, None)
+    ja = JD.dispatch_linear_scan(aj, bj, h0j)
+    to = TD.dispatch_linear_scan(at.transpose(0, 1).contiguous()
+                                 .transpose(0, 1), bt_, h0t)
+    close(to, ja, F32)
+
+
+def test_paged_decode_and_scan_contracts_accept_main_path_shapes():
+    b, hk, g, d, n, p, nb = 4, 8, 8, 128, 257, 16, 64
+    bf = dict(dtype=torch.bfloat16)
+    lengths = _t(b, dtype=torch.int32)
+    assert TP.check_paged_decode_contract(
+        _t(b, hk, g, d, **bf), _t(n, p, hk, d, **bf), _t(n, p, hk, d, **bf),
+        _t(b, nb, dtype=torch.int32), lengths) == (b, hk, g, d, p, nb)
+    sc = _t(n, p, hk)
+    i8 = dict(dtype=torch.int8)
+    assert TP.check_paged_decode_contract(
+        _t(b, hk, g, d, **bf), _t(n, p, hk, d, **i8), _t(n, p, hk, d, **i8),
+        _t(b, nb, dtype=torch.int32), lengths, sc, sc) == (b, hk, g, d, p,
+                                                           nb)
+    f = 262_144
+    assert TS.check_linear_scan_contract(_t(4, 1, f), _t(4, 1, f),
+                                         _t(4, f)) == (4, 1, f)
+    assert TS.check_linear_scan_contract(_t(1, 37, 1000),
+                                         _t(1, 37, 1000)) == (1, 37, 1000)
+
+
+@pytest.mark.parametrize("bad", ["groups", "head_dim", "lengths_dtype",
+                                 "lengths_shape", "pool_dtype", "no_scales"])
+def test_paged_decode_contract_raises_outside_it(bad):
+    b, hk, g, d, n, p, nb = 2, 2, 4, 128, 9, 16, 4
+    q, kp, vp = _t(b, hk, g, d), _t(n, p, hk, d), _t(n, p, hk, d)
+    bt, ln = _t(b, nb, dtype=torch.int32), _t(b, dtype=torch.int32)
+    sc = {}
+    if bad == "groups":
+        q = _t(b, hk, 3, d)
+    elif bad == "head_dim":
+        q, kp, vp = _t(b, hk, g, 32), _t(n, p, hk, 32), _t(n, p, hk, 32)
+    elif bad == "lengths_dtype":
+        ln = ln.long()
+    elif bad == "lengths_shape":
+        ln = _t(b + 1, dtype=torch.int32)
+    elif bad == "pool_dtype":
+        kp = vp = _t(n, p, hk, d, dtype=torch.bfloat16)
+    elif bad == "no_scales":
+        kp = vp = _t(n, p, hk, d, dtype=torch.int8)
+    with pytest.raises(ValueError):
+        TP.check_paged_decode_contract(q, kp, vp, bt, ln, **sc)
+
+
+@pytest.mark.parametrize("bad", ["dtype", "shape", "h0_shape", "noncontig",
+                                 "rows"])
+def test_linear_scan_contract_raises_outside_it(bad):
+    a, b, h0 = _t(2, 5, 64), _t(2, 5, 64), _t(2, 64)
+    if bad == "dtype":
+        a, b = a.to(torch.bfloat16), b.to(torch.bfloat16)
+    elif bad == "shape":
+        b = _t(2, 5, 65)
+    elif bad == "h0_shape":
+        h0 = _t(2, 65)
+    elif bad == "noncontig":
+        a = _t(2, 64, 5).transpose(1, 2)
+    elif bad == "rows":
+        a = b = torch.zeros((65_536, 1, 1))
+        h0 = None
+    with pytest.raises(ValueError):
+        TS.check_linear_scan_contract(a, b, h0)
+
+
+def test_new_wrappers_raise_on_a_device_without_a_kernel():
+    q = torch.zeros((1, 2, 4, 64), device="meta")
+    kp = torch.zeros((3, 16, 2, 64), device="meta")
+    i32 = dict(dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError):
+        TP.paged_attention_grouped(q, kp, kp, torch.zeros((1, 2), **i32),
+                                   torch.zeros((1,), **i32))
+    a = torch.zeros((1, 4, 8), device="meta")
+    with pytest.raises(ValueError):
+        TS.linear_scan(a, a)

@@ -213,3 +213,282 @@ def test_verify_window_decode_matches_jax(pair, cache):
         _close(tcache["b0"]["kv"]["k"], jcache["b0"]["kv"]["k"])
     else:
         _assert_pools(tcache, jcache)
+
+
+# ---------------------------------------------------------------------------
+# the jamba hybrid (mamba + rope-free attention, dense FFNs)
+# ---------------------------------------------------------------------------
+
+HYBRID = "jamba-1.5-large-398b-dense-ffn"
+
+
+def hybrid_configs(layers=8):
+    """The reduced jamba-dense-ffn config on both sides: the port's
+    registry variant, and on the JAX side the reduced published jamba
+    with every FFN dense (no JAX file knows the variant)."""
+    tc = t_reduced(T_REGISTRY[HYBRID], layers=layers)
+    jc = dataclasses.replace(
+        j_reduced(J_REGISTRY["jamba-1.5-large-398b"], layers=layers),
+        name=tc.name, moe=None, block_pattern=tc.block_pattern)
+    assert dataclasses.asdict(jc) == dataclasses.asdict(tc)
+    return jc, tc
+
+
+def numpy_params(jm, seed):
+    """JAX-layout params drawn with numpy (JAX's init runs for seconds on
+    a hybrid): the leaf shapes and dtypes of ``jm.init``, dense weights
+    N(0, 1)/sqrt(fan_in), and JAX's init constants for the norm scales and
+    mamba's conv_b, dt_bias, A_log and D."""
+    r = np.random.default_rng(seed)
+
+    def leaf(path, sd):
+        name, shp = path[-1].key, sd.shape
+        if name in ("scale", "D"):
+            a = np.ones(shp)
+        elif name == "conv_b":
+            a = np.zeros(shp)
+        elif name == "dt_bias":
+            a = np.full(shp, -4.6)
+        elif name == "A_log":
+            a = np.broadcast_to(np.log(np.arange(1, shp[-1] + 1)), shp)
+        else:
+            fan_in = shp[-1] if name == "table" else shp[-2]
+            a = r.standard_normal(shp) / np.sqrt(fan_in)
+        return np.asarray(a, sd.dtype)
+
+    return jax.tree_util.tree_map_with_path(
+        leaf, jax.eval_shape(jm.init, jax.random.key(0)))
+
+
+@pytest.fixture(scope="module")
+def hybrid():
+    jc, tc = hybrid_configs()
+    jm = j_build(jc)
+    tree = numpy_params(jm, 5)
+    jp = jax.tree.map(jnp.asarray, tree)
+    tm = t_build(tc, device="cpu")
+    tp = params_from_numpy(tree, tc, "cpu")
+    return jm, jp, tm, tp
+
+
+@pytest.fixture(scope="module")
+def jitted(hybrid):
+    """The JAX model's methods, jitted once for the module (eager JAX
+    re-traces every layer scan on every call)."""
+    jm = hybrid[0]
+    return dict(forward=jax.jit(jm.forward),
+                prefill=jax.jit(jm.prefill, static_argnums=(2,)),
+                decode=jax.jit(jm.decode_step),
+                suffix=jax.jit(jm.prefill_suffix_paged,
+                               static_argnums=(6,)))
+
+
+def _assert_states(tcache, jcache):
+    """Every mamba slot's conv and ssm leaves, and their f32 dtype."""
+    for bk, sub in tcache.items():
+        if "ssm_state" in sub:
+            for name, t in sub["ssm_state"].items():
+                assert t.dtype == torch.float32
+                _close(t, jcache[bk]["ssm_state"][name])
+
+
+def test_hybrid_param_counts_and_bridge_match(hybrid):
+    """Counts equal, and the f32 mamba leaves cross the bridge exactly."""
+    jm, jp, tm, tp = hybrid
+    assert tm.param_count(tp) == jm.param_count(jp)
+    for name in ("in_proj", "conv_w", "dt_proj", "A_log", "D", "out_proj"):
+        t = tp["stack"][0]["b0"]["mixer"][name]
+        a = np.asarray(jp["stack"]["b0"]["mixer"][name])[0]
+        assert t.dtype == torch.float32
+        np.testing.assert_array_equal(t.numpy(), a)
+
+
+def test_hybrid_init_keeps_jax_shapes_and_constants(hybrid):
+    """The port's own init: JAX's leaf shapes and dtypes, and its
+    constants (A_log to 1 ulp: the two logs may round apart)."""
+    jm, jp, tm, _ = hybrid
+    tp = tm.init(torch.Generator().manual_seed(0))
+    assert tm.param_count(tp) == jm.param_count(jp)
+    mix_j = jax.tree.map(lambda a: np.asarray(a)[0],
+                         jp["stack"]["b0"]["mixer"])
+    mix_t = tp["stack"][0]["b0"]["mixer"]
+    assert set(mix_t) == set(mix_j)
+    for name, a in mix_j.items():
+        assert tuple(mix_t[name].shape) == a.shape, name
+        assert str(mix_t[name].dtype)[6:] == str(a.dtype), name
+    for name in ("conv_b", "dt_bias", "D"):
+        np.testing.assert_array_equal(mix_t[name].numpy(), mix_j[name])
+    np.testing.assert_allclose(mix_t["A_log"].numpy(), mix_j["A_log"],
+                               rtol=1.2e-7, atol=0)
+
+
+def _mamba_pair(hybrid, seed, s):
+    from repro.models import ssm as JS
+    from repro_torch.models import ssm as TSM
+    jm, jp, tm, tp = hybrid
+    pj = jax.tree.map(lambda a: a[0], jp["stack"]["b0"]["mixer"])
+    pt = tp["stack"][0]["b0"]["mixer"]
+    x = np.random.default_rng(seed).standard_normal(
+        (2, s, tm.cfg.d_model)).astype(np.float32)
+    return JS, TSM, pj, pt, x, jm.cfg, tm.cfg
+
+
+def test_apply_mamba_prefill_matches_jax_chunked(hybrid, monkeypatch):
+    """Prefill against JAX's materialized-scan branch (REPRO_MAMBA=chunked,
+    the branch the port takes): atol = rtol = 1e-5."""
+    JS, TSM, pj, pt, x, jc, tc = _mamba_pair(hybrid, 11, 12)
+    monkeypatch.setenv("REPRO_MAMBA", "chunked")
+    jy, jst = JS.apply_mamba(pj, jnp.asarray(x), jc)
+    ty, tst = TSM.apply_mamba(pt, torch.from_numpy(x), tc)
+    tight = dict(atol=1e-5, rtol=1e-5)
+    np.testing.assert_allclose(ty.numpy(), np.asarray(jy), **tight)
+    for name in ("conv", "ssm"):
+        np.testing.assert_allclose(tst[name].numpy(), np.asarray(jst[name]),
+                                   **tight)
+
+
+def test_apply_mamba_prefill_matches_jax_fused_default(hybrid, monkeypatch):
+    """Prefill against JAX's default fused chunk scan, at JAX's own
+    fused-vs-chunked tolerance (tests/test_perf_paths.py): 2e-4."""
+    JS, TSM, pj, pt, x, jc, tc = _mamba_pair(hybrid, 12, 20)
+    monkeypatch.delenv("REPRO_MAMBA", raising=False)
+    jy, jst = JS.apply_mamba(pj, jnp.asarray(x), jc)
+    ty, tst = TSM.apply_mamba(pt, torch.from_numpy(x), tc)
+    np.testing.assert_allclose(ty.numpy(), np.asarray(jy), atol=2e-4,
+                               rtol=2e-4)
+    np.testing.assert_allclose(tst["ssm"].numpy(), np.asarray(jst["ssm"]),
+                               atol=2e-4, rtol=2e-4)
+
+
+def test_apply_mamba_decode_step_with_state_matches_jax(hybrid):
+    """One S = 1 step from a carried f32 state (the decode path: the scan
+    at S = 1 with h0, the conv mixing its f32 history with the step's
+    input)."""
+    JS, TSM, pj, pt, x, jc, tc = _mamba_pair(hybrid, 13, 1)
+    r = np.random.default_rng(14)
+    shapes = JS.mamba_state_shape(jc, 2)
+    assert shapes == TSM.mamba_state_shape(tc, 2)
+    st = {k: r.standard_normal(v).astype(np.float32)
+          for k, v in shapes.items()}
+    jy, jst = JS.apply_mamba(pj, jnp.asarray(x), jc,
+                             {k: jnp.asarray(v) for k, v in st.items()})
+    ty, tst = TSM.apply_mamba(pt, torch.from_numpy(x), tc,
+                              {k: torch.from_numpy(v) for k, v in st.items()})
+    _close(ty, jy)
+    for name in ("conv", "ssm"):
+        assert tst[name].dtype == torch.float32
+        _close(tst[name], jst[name])
+
+
+def test_hybrid_forward_logits_match_jax(hybrid, jitted):
+    jm, jp, tm, tp = hybrid
+    toks = np.random.default_rng(15).integers(
+        1, tm.cfg.vocab_size, (2, 12)).astype(np.int32)
+    jl, _ = jitted["forward"](jp, {"tokens": jnp.asarray(toks)})
+    tl, _ = tm.forward(tp, {"tokens": toks})
+    _close(tl, jl)
+    assert np.array_equal(tl.argmax(-1).numpy(),
+                          np.asarray(jnp.argmax(jl, -1)))
+
+
+def test_hybrid_prefill_and_dense_decode_match_jax(hybrid, jitted):
+    """Dense prefill, then lock-step and per-slot decode: logits, the
+    attention cache and every mamba state leaf."""
+    jm, jp, tm, tp = hybrid
+    toks = np.random.default_rng(16).integers(
+        1, tm.cfg.vocab_size, (2, 9)).astype(np.int32)
+    jl, jc = jitted["prefill"](jp, {"tokens": jnp.asarray(toks)}, 32)
+    tl, tc = tm.prefill(tp, {"tokens": toks}, 32)
+    _close(tl, jl)
+    _assert_states(tc, jc)
+    pos = toks.shape[1]
+    for step in range(3):
+        nxt = np.asarray(jnp.argmax(jl[:, -1], -1), np.int32)[:, None]
+        assert np.array_equal(tl[:, -1].argmax(-1).numpy(), nxt[:, 0])
+        idx_j, idx_t = (jnp.int32(pos), pos) if step % 2 == 0 else (
+            jnp.full((2,), pos, jnp.int32),
+            torch.full((2,), pos, dtype=torch.int32))
+        jl, jc = jitted["decode"](jp, jc, jnp.asarray(nxt), idx_j)
+        tl, tc = tm.decode_step(tp, tc, nxt, idx_t)
+        _close(tl, jl)
+        pos += 1
+    _close(tc["b3"]["kv"]["k"], jc["b3"]["kv"]["k"])
+    _assert_states(tc, jc)
+
+
+@pytest.mark.parametrize("kv_dtype", ["fp", "int8"])
+def test_hybrid_paged_prefill_and_unfused_decode_match_jax(hybrid, jitted,
+                                                           kv_dtype):
+    """Cold paged admissions of two 9-token prompts into slots 0 and 1
+    (the mamba state in a batch-1 part landing in the slot's row), then
+    per-slot paged decode through the unfused kernel's front door, the
+    writes crossing a page boundary (position 12): logits, tokens, the
+    attention pools (int8 rows equal) and every mamba state leaf."""
+    jm, jp, tm, tp = hybrid
+    page, nb, max_seq, num_blocks = 4, 8, 32, 16
+    rng = np.random.default_rng(17)
+    prompts = [rng.integers(1, tm.cfg.vocab_size, 9).astype(np.int32)
+               for _ in range(2)]
+    jcache = jm.init_paged_cache(2, max_seq, page_size=page,
+                                 num_blocks=num_blocks, kv_dtype=kv_dtype)
+    tcache = tm.init_paged_cache(2, max_seq, page_size=page,
+                                 num_blocks=num_blocks, kv_dtype=kv_dtype)
+    bt = np.full((2, nb), num_blocks, np.int32)
+    bt[0, :4] = [5, 2, 9, 1]
+    bt[1, :4] = [3, 11, 7, 13]
+    cur = []
+    for slot, p in enumerate(prompts):
+        toks = p[None]                       # exact length: no padding
+        jl, jcache = jitted["suffix"](
+            jp, jcache, jnp.asarray(toks), slot, jnp.int32(0),
+            jnp.int32(len(p)), max_seq, jnp.asarray(bt[slot:slot + 1]),
+            jnp.asarray(bt[slot:slot + 1]))
+        tl, tcache = tm.prefill_suffix_paged(
+            tp, tcache, toks, slot, 0, len(p), max_seq, bt[slot:slot + 1],
+            bt[slot:slot + 1])
+        _close(tl, jl)
+        cur.append(int(tl[0, -1].argmax()))
+    _assert_pools(_attn_view(tcache), _attn_view(jcache))
+    _assert_states(tcache, jcache)
+    cur = np.array(cur, np.int32)[:, None]
+    pos = np.array([len(p) for p in prompts], np.int32)
+    for _ in range(4):
+        jl, jcache = jitted["decode"](jp, jcache, jnp.asarray(cur),
+                                      jnp.asarray(pos), None,
+                                      jnp.asarray(bt))
+        tl, tcache = tm.decode_step(tp, tcache, cur, torch.from_numpy(pos),
+                                    block_tables=bt)
+        _close(tl, jl)
+        nxt = np.asarray(jnp.argmax(jl[:, -1], -1), np.int32)
+        assert np.array_equal(tl[:, -1].argmax(-1).numpy(), nxt)
+        cur, pos = nxt[:, None], pos + 1
+    _assert_pools(_attn_view(tcache), _attn_view(jcache))
+    _assert_states(tcache, jcache)
+
+
+def _attn_view(cache):
+    """The attention slot's pools, under the key ``_assert_pools`` reads."""
+    return {"b0": cache["b3"]}
+
+
+@pytest.mark.parametrize("arch", ["jamba-1.5-large-398b", "yi-6b"])
+def test_check_supported_lets_only_served_blocks_through(arch):
+    """The dense-FFN variant builds; the published jamba (MoE FFNs) and
+    the kinds not ported yet raise."""
+    from repro_torch.models import transformer as T
+    T.check_supported(T_REGISTRY[HYBRID])
+    cfg = T_REGISTRY[arch]
+    if arch == "yi-6b":
+        from repro_torch.configs.base import BlockSpec
+        for blk in (BlockSpec("mlstm", "dense"), BlockSpec("slstm", "dense"),
+                    BlockSpec("attn_local", "dense"),
+                    BlockSpec("attn", "moe")):
+            with pytest.raises(NotImplementedError):
+                T.check_supported(dataclasses.replace(cfg,
+                                                      block_pattern=(blk,)))
+        with pytest.raises(NotImplementedError):
+            T.check_supported(dataclasses.replace(
+                cfg, mrope_sections=(16, 24, 24)))
+    else:
+        with pytest.raises(NotImplementedError):
+            t_build(cfg, device="cpu")

@@ -376,3 +376,128 @@ def test_ngram_draft_matches_jax(ctx, k, max_ngram):
     arr = np.asarray(ctx, np.int32)
     assert ngram_draft(arr, k, max_ngram) == j_ngram_draft(arr, k,
                                                            max_ngram)
+
+
+# ---------------------------------------------------------------------------
+# the jamba hybrid: mamba state dense per slot beside the paged pools
+# ---------------------------------------------------------------------------
+# The JAX engine jit-compiles its steps anew for every engine (and its
+# prefill for every prompt length), ~6 s a run on the CPU, so it serves
+# each hybrid schedule once per cache layout, at 2 slots; its own harness
+# (tests/test_serving_parity.py) holds its streams independent of the slot
+# count.  The port's engine runs at 1-3 slots against those streams and
+# the port's gold.
+
+@pytest.fixture(scope="module")
+def hybrid_models():
+    from test_torch_model import hybrid_configs, numpy_params
+    jc, tc = hybrid_configs()
+    jm = j_build(jc)
+    tree = numpy_params(jm, 1)
+    tm = t_build(tc, device="cpu")
+    return (jm, jax.tree.map(jax.numpy.asarray, tree), tm,
+            params_from_numpy(tree, tc, "cpu"))
+
+
+@pytest.fixture(scope="module")
+def hybrid_golds(hybrid_models):
+    _, _, tm, tp = hybrid_models
+    return [gold_decode(tm, tp, p, mn, 64) for p, mn, _ in STAGGERED]
+
+
+HYBRID_LAYOUTS = {"dense": {}, "paged": {"paged": True, "page_size": 4},
+                  "int8": {"paged": True, "page_size": 4,
+                           "kv_dtype": "int8"}}
+_jax_hybrid_streams = {}
+
+
+def jax_hybrid_streams(hybrid_models, layout):
+    """The JAX engine's streams for STAGGERED on one layout, once."""
+    if layout not in _jax_hybrid_streams:
+        jm, jp, _, _ = hybrid_models
+        _, got = run_staggered(JEngine, JRequest, jm, jp, 2,
+                               **HYBRID_LAYOUTS[layout])
+        _jax_hybrid_streams[layout] = got
+    return _jax_hybrid_streams[layout]
+
+
+@pytest.mark.parametrize("layout", ["dense", "paged"])
+@pytest.mark.parametrize("slots", [1, 2, 3])
+def test_hybrid_staggered_streams_match_jax_engine_and_gold(
+        hybrid_models, hybrid_golds, layout, slots):
+    """Exact-length admissions (no pad token may enter the mamba state),
+    mamba state dense per slot, attention dense or paged."""
+    _, _, tm, tp = hybrid_models
+    jgot = jax_hybrid_streams(hybrid_models, layout)
+    eng, got = run_staggered(ServingEngine, Request, tm, tp, slots,
+                             **HYBRID_LAYOUTS[layout])
+    assert eng.prefill_bucket == 1
+    assert eng.prefill_token_counts == [len(p) for p, _, _ in STAGGERED]
+    assert eng.cache_stats()["layout"] == ("paged" if layout == "paged"
+                                           else "dense")
+    for uid, gold in enumerate(hybrid_golds):
+        assert got[uid] == gold, f"{layout} slots={slots} uid={uid}"
+        assert got[uid] == jgot[uid], f"{layout} slots={slots} uid={uid}"
+
+
+@pytest.mark.parametrize("slots", [1, 3])
+def test_hybrid_int8_streams_match_jax_engine(hybrid_models, hybrid_golds,
+                                              slots):
+    """int8 pools for the attention layers: the JAX engine's int8 streams,
+    and first tokens equal to the fp gold's."""
+    _, _, tm, tp = hybrid_models
+    eng, got = run_staggered(ServingEngine, Request, tm, tp, slots,
+                             **HYBRID_LAYOUTS["int8"])
+    assert got == jax_hybrid_streams(hybrid_models, "int8")
+    assert [got[u][0] for u in range(len(STAGGERED))] == \
+        [g[0] for g in hybrid_golds]
+    assert eng._cache["b3"]["kv"]["k_pages"].dtype == torch.int8
+    assert eng._cache["b0"]["ssm_state"]["ssm"].dtype == torch.float32
+
+
+def _hybrid_warm(engine_cls, request_cls, model, params):
+    p = np.arange(1, 9, dtype=np.int32)
+    eng = engine_cls(model, params, slots=2, max_seq=64, paged=True,
+                     page_size=4)
+    eng.submit(request_cls(0, p, 5))
+    eng.run()
+    eng.submit(request_cls(1, p.copy(), 5))
+    return eng, {r.uid: r.out_tokens for r in eng.run()}
+
+
+def test_hybrid_warm_prefix_shares_memory_without_compute_reuse(
+        hybrid_models):
+    """The port's mirror of the JAX harness's
+    test_warm_prefix_memory_shares_without_compute_reuse_for_hybrids:
+    the second admission of a prompt shares its blocks (memory) but
+    prefills in full (a mamba state cannot resume mid-prompt); the
+    streams equal the gold and the JAX engine's, and so do the counts."""
+    jm, jp, tm, tp = hybrid_models
+    jeng, jgot = _hybrid_warm(JEngine, JRequest, jm, jp)
+    eng, got = _hybrid_warm(ServingEngine, Request, tm, tp)
+    assert not eng._suffix_reuse
+    gold = gold_decode(tm, tp, np.arange(1, 9, dtype=np.int32), 5, 64)
+    assert got[1] == got[0] == gold
+    assert got == jgot
+    st, jst = eng.cache_stats(), jeng.cache_stats()
+    assert st["prefix_hits"] >= 2                  # memory sharing engaged
+    assert st["prefill_compute_hits"] == 0         # compute reuse gated off
+    assert st["reused_prefill_tokens"] == 0
+    for key in ("prefix_hits", "prefix_queries", "prefill_compute_hits",
+                "blocks_in_use"):
+        assert st[key] == jst[key], key
+
+
+def test_hybrid_speculation_is_off_as_in_jax(hybrid_models, hybrid_golds):
+    """speculate=4 on the hybrid is silently plain decode on both sides
+    (an SSM state cannot rewind a rejected draft)."""
+    jm, jp, tm, tp = hybrid_models
+    kw = HYBRID_LAYOUTS["paged"]
+    assert JEngine(jm, jp, slots=2, max_seq=64, speculate=4, **kw)._spec_k \
+        == 0
+    eng, got = run_staggered(ServingEngine, Request, tm, tp, 2, speculate=4,
+                             **kw)
+    assert eng._spec_k == 0 and eng.stats()["spec_steps"] == 0
+    assert got == jax_hybrid_streams(hybrid_models, "paged")
+    for uid, gold in enumerate(hybrid_golds):
+        assert got[uid] == gold, uid
