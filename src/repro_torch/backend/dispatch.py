@@ -5,10 +5,12 @@ the hand-written kernel (which raises outside its shape contract), a CPU
 tensor to the kernel's plain PyTorch version.  There is no environment
 override and no fallback from a kernel to its plain version.
 
-Each ``dispatch_*`` takes the model layout (B, S, H, D), hands the kernel
-the JAX kernel layout, and clips the block-table sentinel into range the
-way the JAX dispatch does (``jnp.clip(block_tables, 0, n - 1)``): PyTorch
-raises on the out-of-range gathers JAX clamps.
+Each attention ``dispatch_*`` takes the model layout (B, S, H, D), hands
+the kernel the JAX kernel layout, and clips the block-table sentinel into
+range the way the JAX dispatch does (``jnp.clip(block_tables, 0, n - 1)``):
+PyTorch raises on the out-of-range gathers JAX clamps.  The matmul and
+norm doors take leading batch dimensions, as JAX's CPU path does, and
+flatten them to the kernels' 2-D rows.
 """
 from __future__ import annotations
 
@@ -163,7 +165,40 @@ def dispatch_linear_scan(a, b, h0=None):
                        None if h0 is None else h0.contiguous())
 
 
+# ---------------------------------------------------------------------------
+# fused matmul
+# ---------------------------------------------------------------------------
+
+def dispatch_matmul(x, w, bias=None, *, activation="none", out_dtype=None):
+    """x (..., K) @ w (K, N) [+ bias (N,)] with the fused bias /
+    activation / down-cast epilogue -> (..., N) in ``out_dtype`` (default
+    ``x.dtype``)."""
+    from repro_torch.kernels.fused_matmul import matmul_fused
+    lead = x.shape[:-1]
+    out = matmul_fused(x.reshape(-1, x.shape[-1]).contiguous(),
+                       w.contiguous(),
+                       None if bias is None else bias.contiguous(),
+                       activation=activation, out_dtype=out_dtype)
+    return out.reshape(*lead, out.shape[-1])
+
+
+# ---------------------------------------------------------------------------
+# one-pass norm
+# ---------------------------------------------------------------------------
+
+def dispatch_layernorm(x, scale, bias=None, *, kind="rmsnorm", eps=1e-6):
+    """Row RMSNorm (any ``kind`` but "layernorm") or LayerNorm of x
+    (..., D) in f32 -> (..., D) in x's dtype."""
+    from repro_torch.kernels.layernorm import norm_onepass
+    out = norm_onepass(x.reshape(-1, x.shape[-1]).contiguous(),
+                       scale.contiguous(),
+                       None if bias is None else bias.contiguous(),
+                       kind=kind, eps=eps)
+    return out.reshape(x.shape)
+
+
 __all__ = ["kernel_path", "dispatch_flash_attention",
            "dispatch_paged_attention", "dispatch_fused_paged_decode",
            "dispatch_paged_prefill_attention",
-           "dispatch_paged_verify_attention", "dispatch_linear_scan"]
+           "dispatch_paged_verify_attention", "dispatch_matmul",
+           "dispatch_layernorm", "dispatch_linear_scan"]

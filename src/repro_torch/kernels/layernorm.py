@@ -1,0 +1,74 @@
+"""One-pass row norm: the hand-written Hopper kernel and its door.
+
+``norm_onepass(x, scale, bias=None, *, kind="rmsnorm", eps=1e-6)``
+normalizes every row of x (R, D) in f32 and casts back to x's dtype:
+layernorm (variance ``mean((x - mu)^2)``, then scale and bias) when
+``kind == "layernorm"``, rmsnorm for any other kind (bias unused), as the
+JAX kernel of the same name does.  On CPU tensors it runs the plain
+version (``ref.norm_onepass_ref``); on CUDA tensors it launches
+``csrc/layernorm.cu`` or raises -- there is no fallback.  It is reached
+through ``dispatch_layernorm`` and the ``kernels.ops.norm_onepass``
+alias; the models normalize in plain PyTorch, as JAX's do in jnp.
+
+Shape contract on CUDA: x (R, D) contiguous float32 or bfloat16 with
+R >= 1 and 1 <= D <= 32,768 (the row lives in shared memory as f32);
+scale and bias (None or) contiguous (D,), each float32 or x's dtype; all
+on one device.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels import ref as R
+
+MAX_D = 32_768
+
+
+def check_norm_contract(x, scale, bias=None):
+    """Raise ValueError outside the CUDA kernel's contract; returns
+    (R, D)."""
+    if x.dim() != 2:
+        raise ValueError(f"x must be (R, D), got {tuple(x.shape)}")
+    r, d = x.shape
+    if r < 1 or not 1 <= d <= MAX_D:
+        raise ValueError(f"R={r}, D={d}: R must be >= 1 and D in "
+                         f"[1, {MAX_D}]")
+    _build.dtype_code(x.dtype)
+    tensors = (x, scale) if bias is None else (x, scale, bias)
+    for name, t in (("scale", scale), ("bias", bias)):
+        if t is not None and (t.shape != (d,)
+                              or t.dtype not in (x.dtype, torch.float32)):
+            raise ValueError(f"{name} must be ({d},) of {x.dtype} or "
+                             f"float32, got {t.dtype} {tuple(t.shape)}")
+    if any(not t.is_contiguous() for t in tensors):
+        raise ValueError("norm operands must be contiguous")
+    if any(t.device != x.device for t in tensors):
+        raise ValueError("norm operands must share one device")
+    return r, d
+
+
+def norm_onepass(x, scale, bias=None, *, kind="rmsnorm", eps=1e-6):
+    """x (R, D) row-normalized -> (R, D) in x's dtype."""
+    if x.device.type == "cpu":
+        return R.norm_onepass_ref(x, scale, bias, kind=kind, eps=eps)
+    if x.device.type != "cuda":
+        raise ValueError(f"no norm kernel for {x.device}")
+    r, d = check_norm_contract(x, scale, bias)
+    lib = _build.load_library()
+    out = torch.empty_like(x)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.repro_norm_onepass(
+            _build.dtype_code(x.dtype), x.data_ptr(), scale.data_ptr(),
+            _build.dtype_code(scale.dtype),
+            None if bias is None else bias.data_ptr(),
+            0 if bias is None else _build.dtype_code(bias.dtype),
+            out.data_ptr(), r, d, int(kind == "layernorm"), float(eps),
+            stream)
+    _build.check(err, "norm_onepass")
+    norm_onepass.launches += 1
+    return out
+
+
+norm_onepass.launches = 0

@@ -1,4 +1,4 @@
-"""Plain PyTorch versions of the kernels on the serving path.
+"""Plain PyTorch versions of the port's kernels.
 
 Each function computes, op for op, what its twin in the JAX package's
 ``kernels/ref.py`` computes, with the same signature and layouts, so the
@@ -224,6 +224,54 @@ def paged_verify_attention_ref(q, k_pages, v_pages, block_tables, offset,
     return _paged_window_attention(q, k_pages, v_pages, block_tables, qpos,
                                    softcap=softcap, k_scales=k_scales,
                                    v_scales=v_scales)
+
+
+ACTIVATIONS = ("none", "gelu", "silu", "relu2")   # the kernel's codes 0-3
+
+
+def _activation(acc, activation):
+    """The fused matmul's epilogue activation on an f32 tensor: gelu is the
+    tanh form (``jax.nn.gelu(approximate=True)``), relu2 is relu squared.
+    An unknown name raises, as the Pallas epilogue does (the JAX ref
+    returns the plain product instead)."""
+    if activation == "gelu":
+        return torch.nn.functional.gelu(acc, approximate="tanh")
+    if activation == "silu":
+        return torch.nn.functional.silu(acc)
+    if activation == "relu2":
+        return torch.square(torch.clamp_min(acc, 0.0))
+    if activation != "none":
+        raise ValueError(f"unknown activation {activation!r}; choose one "
+                         f"of {ACTIVATIONS}")
+    return acc
+
+
+def matmul_fused_ref(x, w, bias=None, *, activation="none", out_dtype=None):
+    """x (..., K) @ w (K, N) in f32, then + bias (N,) and the activation
+    in f32, cast once to ``out_dtype`` (default ``x.dtype``)."""
+    acc = torch.matmul(x.to(torch.float32), w.to(torch.float32))
+    if bias is not None:
+        acc = acc + bias.to(torch.float32)
+    return _activation(acc, activation).to(out_dtype or x.dtype)
+
+
+def norm_onepass_ref(x, scale, bias=None, *, kind="rmsnorm", eps=1e-6):
+    """Row norm over the last axis in f32, cast back to ``x.dtype``:
+    layernorm (variance ``mean((x - mu)^2)``, then scale and bias) when
+    ``kind == "layernorm"``, rmsnorm (``x * rsqrt(mean(x^2) + eps) *
+    scale``, bias unused) for any other kind, as in both JAX functions."""
+    xf = x.to(torch.float32)
+    if kind == "layernorm":
+        mu = xf.mean(dim=-1, keepdim=True)
+        var = torch.square(xf - mu).mean(dim=-1, keepdim=True)
+        y = (xf - mu) * torch.rsqrt(var + eps)
+        y = y * scale.to(torch.float32)
+        if bias is not None:
+            y = y + bias.to(torch.float32)
+    else:
+        var = torch.square(xf).mean(dim=-1, keepdim=True)
+        y = xf * torch.rsqrt(var + eps) * scale.to(torch.float32)
+    return y.to(x.dtype)
 
 
 def linear_scan_ref(a, b, h0=None):

@@ -10,9 +10,10 @@ Conventions, as on the JAX side:
     JAX weights bridge across unchanged (``repro_torch.bridge``);
   * activations ``x`` are (batch, seq, d_model);
   * projections are ``torch.matmul`` (the JAX side leaves them to XLA as
-    einsums); attention softmax runs in f32.  In f32 the arithmetic is
-    the JAX layer's; in bf16 the MLP's hidden product is rounded to bf16
-    before the gate multiply, where JAX keeps it in f32.
+    einsums), whose output JAX casts straight back to the activation
+    dtype; where JAX keeps the f32 accumulator (the MLP's hidden and gate
+    products, the LM head) the port takes ``matmul_f32``.  Attention
+    softmax runs in f32.
 
 Unlike JAX, which returns fresh cache arrays, the port writes K/V into the
 cache tensors it is given, IN PLACE, and returns the same dict.
@@ -346,13 +347,27 @@ def multi_head_attention(p, x, cfg: ModelConfig, *, kv_cache=None,
 # ---------------------------------------------------------------------------
 
 
+def matmul_f32(x, w):
+    """x (..., K) @ w (K, N) accumulated in f32 and returned in f32: the
+    counterpart of ``jnp.einsum(..., preferred_element_type=jnp.float32)``
+    with no cast after it.  On CUDA, bf16 operands go to the dtype
+    overload of ``torch.mm`` (f32 output, no widened weight copy); on the
+    CPU both operands are widened first, which gives the same product
+    because bf16 values are exact in f32."""
+    if x.device.type == "cuda" and x.dtype != torch.float32:
+        out = torch.mm(x.reshape(-1, x.shape[-1]), w,
+                       out_dtype=torch.float32)
+        return out.reshape(*x.shape[:-1], w.shape[-1])
+    return torch.matmul(x.to(torch.float32), w.to(torch.float32))
+
+
 def apply_mlp(p, x, cfg: ModelConfig):
-    """Gated SiLU MLP: wo(silu(x wg) * (x wi))."""
-    dt = x.dtype
-    hid = torch.matmul(x, p["wi"]).to(torch.float32)
-    gate = torch.matmul(x, p["wg"]).to(torch.float32)
+    """Gated SiLU MLP: wo(silu(x wg) * (x wi)), the hidden and gate
+    products kept in f32 as JAX keeps them."""
+    hid = matmul_f32(x, p["wi"])
+    gate = matmul_f32(x, p["wg"])
     hid = torch.nn.functional.silu(gate) * hid
-    return torch.matmul(hid.to(dt), p["wo"])
+    return torch.matmul(hid.to(x.dtype), p["wo"])
 
 
 def embed(p, ids, cfg: ModelConfig):
@@ -361,4 +376,4 @@ def embed(p, ids, cfg: ModelConfig):
 
 def logits_head(p_head, x, cfg: ModelConfig):
     """f32 logits, as the JAX head's f32-accumulated einsum gives them."""
-    return torch.matmul(x.to(torch.float32), p_head["w"].to(torch.float32))
+    return matmul_f32(x, p_head["w"])

@@ -17,11 +17,10 @@ branch (``REPRO_MAMBA`` other than "fused"); its fused chunk path, which
 keeps those tensors out of HBM on a TPU, is not ported.
 
 Dtypes as on the JAX side: the in/x/out projections take the activation
-dtype (``torch.matmul``, f32 accumulation); ``conv_w``, ``conv_b``,
-``dt_proj``, ``dt_bias``, ``A_log`` and ``D`` are f32 and the scan runs
-in f32.  In f32 the arithmetic is JAX's; in bf16 the x projection's
-output is rounded to bf16 before it is widened to f32, where JAX keeps
-the f32 accumulator.
+dtype; the in and out projections are cast back to it, and the x
+projection keeps its f32 accumulator (``matmul_f32``).  ``conv_w``,
+``conv_b``, ``dt_proj``, ``dt_bias``, ``A_log`` and ``D`` are f32 and
+the scan runs in f32.
 """
 from __future__ import annotations
 
@@ -33,7 +32,7 @@ import torch.nn.functional as F
 
 from repro_torch.backend import dispatch as kops
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.layers import dense_init
+from repro_torch.models.layers import dense_init, matmul_f32
 
 
 def mamba_dims(cfg: ModelConfig):
@@ -112,7 +111,7 @@ def apply_mamba(p, x, cfg: ModelConfig, state: Optional[dict] = None):
     xi, z = torch.split(xz, d_inner, dim=-1)
     xi, new_conv = _mamba_conv(p, xi, state["conv"] if state else None)
 
-    proj = torch.matmul(xi, p["x_proj"]).to(f32)
+    proj = matmul_f32(xi, p["x_proj"])
     dt_raw, bm, cm = torch.split(proj, [dt_rank, n, n], dim=-1)
     delta = F.softplus(torch.matmul(dt_raw, p["dt_proj"]) + p["dt_bias"])
     a_mat = -torch.exp(p["A_log"])                              # (di, n)

@@ -10,7 +10,10 @@ Tolerances: f32 at 2e-5 (order of summation); bf16 at 2e-2 (the plain
 version rounds its softmax probabilities to bf16, the kernels keep f32).
 The int8 rows and scales the fused decode writes must equal the plain
 version's, and the linear scan's states must equal the plain version's
-bit for bit (both round the product and the sum separately in f32).
+bit for bit (both round the product and the sum separately in f32).  The
+fused matmul and the one-pass norm are held at the JAX kernel tests'
+tolerances, by output dtype: matmul 1e-4 (f32) / 2e-2 (bf16, one bf16
+ulp is at most 2^-7 relative), norm 1e-5 / 3e-2.
 """
 import pytest
 
@@ -172,3 +175,96 @@ def test_linear_scan_kernel_equals_plain(cuda_device, n, s, with_h0):
     ref = TR.linear_scan_ref(a, b, h0)
     torch.cuda.synchronize()
     assert torch.equal(out, ref)
+
+
+MM_TOLS = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+NORM_TOLS = {torch.float32: 1e-5, torch.bfloat16: 3e-2}
+MM_MODES = {"f32": (torch.float32, None), "bf16": (torch.bfloat16, None),
+            "bf16_to_f32": (torch.bfloat16, torch.float32)}
+
+
+@pytest.mark.parametrize("act", ["none", "gelu", "silu", "relu2"])
+@pytest.mark.parametrize("mode", sorted(MM_MODES))
+@pytest.mark.parametrize("m,k", [(1, 1000), (3, 1000), (600, 1000),
+                                 (1, 4096), (3, 4096), (600, 4096),
+                                 (37, 1001)])
+def test_matmul_fused_kernel_matches_plain(cuda_device, m, k, mode, act):
+    """N = 11008 (yi-6b's d_ff), decode and prefill M, a K that is not a
+    multiple of the tiles, and (K = 1001) the unvectorized loads; with and
+    without a bias (f32 and x's dtype)."""
+    from repro_torch.kernels import fused_matmul as TM
+    dtype, out_dtype = MM_MODES[mode]
+    n = 11008
+    g = torch.Generator(device=cuda_device).manual_seed(m * 7 + k)
+    x = torch.randn((m, k), generator=g, device=cuda_device).to(dtype)
+    w = (torch.randn((k, n), generator=g, device=cuda_device)
+         / k ** 0.5).to(dtype)
+    bias = torch.randn((n,), generator=g, device=cuda_device)
+    tol = MM_TOLS[out_dtype or dtype]
+    for b in (None, bias, bias.to(dtype)):
+        out = TM.matmul_fused(x, w, b, activation=act, out_dtype=out_dtype)
+        ref = TR.matmul_fused_ref(x, w, b, activation=act,
+                                  out_dtype=out_dtype)
+        torch.cuda.synchronize()
+        assert out.dtype == ref.dtype and out.shape == (m, n)
+        torch.testing.assert_close(out.float(), ref.float(), atol=tol,
+                                   rtol=tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [100, 4096, 8192])
+def test_norm_onepass_kernel_matches_plain(cuda_device, d, dtype):
+    """Rows of decode (4) and prefill (512) batches; f32 and x-dtype
+    scales; rmsnorm, and layernorm with and without a bias."""
+    from repro_torch.kernels import layernorm as TL
+    g = torch.Generator(device=cuda_device).manual_seed(d)
+    tol = NORM_TOLS[dtype]
+    for r in (4, 512):
+        x = (torch.randn((r, d), generator=g, device=cuda_device) * 3
+             + 1).to(dtype)
+        scale = torch.randn((d,), generator=g, device=cuda_device)
+        bias = torch.randn((d,), generator=g, device=cuda_device)
+        for kw in (dict(scale=scale), dict(scale=scale.to(dtype)),
+                   dict(scale=scale, bias=bias, kind="layernorm"),
+                   dict(scale=scale.to(dtype), kind="layernorm")):
+            out = TL.norm_onepass(x, **kw)
+            ref = TR.norm_onepass_ref(x, **kw)
+            torch.cuda.synchronize()
+            assert out.dtype == dtype
+            torch.testing.assert_close(out.float(), ref.float(), atol=tol,
+                                       rtol=tol)
+
+
+def test_matmul_f32_keeps_the_f32_accumulator_on_cuda(cuda_device):
+    """The model's f32-accumulating product of bf16 operands (the MLP's
+    hidden and gate products, mamba's x projection, the LM head) equals
+    the product of the operands widened to f32, up to summation order."""
+    from repro_torch.models.layers import matmul_f32
+    g = torch.Generator(device=cuda_device).manual_seed(5)
+    x = torch.randn((2, 7, 4096), generator=g, device=cuda_device).to(
+        torch.bfloat16)
+    w = (torch.randn((4096, 11008), generator=g, device=cuda_device)
+         / 64).to(torch.bfloat16)
+    out = matmul_f32(x, w)
+    ref = torch.matmul(x.float(), w.float())
+    torch.cuda.synchronize()
+    assert out.dtype == torch.float32 and out.shape == (2, 7, 11008)
+    torch.testing.assert_close(out, ref, atol=1e-4, rtol=1e-4)
+
+
+def test_matmul_and_norm_raise_outside_their_contracts_on_cuda(cuda_device):
+    """No fallback: CUDA tensors outside either contract raise."""
+    from repro_torch.kernels import fused_matmul as TM
+    from repro_torch.kernels import layernorm as TL
+    x = torch.randn((8, 64), device=cuda_device)
+    w = torch.randn((64, 32), device=cuda_device)
+    for bad in (dict(x=x.t().contiguous().t()), dict(w=w.to(torch.bfloat16)),
+                dict(activation="tanh")):
+        kw = dict(x=x, w=w, activation="none") | bad
+        with pytest.raises(ValueError):
+            TM.matmul_fused(kw.pop("x"), kw.pop("w"), **kw)
+    with pytest.raises(ValueError):
+        TL.norm_onepass(torch.randn((2, 40_000), device=cuda_device),
+                        torch.ones((40_000,), device=cuda_device))
+    with pytest.raises(ValueError):
+        TL.norm_onepass(x.t(), torch.ones((8,), device=cuda_device))

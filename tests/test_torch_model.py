@@ -11,7 +11,10 @@ layers=2)`` (head_dim 16) and a head_dim-128 variant.
 
 Tolerance: f32 logits at atol = rtol = 1e-4 (random weights give logits
 of order 1-10; the frameworks sum in different orders through two layers
-of matmuls), and greedy tokens must be identical.  int8 rows must be
+of matmuls), and greedy tokens must be identical.  In bf16, the MLP and
+mamba layers are held to JAX's on the same bf16 weights: at most 1% of
+the bf16 outputs differ, none by more than one bf16 ulp, and mamba's f32
+state at rtol 1e-5 (the f32 accumulators JAX keeps, kept).  int8 rows must be
 equal; their scales, which are amax/127 of activations, are held to the
 logits' tolerance.
 """
@@ -30,6 +33,7 @@ from repro.configs import REGISTRY as J_REGISTRY  # noqa: E402
 from repro.configs import reduced as j_reduced  # noqa: E402
 from repro.models import build_model as j_build  # noqa: E402
 from repro_torch.bridge import params_from_numpy  # noqa: E402
+from repro_torch.bridge import tensor_from_numpy  # noqa: E402
 from repro_torch.configs import REGISTRY as T_REGISTRY  # noqa: E402
 from repro_torch.configs import reduced as t_reduced  # noqa: E402
 from repro_torch.models import build_model as t_build  # noqa: E402
@@ -345,6 +349,88 @@ def test_apply_mamba_prefill_matches_jax_chunked(hybrid, monkeypatch):
     for name in ("conv", "ssm"):
         np.testing.assert_allclose(tst[name].numpy(), np.asarray(jst[name]),
                                    **tight)
+
+
+def _bf16_ulp(a):
+    """One bf16 ulp at each magnitude of ``a`` (8 significant bits)."""
+    a = np.maximum(np.abs(a), np.finfo(np.float32).tiny)
+    return np.exp2(np.floor(np.log2(a)) - 7)
+
+
+def _assert_bf16_within_one_ulp(t, a, share=0.01):
+    """At most ``share`` of the bf16 elements differ from JAX's, and none
+    by more than one bf16 ulp (the frameworks sum in different orders).
+    An element's ulp is taken at its own magnitude or at the output's RMS,
+    whichever is larger: an element that cancels to near zero carries the
+    rounding of the terms that summed to it, not of its own size."""
+    t = t.to(torch.float32).numpy()
+    a = np.asarray(a, np.float32)
+    diff = np.abs(t - a)
+    rms = np.sqrt(np.mean(np.square(a)))
+    ulp = _bf16_ulp(np.maximum(np.maximum(np.abs(t), np.abs(a)), rms))
+    assert (diff > 0).mean() <= share, (
+        f"{(diff > 0).mean():.2%} of elements differ (max {diff.max():.3g})")
+    assert (diff <= ulp).all(), (
+        f"{(diff > ulp).sum()} elements differ by more than one ulp (max "
+        f"difference {diff.max():.3g})")
+
+
+def test_apply_mlp_bf16_keeps_jax_f32_accumulators():
+    """bf16 gated MLP of the yi-6b family (reduced: d_model 512, d_ff 1376;
+    32 tokens) against JAX's on the same bf16 weights.  JAX keeps the
+    hidden and gate products as f32 accumulators and forms silu(gate) *
+    hid in f32; so does the port (``matmul_f32``).  The tree before that
+    repair rounded both products to bf16 first and fails this test: 61%
+    of the output elements differed, by up to 0.0156."""
+    from repro.models import layers as JL
+    from repro_torch.models import layers as TL
+    kw = dict(d_ff=1376, dtype="bfloat16", param_dtype="bfloat16")
+    jc = dataclasses.replace(j_reduced(J_REGISTRY["yi-6b"], layers=2,
+                                       d_model=512), **kw)
+    tc = dataclasses.replace(t_reduced(T_REGISTRY["yi-6b"], layers=2,
+                                       d_model=512), **kw)
+    pj = JL.init_mlp(jax.random.key(3), jc)
+    pt = {k: tensor_from_numpy(np.asarray(v), "cpu") for k, v in pj.items()}
+    assert all(t.dtype == torch.bfloat16 for t in pt.values())
+    xj = jnp.asarray(np.random.default_rng(21).standard_normal((2, 16, 512)),
+                     jnp.bfloat16)
+    ty = TL.apply_mlp(pt, tensor_from_numpy(np.asarray(xj), "cpu"), tc)
+    jy = JL.apply_mlp(pj, xj, jc)
+    assert ty.dtype == torch.bfloat16
+    _assert_bf16_within_one_ulp(ty, jy)
+
+
+def test_apply_mamba_bf16_keeps_jax_f32_x_projection(monkeypatch):
+    """bf16 mamba prefill of the reduced hybrid (12 tokens) against JAX's
+    materialized-scan branch (REPRO_MAMBA=chunked) on the same bf16
+    weights.  JAX keeps the x projection's f32 accumulator, and so does
+    the port (``matmul_f32``): the f32 SSM state agrees at rtol 1e-5
+    (with an absolute floor of 1e-5 of the state's largest magnitude, for
+    elements near zero) and the bf16 output within one bf16 ulp.  The
+    tree before that repair rounded the x projection to bf16 and fails
+    this test: 1840 of the state's 2048 elements left that tolerance (max
+    absolute difference 3.4e-4)."""
+    from repro.models import ssm as JS
+    from repro_torch.models import ssm as TSM
+    jc, tc = (dataclasses.replace(c, dtype="bfloat16",
+                                  param_dtype="bfloat16")
+              for c in hybrid_configs())
+    tree = numpy_params(j_build(jc), 5)
+    pj = jax.tree.map(lambda a: jnp.asarray(a[0]),
+                      tree["stack"]["b0"]["mixer"])
+    pt = params_from_numpy(tree, tc, "cpu")["stack"][0]["b0"]["mixer"]
+    assert pt["x_proj"].dtype == torch.bfloat16
+    xj = jnp.asarray(np.random.default_rng(22).standard_normal(
+        (2, 12, tc.d_model)), jnp.bfloat16)
+    monkeypatch.setenv("REPRO_MAMBA", "chunked")
+    jy, jst = JS.apply_mamba(pj, xj, jc)
+    ty, tst = TSM.apply_mamba(pt, tensor_from_numpy(np.asarray(xj), "cpu"),
+                              tc)
+    assert tst["ssm"].dtype == torch.float32
+    js = np.asarray(jst["ssm"])
+    np.testing.assert_allclose(tst["ssm"].numpy(), js, rtol=1e-5,
+                               atol=1e-5 * np.abs(js).max())
+    _assert_bf16_within_one_ulp(ty, jy)
 
 
 def test_apply_mamba_prefill_matches_jax_fused_default(hybrid, monkeypatch):
