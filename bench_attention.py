@@ -1,0 +1,167 @@
+#!/usr/bin/env python3
+"""Time the port's bf16 attention kernels at ``chip_smoke.py`` phase 3's
+shapes, on one NVIDIA GPU.
+
+    python3 bench_attention.py [--src DIR] [--label NAME] [--out FILE]
+
+``--src`` names the ``src`` directory whose ``repro_torch`` is timed (by
+default this checkout's), so that two trees can be compared on one card
+in one call: unpack the other commit with ``git archive`` into a
+directory that ``.gitignore`` lists and alternate the two, parent,
+change, change, parent.  Only the public wrappers are called, so any
+tree of the port since its paged verify window can be timed.
+
+Rows (bf16, H=32, Hkv=4, G=8, D=128, page 16, inputs from seed 0): the
+verify window (B=4, S=5, per-slot offsets 100-1000) over int8 and fp
+pools, the paged prefill at S=256 (offset 256) and S=600 (offset 0) over
+fp and int8 pools, and causal flash attention at Sq=Skv=512.  Each row
+gives the kernel's CUDA-event time (median of 20 launches, L2 flushed
+before each: it includes the wrapper's host work whenever that outlasts
+the kernel) and its device time (``torch.profiler``, the mean over 10
+launches of the CUDA kernels each launch ran), and the same two for
+``F.scaled_dot_product_attention`` on K/V gathered beforehand, the
+library yardstick.  Without a CUDA device it exits non-zero.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--src", default=os.path.join(HERE, "src"))
+    ap.add_argument("--label", default="")
+    ap.add_argument("--out", default="")
+    args = ap.parse_args(argv)
+    sys.path.insert(0, HERE)
+    import chip_smoke as C          # its timing helpers; it puts src first
+    import torch
+    if not torch.cuda.is_available():
+        print("bench_attention: no CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, os.path.abspath(args.src))
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import flash_attention as TF
+    from repro_torch.kernels import paged_attention as TP
+    from repro_torch.kernels import ref as TR
+    F = torch.nn.functional
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60)
+    card = smi.stdout.strip().splitlines()[0] if smi.returncode == 0 \
+        else "nvidia-smi failed"
+    print(card)
+    _build.load_library()
+    dev, dt = "cuda", torch.bfloat16
+    hk, g, d, page = 4, 8, 128, 16
+    h = hk * g
+    gen = torch.Generator(device=dev).manual_seed(0)
+    flush = torch.empty(64 * 2**20, dtype=torch.int8, device=dev)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    def gathered(kp, vp, ks, vs, bt):
+        b, nb = bt.shape
+        kg = TR.dequantize_int8(kp, ks) if ks is not None else kp.float()
+        vg = TR.dequantize_int8(vp, vs) if vs is not None else vp.float()
+        kg = kg[bt.long()].reshape(b, nb * page, hk, d).transpose(1, 2)
+        vg = vg[bt.long()].reshape(b, nb * page, hk, d).transpose(1, 2)
+        return (kg.repeat_interleave(g, 1).to(dt).contiguous(),
+                vg.repeat_interleave(g, 1).to(dt).contiguous())
+
+    def pools(n, quant):
+        kq, ks = TR.quantize_int8_rows(rnd(n, page, hk, d))
+        vq, vs = TR.quantize_int8_rows(rnd(n, page, hk, d))
+        if quant:
+            return (kq, vq), dict(k_scales=ks, v_scales=vs)
+        return (TR.dequantize_int8(kq, ks).to(dt),
+                TR.dequantize_int8(vq, vs).to(dt)), {}
+
+    rows = []
+
+    def row(name, kernel, plain, sdpa):
+        out, ref = kernel(), plain()
+        torch.cuda.synchronize()
+        err = C.max_err(out, ref)
+        ok = torch.allclose(out.float(), ref.float(), atol=C.TOL[dt],
+                            rtol=C.TOL[dt])
+        r = dict(name=name, max_abs_err=err, ok=bool(ok),
+                 ms=C.bench(kernel, flush), device_ms=C.device_ms(kernel,
+                                                                   flush),
+                 sdpa_ms=C.bench(sdpa, flush),
+                 sdpa_device_ms=C.device_ms(sdpa, flush))
+        print(f"[bench] {args.label} {name}: event {r['ms']:.4f} ms, device "
+              f"{r['device_ms']:.4f} ms; sdpa event {r['sdpa_ms']:.4f} ms, "
+              f"device {r['sdpa_device_ms']:.4f} ms; max_abs_err "
+              f"{err:.3g} {'ok' if ok else 'MISMATCH'}")
+        rows.append(r)
+
+    # verify window: B=4, S=5 at per-slot offsets 100-1000
+    b, nb, s = 4, 64, 5
+    bt = torch.randperm(b * nb, generator=gen, device=dev).reshape(
+        b, nb).to(torch.int32)
+    offs = torch.tensor([100, 371, 640, 1000], dtype=torch.int32,
+                        device=dev)
+    q = rnd(b, hk, g, s, d).to(dt)
+    qpos = offs.long()[:, None] + torch.arange(s, device=dev)[None]
+    mask = (torch.arange(nb * page, device=dev)[None, None, :]
+            <= qpos[:, :, None])[:, None]
+    for quant in (True, False):
+        pl, sc = pools(b * nb + 1, quant)
+        kg, vg = gathered(*pl, sc.get("k_scales"), sc.get("v_scales"), bt)
+        row(f"paged_verify {'int8' if quant else 'fp'}",
+            lambda: TP.paged_verify_attention_grouped(q, *pl, bt, offs, **sc),
+            lambda: TR.paged_verify_attention_ref(q, *pl, bt, offs, **sc),
+            lambda: F.scaled_dot_product_attention(
+                q.reshape(b, h, s, d), kg, vg, attn_mask=mask))
+
+    # paged prefill: S=256 at offset 256, S=600 at offset 0
+    nb = 64
+    bt = torch.randperm(nb, generator=gen, device=dev)[None].to(torch.int32)
+    for quant in (False, True):
+        pl, sc = pools(nb + 1, quant)
+        kg, vg = gathered(*pl, sc.get("k_scales"), sc.get("v_scales"), bt)
+        for s, offset in ((256, 256), (600, 0)):
+            q = rnd(1, hk, g, s, d).to(dt)
+            mask = (torch.arange(nb * page, device=dev)[None, :]
+                    <= offset + torch.arange(s, device=dev)[:, None])
+            row(f"paged_prefill {'int8' if quant else 'fp'} S={s} "
+                f"offset={offset}",
+                lambda: TP.paged_prefill_attention_grouped(
+                    q, *pl, bt, offset, **sc),
+                lambda: TR.paged_prefill_attention_ref(q, *pl, bt, offset,
+                                                       **sc),
+                lambda: F.scaled_dot_product_attention(
+                    q.reshape(1, h, s, d), kg, vg, attn_mask=mask))
+
+    # flash: Sq=Skv=512, causal
+    s = 512
+    q = rnd(1, h, s, d).to(dt)
+    k, v = rnd(1, hk, s, d).to(dt), rnd(1, hk, s, d).to(dt)
+    pos = torch.arange(s, dtype=torch.int32, device=dev)
+    ones = torch.ones((s,), dtype=torch.int32, device=dev)
+    kr = k.repeat_interleave(g, 1).contiguous()
+    vr = v.repeat_interleave(g, 1).contiguous()
+    row("flash_attention causal 512",
+        lambda: TF.flash_attention_bhsd(q, k, v, pos, pos, ones),
+        lambda: TR.flash_attention_ref(q, k, v, pos, pos, ones),
+        lambda: F.scaled_dot_product_attention(q, kr, vr, is_causal=True))
+
+    if args.out:
+        os.makedirs(os.path.dirname(os.path.abspath(args.out)),
+                    exist_ok=True)
+        with open(args.out, "w") as f:
+            json.dump({"card": card, "label": args.label, "src": args.src,
+                       "rows": rows}, f, indent=1)
+    return 0 if all(r["ok"] for r in rows) else 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -16,10 +16,14 @@ device it fails (it never runs on the CPU instead).  Phases, in order:
      f32 and bf16, timed with CUDA events (L2 flushed before every launch)
      beside the bound the card's peaks give, the plain version, and
      ``F.scaled_dot_product_attention`` on the gathered K/V as the library
-     yardstick (timed here only: the port never calls it); then the fused
-     decode's int8 mode (written rows and scales bit-equal), the paged
-     prefill over int8 pools, and the verify window (B=4, S=5, per-slot
-     offsets 100-1000) over fp and int8 pools; then jamba's kernels: the
+     yardstick (timed here only: the port never calls it); the paged
+     prefill at S=256 (offsets 0 and 256) and S=600 (offset 0, the serve's
+     longest prompt); then the fused decode's int8 mode (written rows and
+     scales bit-equal), the paged prefill over int8 pools at the same
+     shapes, and the verify window (B=4, S=5, per-slot offsets 100-1000)
+     over fp and int8 pools, whose bf16 launch must split its keys, plus
+     a single slot at offset 1000 (16 splits, checked only); each
+     attention line prints its bf16 key splits; then jamba's kernels: the
      unfused paged decode (B=4, Hkv=8, G=8, lengths up to 1000) over fp
      and int8 pools, and the linear scan at mamba's decode (N=4, S=1,
      F=262,144, with h0) and prefill (N=1, S=512) shapes, bit-equal; then
@@ -220,40 +224,47 @@ def kernel_phase(dev, flush):
             bound_ms=bnd, bound_by=by, shape=f"B={b} Hkv={hk} G={g} D={d} "
             f"P={page} NB={nb} pos<=1000")
 
-        # -- paged prefill: S=256 at offset 0 and 256, 1024-token table ----
-        b, nb, s = 1, 64, 256
+        # -- paged prefill: S=256 at offset 0 and 256, 1024-token table;
+        #    S=600 at offset 0 (the serve's longest prompt) -------------
+        b, nb = 1, 64
         n = nb + 1
         bt = torch.randperm(nb, generator=gen, device=dev)[None].to(
             torch.int32)
         kp, vp = rnd((n, page, hk, d), dtype), rnd((n, page, hk, d), dtype)
-        q = rnd((b, hk, g, s, d), dtype)
-        for offset in (0, 256):
-            out = TP.paged_prefill_attention_grouped(q, kp, vp, bt, offset)
-            ref = TR.paged_prefill_attention_ref(q, kp, vp, bt, offset)
-            err = assert_close(f"paged_prefill offset={offset}", out, ref,
-                               dtype)
-        ms = bench(lambda: TP.paged_prefill_attention_grouped(
-            q, kp, vp, bt, offset), flush)
-        plain = bench(lambda: TR.paged_prefill_attention_ref(
-            q, kp, vp, bt, offset), flush)
-        kg = kp[bt.long()].reshape(b, nb * page, hk, d).transpose(1, 2)
-        vg = vp[bt.long()].reshape(b, nb * page, hk, d).transpose(1, 2)
-        kg = kg.repeat_interleave(g, 1).contiguous()
-        vg = vg.repeat_interleave(g, 1).contiguous()
-        qs = q.reshape(b, h, s, d)
-        mask = (torch.arange(nb * page, device=dev)[None, :]
-                <= offset + torch.arange(s, device=dev)[:, None])
-        lib = bench(lambda: F.scaled_dot_product_attention(
-            qs, kg, vg, attn_mask=mask), flush)
-        t = offset + s
-        pairs = s * offset + s * (s + 1) // 2
-        nbytes = (2 * hk * g * s * d + 2 * t * hk * d) * el \
-            + 4 * (-(-t // page))
-        bnd, by = bound_ms(nbytes, 4 * pairs * hk * g * d, dtype)
-        results[("paged_prefill", dtype)] = dict(
-            max_abs_err=err, ms=ms, plain_ms=plain, library_ms=lib,
-            bound_ms=bnd, bound_by=by, shape=f"B=1 Hkv={hk} G={g} S={s} "
-            f"offset={offset} D={d} P={page} NB={nb}")
+        for name, s, offsets in (("paged_prefill", 256, (0, 256)),
+                                 ("paged_prefill_s600", 600, (0,))):
+            q = rnd((b, hk, g, s, d), dtype)
+            for offset in offsets:
+                out = TP.paged_prefill_attention_grouped(q, kp, vp, bt,
+                                                         offset)
+                ref = TR.paged_prefill_attention_ref(q, kp, vp, bt, offset)
+                err = assert_close(f"{name} offset={offset}", out, ref,
+                                   dtype)
+            ms = bench(lambda: TP.paged_prefill_attention_grouped(
+                q, kp, vp, bt, offset), flush)
+            plain = bench(lambda: TR.paged_prefill_attention_ref(
+                q, kp, vp, bt, offset), flush)
+            kg = kp[bt.long()].reshape(b, nb * page, hk, d).transpose(1, 2)
+            vg = vp[bt.long()].reshape(b, nb * page, hk, d).transpose(1, 2)
+            kg = kg.repeat_interleave(g, 1).contiguous()
+            vg = vg.repeat_interleave(g, 1).contiguous()
+            qs = q.reshape(b, h, s, d)
+            mask = (torch.arange(nb * page, device=dev)[None, :]
+                    <= offset + torch.arange(s, device=dev)[:, None])
+            lib = bench(lambda: F.scaled_dot_product_attention(
+                qs, kg, vg, attn_mask=mask), flush)
+            t = offset + s
+            pairs = s * offset + s * (s + 1) // 2
+            nbytes = (2 * hk * g * s * d + 2 * t * hk * d) * el \
+                + 4 * (-(-t // page))
+            bnd, by = bound_ms(nbytes, 4 * pairs * hk * g * d, dtype)
+            results[(name, dtype)] = dict(
+                max_abs_err=err, ms=ms, plain_ms=plain, library_ms=lib,
+                bound_ms=bnd, bound_by=by,
+                splits=splits_of(dtype, TP.prefill_split(
+                    b, hk, g, s, page, nb, offset)),
+                shape=f"B=1 Hkv={hk} G={g} S={s} offset={offset} D={d} "
+                f"P={page} NB={nb}")
 
         # -- flash: Sq=Skv=512 causal, plus a window / k_valid case -------
         b, s = 1, 512
@@ -283,15 +294,27 @@ def kernel_phase(dev, flush):
         results[("flash_attention", dtype)] = dict(
             max_abs_err=err, ms=ms, plain_ms=plain, library_ms=lib,
             bound_ms=bnd, bound_by=by,
+            splits=splits_of(dtype, TF.flash_split(b, h, s, s)),
             shape=f"B=1 H={h} Hkv={hk} Sq=Skv={s} causal D={d}")
-        for name in ("fused_paged_decode", "paged_prefill",
-                     "flash_attention"):
-            r = results[(name, dtype)]
-            print(f"[kernels] {name} {str(dtype)[6:]} ({r['shape']}): "
-                  f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
-                  f"sdpa {r['library_ms']:.4f} ms, bound "
-                  f"{r['bound_ms']:.4f} ms ({r['bound_by']})")
+        print_rows(results, dtype, ("fused_paged_decode", "paged_prefill",
+                                    "paged_prefill_s600", "flash_attention"))
     return results
+
+
+def splits_of(dtype, plan):
+    """Key splits of a launch: the bf16 engine's plan at 132 SMs (the
+    wrappers ask the card; an H100 SXM has 132), one in f32."""
+    return plan[0] if dtype == torch.bfloat16 else 1
+
+
+def print_rows(results, dtype, names):
+    for name in names:
+        r = results[(name, dtype)]
+        print(f"[kernels] {name} {str(dtype)[6:]} ({r['shape']}): "
+              f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
+              f"sdpa {r['library_ms']:.4f} ms, bound "
+              f"{r['bound_ms']:.4f} ms ({r['bound_by']}), splits "
+              f"{r.get('splits', 1)}")
 
 
 def int8_kernel_phase(dev, flush, results):
@@ -376,40 +399,45 @@ def int8_kernel_phase(dev, flush, results):
             bound_ms=bnd, bound_by=by, shape=f"B={b} Hkv={hk} G={g} D={d} "
             f"P={page} NB={nb} pos<=1000 int8 pools")
 
-        # -- int8 paged prefill: S=256 at offset 0 and 256 -----------------
-        b, nb, s = 1, 64, 256
+        # -- int8 paged prefill: S=256 at offset 0 and 256; S=600 at 0 ----
+        b, nb = 1, 64
         n = nb + 1
         bt = torch.randperm(nb, generator=gen, device=dev)[None].to(
             torch.int32)
         kp, ks = TR.quantize_int8_rows(rnd((n, page, hk, d)))
         vp, vs = TR.quantize_int8_rows(rnd((n, page, hk, d)))
         sc = dict(k_scales=ks, v_scales=vs)
-        q = rnd((b, hk, g, s, d), dtype)
-        for offset in (0, 256):
-            out = TP.paged_prefill_attention_grouped(q, kp, vp, bt, offset,
-                                                     **sc)
-            ref = TR.paged_prefill_attention_ref(q, kp, vp, bt, offset,
-                                                 **sc)
-            err = assert_close(f"paged_prefill int8 offset={offset}", out,
-                               ref, dtype)
-        ms = bench(lambda: TP.paged_prefill_attention_grouped(
-            q, kp, vp, bt, offset, **sc), flush)
-        pl = bench(lambda: TR.paged_prefill_attention_ref(
-            q, kp, vp, bt, offset, **sc), flush)
         kg, vg = gathered(kp, vp, ks, vs, bt, dtype)
-        mask = (torch.arange(nb * page, device=dev)[None, :]
-                <= offset + torch.arange(s, device=dev)[:, None])
-        qs = q.reshape(b, h, s, d)
-        lib = bench(lambda: F.scaled_dot_product_attention(
-            qs, kg, vg, attn_mask=mask), flush)
-        t = offset + s
-        pairs = s * offset + s * (s + 1) // 2
-        nbytes = window_bytes(t, s, el, d + 4, -(-t // page))
-        bnd, by = bound_ms(nbytes, 4 * pairs * hk * g * d, dtype)
-        results[("paged_prefill_int8", dtype)] = dict(
-            max_abs_err=err, ms=ms, plain_ms=pl, library_ms=lib,
-            bound_ms=bnd, bound_by=by, shape=f"B=1 Hkv={hk} G={g} S={s} "
-            f"offset={offset} D={d} P={page} NB={nb} int8 pools")
+        for name, s, offsets in (("paged_prefill_int8", 256, (0, 256)),
+                                 ("paged_prefill_int8_s600", 600, (0,))):
+            q = rnd((b, hk, g, s, d), dtype)
+            for offset in offsets:
+                out = TP.paged_prefill_attention_grouped(q, kp, vp, bt,
+                                                         offset, **sc)
+                ref = TR.paged_prefill_attention_ref(q, kp, vp, bt, offset,
+                                                     **sc)
+                err = assert_close(f"{name} offset={offset}", out, ref,
+                                   dtype)
+            ms = bench(lambda: TP.paged_prefill_attention_grouped(
+                q, kp, vp, bt, offset, **sc), flush)
+            pl = bench(lambda: TR.paged_prefill_attention_ref(
+                q, kp, vp, bt, offset, **sc), flush)
+            mask = (torch.arange(nb * page, device=dev)[None, :]
+                    <= offset + torch.arange(s, device=dev)[:, None])
+            qs = q.reshape(b, h, s, d)
+            lib = bench(lambda: F.scaled_dot_product_attention(
+                qs, kg, vg, attn_mask=mask), flush)
+            t = offset + s
+            pairs = s * offset + s * (s + 1) // 2
+            nbytes = window_bytes(t, s, el, d + 4, -(-t // page))
+            bnd, by = bound_ms(nbytes, 4 * pairs * hk * g * d, dtype)
+            results[(name, dtype)] = dict(
+                max_abs_err=err, ms=ms, plain_ms=pl, library_ms=lib,
+                bound_ms=bnd, bound_by=by,
+                splits=splits_of(dtype, TP.prefill_split(
+                    b, hk, g, s, page, nb, offset)),
+                shape=f"B=1 Hkv={hk} G={g} S={s} offset={offset} D={d} "
+                f"P={page} NB={nb} int8 pools")
 
         # -- verify: B=4, S=K+1=5 at per-slot offsets 100-1000 -------------
         b, nb, s = 4, 64, 5
@@ -428,6 +456,9 @@ def int8_kernel_phase(dev, flush, results):
         keys = int((qpos[:, -1] + 1).sum())
         pairs = int((qpos + 1).sum())
         tables = int(((qpos[:, -1] + page) // page).sum())
+        splits = splits_of(dtype, TP.prefill_split(b, hk, g, s, page, nb))
+        check(dtype != torch.bfloat16 or splits > 1,
+              "the bf16 verify window must split its keys")
         for pool in ("fp", "int8"):
             if pool == "int8":
                 pools, sc, row_bytes = (kp, vp), dict(k_scales=ks,
@@ -454,15 +485,27 @@ def int8_kernel_phase(dev, flush, results):
             name = "paged_verify" if pool == "int8" else "paged_verify_fp"
             results[(name, dtype)] = dict(
                 max_abs_err=err, ms=ms, plain_ms=pl, library_ms=lib,
-                bound_ms=bnd, bound_by=by, shape=f"B={b} Hkv={hk} G={g} "
-                f"S={s} offsets 100-1000 D={d} P={page} NB={nb} {pool} pools")
-        for name in ("fused_paged_decode_int8", "paged_prefill_int8",
-                     "paged_verify", "paged_verify_fp"):
-            r = results[(name, dtype)]
-            print(f"[kernels] {name} {str(dtype)[6:]} ({r['shape']}): "
-                  f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
-                  f"sdpa {r['library_ms']:.4f} ms, bound "
-                  f"{r['bound_ms']:.4f} ms ({r['bound_by']})")
+                bound_ms=bnd, bound_by=by, splits=splits,
+                shape=f"B={b} Hkv={hk} G={g} S={s} offsets 100-1000 D={d} "
+                f"P={page} NB={nb} {pool} pools")
+        # one live slot at offset 1000: the bf16 launch takes 16 splits of
+        # one tile, most of them past the slot's window (checked only)
+        one = torch.tensor([1000], dtype=torch.int32, device=dev)
+        for pools, sc in (((kp, vp), dict(k_scales=ks, v_scales=vs)),
+                          ((TR.dequantize_int8(kp, ks).to(dtype),
+                            TR.dequantize_int8(vp, vs).to(dtype)), {})):
+            out = TP.paged_verify_attention_grouped(q[:1], *pools, bt[:1],
+                                                    one, **sc)
+            ref = TR.paged_verify_attention_ref(q[:1], *pools, bt[:1], one,
+                                                **sc)
+            assert_close(f"paged_verify B=1 offset=1000 "
+                         f"{'int8' if sc else 'fp'} pools, splits "
+                         f"{splits_of(dtype, TP.prefill_split(1, hk, g, s, page, nb))}",
+                         out, ref, dtype)
+        print_rows(results, dtype, ("fused_paged_decode_int8",
+                                    "paged_prefill_int8",
+                                    "paged_prefill_int8_s600",
+                                    "paged_verify", "paged_verify_fp"))
     return results
 
 
@@ -1342,8 +1385,8 @@ def profile_decode(eng, prompts, request_cls):
         low = key.lower()
         if "fused_decode_kernel" in key:
             classes["fused_paged_decode"] += sec
-        elif "paged_prefill_kernel" in key:    # the verify windows
-            classes["paged_verify"] += sec
+        elif "paged_prefill" in key or "split_combine" in key:
+            classes["paged_verify"] += sec     # the verify windows
         elif "paged_attention_kernel" in key:
             classes["paged_attention"] += sec
         elif "linear_scan_kernel" in key:
@@ -1463,10 +1506,14 @@ def main():
         "fused_paged_decode": decode,
         "fused_paged_decode_int8": decode,
         "paged_prefill": prefill,
+        "paged_prefill_s600": prefill,
         "paged_prefill_int8": prefill,
+        "paged_prefill_int8_s600": prefill,
         # no Pallas kernel: the JAX package runs verify as jnp
         "paged_verify": ("src/repro_torch/csrc/paged_prefill.cu",
                          "src/repro/backend/dispatch.py:232"),
+        "paged_verify_fp": ("src/repro_torch/csrc/paged_prefill.cu",
+                            "src/repro/backend/dispatch.py:232"),
         "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
                             "src/repro/kernels/flash_attention.py:85"),
         "paged_attention": ("src/repro_torch/csrc/paged_attention.cu",
@@ -1488,7 +1535,13 @@ def main():
     hy = served["hybrid"]["launches"]
     launches = {**served["launches"], "paged_attention": hy["paged_attention"],
                 "linear_scan": hy["linear_scan"],
-                "linear_scan_prefill": hy["linear_scan"]}
+                "linear_scan_prefill": hy["linear_scan"],
+                "paged_prefill_s600": served["launches"]["paged_prefill"],
+                "paged_prefill_int8_s600":
+                    served["launches"]["paged_prefill_int8"],
+                # one wrapper and kernel for both pool kinds; only
+                # serve-int8-spec speculates (on int8 pools)
+                "paged_verify_fp": served["launches"]["paged_verify"]}
     line = []
     for name, (src, tpu) in meta.items():
         r = results.get((name, torch.bfloat16),
@@ -1499,7 +1552,8 @@ def main():
                      "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                      "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                      "bound_by": r["bound_by"],
-                     "library_ms": r["library_ms"]})
+                     "library_ms": r["library_ms"],
+                     "splits": r.get("splits", 1)})
     out_dir = os.path.join(HERE, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as f:

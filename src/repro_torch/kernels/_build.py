@@ -34,14 +34,18 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 # name -> argtypes of the C entry points (restype is always int)
 SIGNATURES = {
-    # dtype, q, k, v, q_pos, k_pos, k_valid, out, B, H, Hkv, Sq, Skv, D,
-    # causal, window, softcap, scale, stream
-    "repro_flash_attention": [_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                              _I, _I, _I, _I, _I, _F, _F, _P],
-    # dtype, q, k_pages, v_pages, k_scales, v_scales, bt, offsets, out,
-    # B, Hkv, G, S, D, P, NB, softcap, scale, stream
-    "repro_paged_prefill": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                            _I, _I, _I, _I, _F, _F, _P],
+    # dtype, q, k, v, q_pos, k_pos, k_valid, out, ws_o, ws_ml, nsplit,
+    # split_keys, B, H, Hkv, Sq, Skv, D, causal, window, softcap, scale,
+    # stream
+    "repro_flash_attention": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
+                              _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _F,
+                              _P],
+    # dtype, q, k_pages, v_pages, k_scales, v_scales, bt, offsets, offset,
+    # out, ws_o, ws_ml, nsplit, split_keys, B, Hkv, G, S, D, P, NB,
+    # softcap, scale, stream
+    "repro_paged_prefill": [_I, _P, _P, _P, _P, _P, _P, _P, _I, _P, _P, _P,
+                            _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _F,
+                            _P],
     # dtype, q, k_new, v_new, k_pages, v_pages, k_scales, v_scales, bt,
     # positions, inv_freq, out, B, Hkv, G, D, P, NB, softcap, scale, stream
     "repro_fused_paged_decode": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
@@ -145,6 +149,46 @@ def check(err: int, name: str):
     """Raise if a kernel's C entry point reported a CUDA error."""
     if err != 0:
         raise RuntimeError(f"{name} failed to launch: CUDA error {err}")
+
+
+# the bf16 attention engine's tiles (csrc/attn_mma.cuh)
+MMA_ROWS = 64          # query rows per block
+MMA_KEYS = 64          # keys per tile
+MAX_SPLITS = 16
+
+
+def split_plan(blocks: int, keys: int, sms: int = 132) -> tuple[int, int]:
+    """How the bf16 attention kernels split their keys (split-KV): from
+    host-known shapes alone, ``blocks`` (query tiles x heads x batch) and
+    ``keys`` (the widest key range a block may walk), for a card of ``sms``
+    SMs.  Returns ``(splits, keys_per_split)``; keys_per_split is a
+    multiple of the 64-key tile, and every split starts below ``keys``.
+    One split when the blocks alone fill the card, else as many as fill
+    it, at most one per key tile and at most 16."""
+    tiles = max(1, -(-keys // MMA_KEYS))
+    n = max(1, min(sms // max(blocks, 1), tiles, MAX_SPLITS))
+    per = -(-tiles // n)
+    return -(-tiles // per), per * MMA_KEYS
+
+
+def split_workspace(q, splits: int, rows: int, d: int):
+    """The f32 workspaces of a split launch, ``(ws_o, ws_ml)`` of shapes
+    (splits, rows, d) and (splits, rows, 2); (None, None) for one split."""
+    import torch
+    if splits == 1:
+        return None, None
+    return (torch.empty((splits, rows, d), dtype=torch.float32,
+                        device=q.device),
+            torch.empty((splits, rows, 2), dtype=torch.float32,
+                        device=q.device))
+
+
+def check_aligned(name: str, tensors):
+    """Raise ValueError unless every tensor starts on a 16-byte boundary,
+    which the kernels' 16-byte cp.async copies need."""
+    if any(t.data_ptr() % 16 for t in tensors):
+        raise ValueError(f"{name} operands must start on a 16-byte "
+                         f"boundary")
 
 
 def dtype_code(dtype) -> int:

@@ -6,7 +6,13 @@
 (``ref.flash_attention_ref``); on CUDA tensors it launches
 ``csrc/flash_attention.cu`` or raises -- there is no fallback.
 
-Shape contract on CUDA: q, k, v contiguous, one dtype in {float32,
+bf16 runs on the tensor cores, f32 on the CUDA cores.  In bf16 the
+wrapper may split the keys (``flash_split``, from shapes alone): the
+kernel then writes per-split partial rows into an f32 workspace
+allocated here, and a combine pass of the same C call merges them.
+
+Shape contract on CUDA: q, k, v contiguous and starting on a 16-byte
+boundary (the kernel's cp.async copies), one dtype in {float32,
 bfloat16}, D in {64, 128}, H a multiple of Hkv; q_pos, k_pos, k_valid
 contiguous int32 of lengths Sq, Skv, Skv; everything on one device.
 """
@@ -49,7 +55,14 @@ def check_flash_contract(q, k, v, q_pos, k_pos, k_valid):
         raise ValueError("flash attention operands must be contiguous")
     if any(t.device != q.device for t in tensors):
         raise ValueError("flash attention operands must share one device")
+    _build.check_aligned("flash attention", (q, k, v))
     return b, h, hkv, sq, skv, d
+
+
+def flash_split(b, h, sq, skv, sms=132):
+    """``(splits, keys_per_split)`` of a bf16 flash launch: (query tile,
+    head, batch) blocks against the card's SMs, over the Skv keys."""
+    return _build.split_plan(b * h * -(-sq // _build.MMA_ROWS), skv, sms)
 
 
 def flash_attention_bhsd(q, k, v, q_pos, k_pos, k_valid, *, causal=True,
@@ -65,13 +78,21 @@ def flash_attention_bhsd(q, k, v, q_pos, k_pos, k_valid, *, causal=True,
                                                  k_valid)
     lib = _build.load_library()
     out = torch.empty_like(q)
+    splits, per = 1, 1
+    if q.dtype == torch.bfloat16:
+        splits, per = flash_split(
+            b, h, sq, skv,
+            torch.cuda.get_device_properties(q.device).multi_processor_count)
+    ws_o, ws_ml = _build.split_workspace(q, splits, b * h * sq, d)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.repro_flash_attention(
             _build.dtype_code(q.dtype), q.data_ptr(), k.data_ptr(),
             v.data_ptr(), q_pos.data_ptr(), k_pos.data_ptr(),
-            k_valid.data_ptr(), out.data_ptr(), b, h, hkv, sq, skv, d,
-            int(bool(causal)), int(window), float(softcap),
+            k_valid.data_ptr(), out.data_ptr(),
+            None if ws_o is None else ws_o.data_ptr(),
+            None if ws_ml is None else ws_ml.data_ptr(), splits, per, b, h,
+            hkv, sq, skv, d, int(bool(causal)), int(window), float(softcap),
             1.0 / math.sqrt(d), stream)
     _build.check(err, "flash_attention_bhsd")
     flash_attention_bhsd.launches += 1

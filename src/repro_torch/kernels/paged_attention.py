@@ -15,11 +15,15 @@ on int8 pools per-row scales ``(N, P, Hkv)`` f32):
     in the loader);
   * ``paged_prefill_attention_grouped`` -- S fresh queries at
     ``offset..offset+S-1`` attending every mapped page causally, int8
-    pages dequantized in the tile loader (``csrc/paged_prefill.cu``).
+    pages dequantized inside the kernel (``csrc/paged_prefill.cu``; bf16
+    on the tensor cores, f32 on the CUDA cores).
     ``paged_verify_attention_grouped`` runs the same kernel with a
     per-slot ``(B,)`` offset: the speculative verify window, which the
     JAX package computes with its jnp reference only.  The two keep
-    separate launch counters.
+    separate launch counters.  In bf16 the wrapper may split the keys
+    (``prefill_split``, from shapes alone): the kernel then writes
+    per-split partial rows into an f32 workspace allocated here, and a
+    combine pass of the same C call merges them.
 
 On CPU tensors each runs its plain version from ``kernels/ref.py``; on
 CUDA tensors it launches its kernel or raises.  Unlike the JAX kernel,
@@ -33,7 +37,8 @@ dtype in {float32, bfloat16}; the pools hold either that dtype or int8,
 and int8 pools come with f32 scales of shape (N, P, Hkv) (fp pools with
 none); D in {64, 128}; block tables (B, NB) and positions / offsets (B,)
 int32 (lengths (B,) int32 for ``paged_attention_grouped``); for both
-decode kernels G = H / Hkv in {1, 2, 4, 8}; any page size.  Table
+decode kernels G = H / Hkv in {1, 2, 4, 8}; any page size; q and the
+pools start on a 16-byte boundary (the prefill's cp.async copies).  Table
 entries must lie in [0, N) and positions and offsets be >= 0: the front
 doors (``backend/dispatch.py``) clip the tables, and reading the values
 here would cost a device sync per launch.
@@ -144,7 +149,19 @@ def check_paged_prefill_contract(q, k_pages, v_pages, block_tables, offset,
         raise ValueError(f"offset {offset} must be >= 0")
     _check_common(q, k_pages, v_pages, block_tables, k_scales, v_scales, b,
                   hk, d, tensors)
+    _build.check_aligned("paged prefill", (q, k_pages, v_pages))
     return b, hk, g, s, d, k_pages.shape[1], block_tables.shape[1]
+
+
+def prefill_split(b, hk, g, s, page, nb, offset=None, sms=132):
+    """``(splits, keys_per_split)`` of a bf16 paged prefill or verify
+    launch: (slot, kv head, 64-row tile) blocks against the card's SMs,
+    over the table width, or only up to the window's last key when one
+    host ``offset`` serves every slot (a verify window's per-slot offsets
+    stay on the device: ``offset=None``)."""
+    keys = nb * page if offset is None else min(nb * page, offset + s)
+    return _build.split_plan(b * hk * -(-g * s // _build.MMA_ROWS), keys,
+                             sms)
 
 
 def _ptr(t):
@@ -214,21 +231,30 @@ def paged_attention_grouped(q, k_pages, v_pages, block_tables, lengths, *,
     return out
 
 
-def _launch_paged_prefill(name, q, k_pages, v_pages, block_tables, offsets,
+def _launch_paged_prefill(name, q, k_pages, v_pages, block_tables, offset,
                           softcap, k_scales, v_scales):
-    """Launch ``csrc/paged_prefill.cu`` with per-slot offsets (B,) int32."""
+    """Launch ``csrc/paged_prefill.cu``; ``offset`` is an int (every slot)
+    or per-slot offsets (B,) int32."""
     b, hk, g, s, d, page, nb = check_paged_prefill_contract(
-        q, k_pages, v_pages, block_tables, offsets, k_scales, v_scales)
+        q, k_pages, v_pages, block_tables, offset, k_scales, v_scales)
     lib = _build.load_library()
     out = torch.empty_like(q)
+    per_slot = torch.is_tensor(offset)
+    splits, per = 1, 1
+    if q.dtype == torch.bfloat16:
+        splits, per = prefill_split(
+            b, hk, g, s, page, nb, None if per_slot else int(offset),
+            torch.cuda.get_device_properties(q.device).multi_processor_count)
+    ws_o, ws_ml = _build.split_workspace(q, splits, b * hk * g * s, d)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.repro_paged_prefill(
             _build.dtype_code(q.dtype), q.data_ptr(), k_pages.data_ptr(),
             v_pages.data_ptr(), _ptr(k_scales), _ptr(v_scales),
-            block_tables.data_ptr(), offsets.data_ptr(), out.data_ptr(), b,
-            hk, g, s, d, page, nb, float(softcap), 1.0 / math.sqrt(d),
-            stream)
+            block_tables.data_ptr(), offset.data_ptr() if per_slot else None,
+            0 if per_slot else int(offset), out.data_ptr(), _ptr(ws_o),
+            _ptr(ws_ml), splits, per, b, hk, g, s, d, page, nb,
+            float(softcap), 1.0 / math.sqrt(d), stream)
     _build.check(err, name)
     return out
 
@@ -246,12 +272,8 @@ def paged_prefill_attention_grouped(q, k_pages, v_pages, block_tables,
             k_scales=k_scales, v_scales=v_scales)
     if q.device.type != "cuda":
         raise ValueError(f"no paged prefill kernel for {q.device}")
-    if int(offset) < 0:
-        raise ValueError(f"offset {offset} must be >= 0")
-    offsets = torch.full((q.shape[0],), int(offset), dtype=torch.int32,
-                         device=q.device)
     out = _launch_paged_prefill("paged_prefill_attention_grouped", q,
-                                k_pages, v_pages, block_tables, offsets,
+                                k_pages, v_pages, block_tables, int(offset),
                                 softcap, k_scales, v_scales)
     paged_prefill_attention_grouped.launches += 1
     return out

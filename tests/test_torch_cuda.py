@@ -6,8 +6,10 @@ with the card:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
-Tolerances: f32 at 2e-5 (order of summation); bf16 at 2e-2 (the plain
-version rounds its softmax probabilities to bf16, the kernels keep f32).
+Tolerances: f32 at 2e-5 (order of summation); bf16 at 2e-2 (one bf16
+ulp is 2^-8 relative: the attention kernels round the softmax
+probabilities to bf16 for the tensor cores' P V product, where the plain
+versions keep f32).
 The int8 rows and scales the fused decode writes must equal the plain
 version's, and the linear scan's states must equal the plain version's
 bit for bit (both round the product and the sum separately in f32).  The
@@ -127,6 +129,107 @@ def test_int8_paged_kernels_match_plain(cuda_device, dtype):
         out = TP.paged_verify_attention_grouped(qv, *pools, bt, offs, **kw)
         _close(out, TR.paged_verify_attention_ref(qv, *pools, bt, offs,
                                                   **kw), dtype)
+
+
+@pytest.mark.parametrize("pool", ["fp", "int8"])
+@pytest.mark.parametrize("page", [16, 24])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_paged_windows_that_split_match_plain(cuda_device, dtype, d, page,
+                                              pool):
+    """Verify windows at per-slot offsets up to 1000 with B*Hkv = 16 (the
+    bf16 launch splits the keys), ragged key counts (not multiples of the
+    64-key tile), a page size that does not divide 64, softcap; then one
+    offset deep in the table for a prefill whose bf16 launch splits."""
+    g = torch.Generator(device=cuda_device).manual_seed(d + page)
+    b, hk, grp, s = 4, 4, 8, 5
+    nb = -(-1010 // page)
+    n = b * nb + 1
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=g, device=cuda_device)
+
+    bt = torch.randperm(b * nb, generator=g, device=cuda_device).reshape(
+        b, nb).to(torch.int32)
+    kq, ks = TR.quantize_int8_rows(rnd(n, page, hk, d))
+    vq, vs = TR.quantize_int8_rows(rnd(n, page, hk, d))
+    if pool == "int8":
+        pools, sc = (kq, vq), dict(k_scales=ks, v_scales=vs)
+    else:
+        pools, sc = (TR.dequantize_int8(kq, ks).to(dtype),
+                     TR.dequantize_int8(vq, vs).to(dtype)), {}
+    offs = torch.tensor([0, 77, 640, 1000], dtype=torch.int32,
+                        device=cuda_device)
+    assert TP.prefill_split(b, hk, grp, s, page, nb)[0] > 1
+    q = rnd(b, hk, grp, s, d).to(dtype)
+    for softcap in (0.0, 30.0):
+        out = TP.paged_verify_attention_grouped(q, *pools, bt, offs,
+                                                softcap=softcap, **sc)
+        ref = TR.paged_verify_attention_ref(q, *pools, bt, offs,
+                                            softcap=softcap, **sc)
+        torch.cuda.synchronize()
+        _close(out, ref, dtype)
+    qs = rnd(1, hk, grp, 20, d).to(dtype)
+    assert TP.prefill_split(1, hk, grp, 20, page, nb, 950)[0] > 1
+    out = TP.paged_prefill_attention_grouped(qs, *pools, bt[:1], 950,
+                                             softcap=30.0, **sc)
+    ref = TR.paged_prefill_attention_ref(qs, *pools, bt[:1], 950,
+                                         softcap=30.0, **sc)
+    torch.cuda.synchronize()
+    _close(out, ref, dtype)
+
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_splits_and_fully_masked_rows(cuda_device, dtype, d):
+    """Few query tiles over 1000 keys (the bf16 launch splits them), keys
+    invalid in holes, and a run of 21 invalid keys that empties the
+    16-key window of the queries at 955-960: those rows are 0."""
+    g = torch.Generator(device=cuda_device).manual_seed(7 * d)
+    b, h, hk, sq, skv = 1, 4, 2, 70, 1000
+    q = torch.randn((b, h, sq, d), generator=g, device=cuda_device).to(dtype)
+    k = torch.randn((b, hk, skv, d), generator=g, device=cuda_device).to(dtype)
+    v = torch.randn((b, hk, skv, d), generator=g, device=cuda_device).to(dtype)
+    qp = torch.arange(sq, device=cuda_device, dtype=torch.int32) + 900
+    kp = torch.arange(skv, device=cuda_device, dtype=torch.int32)
+    kv = ((kp % 7 != 3) & ((kp < 940) | (kp > 960))).to(torch.int32)
+    assert TF.flash_split(b, h, sq, skv)[0] > 1
+    empty = (qp >= 955) & (qp <= 960)
+    for kw in (dict(causal=True), dict(causal=False, softcap=20.0),
+               dict(causal=True, window=16, softcap=20.0)):
+        out = TF.flash_attention_bhsd(q, k, v, qp, kp, kv, **kw)
+        ref = TR.flash_attention_ref(q, k, v, qp, kp, kv, **kw)
+        torch.cuda.synchronize()
+        _close(out, ref, dtype)
+        if kw.get("window"):
+            assert not out[:, :, empty].any()
+
+
+def test_attention_wrappers_raise_on_misaligned_operands(cuda_device):
+    """The cp.async copies need 16-byte aligned q, K/V and pools: a
+    contiguous view that starts 2 bytes in raises before any launch."""
+    bf = dict(dtype=torch.bfloat16, device=cuda_device)
+
+    def shifted(*shape):
+        return torch.zeros(int(torch.tensor(shape).prod()) + 1,
+                           **bf)[1:].view(shape)
+
+    pos = torch.zeros((8,), dtype=torch.int32, device=cuda_device)
+    k = torch.zeros((1, 2, 8, 64), **bf)
+    with pytest.raises(ValueError):
+        TF.flash_attention_bhsd(shifted(1, 4, 8, 64), k, k, pos, pos, pos)
+    with pytest.raises(ValueError):
+        TF.flash_attention_bhsd(torch.zeros((1, 4, 8, 64), **bf),
+                                shifted(1, 2, 8, 64), k, pos, pos, pos)
+    kp = torch.zeros((5, 16, 2, 64), **bf)
+    bt = torch.zeros((1, 4), dtype=torch.int32, device=cuda_device)
+    with pytest.raises(ValueError):
+        TP.paged_prefill_attention_grouped(shifted(1, 2, 4, 8, 64), kp, kp,
+                                           bt, 0)
+    with pytest.raises(ValueError):
+        TP.paged_verify_attention_grouped(
+            torch.zeros((1, 2, 4, 8, 64), **bf), kp, shifted(5, 16, 2, 64),
+            bt, pos[:1])
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

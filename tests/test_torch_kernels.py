@@ -360,6 +360,80 @@ def test_prefill_and_flash_contracts_raise_outside_them():
         TF.check_flash_contract(qf, kf, kf, pos.long(), pos, pos)
 
 
+def _shifted(*shape, dtype=torch.bfloat16):
+    """A contiguous tensor that starts 2 bytes past a 16-byte boundary."""
+    return torch.zeros(int(np.prod(shape)) + 1, dtype=dtype)[1:].view(shape)
+
+
+@pytest.mark.parametrize("bad", ["q", "k_pages", "v_pages"])
+def test_paged_prefill_contract_raises_on_misaligned_operands(bad):
+    ops = dict(q=_t(1, 2, 4, 8, 64, dtype=torch.bfloat16),
+               k_pages=_t(5, 16, 2, 64, dtype=torch.bfloat16),
+               v_pages=_t(5, 16, 2, 64, dtype=torch.bfloat16))
+    ops[bad] = _shifted(*ops[bad].shape)
+    bt = _t(1, 4, dtype=torch.int32)
+    with pytest.raises(ValueError, match="16-byte"):
+        TP.check_paged_prefill_contract(ops["q"], ops["k_pages"],
+                                        ops["v_pages"], bt, 0)
+
+
+@pytest.mark.parametrize("bad", ["q", "k", "v"])
+def test_flash_contract_raises_on_misaligned_operands(bad):
+    ops = dict(q=_t(1, 4, 8, 64), k=_t(1, 2, 8, 64), v=_t(1, 2, 8, 64))
+    ops[bad] = _shifted(*ops[bad].shape, dtype=torch.float32)
+    pos = _t(8, dtype=torch.int32)
+    with pytest.raises(ValueError, match="16-byte"):
+        TF.check_flash_contract(ops["q"], ops["k"], ops["v"], pos, pos, pos)
+
+
+# (label, wrapper plan, expected (splits, keys per split)) at 132 SMs
+SPLIT_PLANS = [
+    # phase 3 and serve-int8-spec: 4 slots x 4 kv heads, one 40-row tile,
+    # a 64-page table of 16 -> 8 splits of 128 keys, 128 blocks
+    ("verify B=4 S=5", lambda: TP.prefill_split(4, 4, 8, 5, 16, 64), (8, 128)),
+    # the verify window of a single live slot
+    ("verify B=1 S=5", lambda: TP.prefill_split(1, 4, 8, 5, 16, 64), (16, 64)),
+    # phase 3's prefill rows: 128 blocks and more fill the card
+    ("prefill S=256 offset 0",
+     lambda: TP.prefill_split(1, 4, 8, 256, 16, 64, 0), (1, 256)),
+    ("prefill S=256 offset 256",
+     lambda: TP.prefill_split(1, 4, 8, 256, 16, 64, 256), (1, 512)),
+    ("prefill S=600 offset 0",
+     lambda: TP.prefill_split(1, 4, 8, 600, 16, 64, 0), (1, 640)),
+    # the serve's shortest prompt: 52 blocks over 100 keys
+    ("prefill S=100 offset 0",
+     lambda: TP.prefill_split(1, 4, 8, 100, 16, 64, 0), (2, 64)),
+    # serve-hybrid's attention layers: 8 kv heads of 8
+    ("hybrid prefill S=100",
+     lambda: TP.prefill_split(1, 8, 8, 100, 16, 64, 0), (1, 128)),
+    ("flash Sq=Skv=512 H=32", lambda: TF.flash_split(1, 32, 512, 512),
+     (1, 512)),
+    ("flash Sq=Skv=100 H=32", lambda: TF.flash_split(1, 32, 100, 100),
+     (2, 64)),
+    ("flash Sq=70 Skv=1000 H=4", lambda: TF.flash_split(1, 4, 70, 1000),
+     (16, 64)),
+]
+
+
+@pytest.mark.parametrize("label,plan,want", SPLIT_PLANS,
+                         ids=[c[0] for c in SPLIT_PLANS])
+def test_split_plan_at_serve_and_phase3_shapes(label, plan, want):
+    assert plan() == want
+
+
+@pytest.mark.parametrize("blocks", [1, 3, 16, 52, 66, 131, 132, 300])
+@pytest.mark.parametrize("keys", [1, 63, 64, 65, 100, 1000, 1024, 5000])
+def test_split_plan_covers_every_key_once(blocks, keys):
+    """Splits of whole 64-key tiles that cover [0, keys), none empty, at
+    most 16, and one whenever the blocks alone fill 132 SMs."""
+    from repro_torch.kernels import _build
+    n, per = _build.split_plan(blocks, keys, 132)
+    assert per % 64 == 0 and 1 <= n <= 16
+    assert (n - 1) * per < keys <= n * per or (keys <= per and n == 1)
+    assert n == 1 or blocks * 2 <= 132
+    assert n <= -(-keys // 64)
+
+
 def test_wrappers_raise_on_a_device_without_a_kernel():
     """No silent fallback: only CPU tensors take the plain version."""
     q = torch.zeros((1, 4, 8, 64), device="meta")
