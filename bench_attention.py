@@ -12,15 +12,21 @@ change, change, parent.  Only the public wrappers are called, so any
 tree of the port since its paged verify window can be timed.
 
 Rows (bf16, H=32, Hkv=4, G=8, D=128, page 16, inputs from seed 0): the
-verify window (B=4, S=5, per-slot offsets 100-1000) over int8 and fp
-pools, the paged prefill at S=256 (offset 256) and S=600 (offset 0) over
-fp and int8 pools, and causal flash attention at Sq=Skv=512.  Each row
+fused decode (B=8 at positions up to 1000, and the serve's 4 slots at
+positions 100-700) over fp and int8 pools, the verify window (B=4, S=5,
+per-slot offsets 100-1000) over int8 and fp pools, the paged prefill at
+S=256 (offset 256) and S=600 (offset 0) over fp and int8 pools, and
+causal flash attention at Sq=Skv=512.  Each row
 gives the kernel's CUDA-event time (median of 20 launches, L2 flushed
 before each: it includes the wrapper's host work whenever that outlasts
 the kernel) and its device time (``torch.profiler``, the mean over 10
 launches of the CUDA kernels each launch ran), and the same two for
 ``F.scaled_dot_product_attention`` on K/V gathered beforehand, the
-library yardstick.  Without a CUDA device it exits non-zero.
+library yardstick.  Then the flash kernel's numerics at the same
+shape, D = 64 and 128: its largest distance from the plain version in
+bf16 ulps, and its mean absolute error and the plain version's against
+an f64 evaluation of the same function (``chip_smoke.flash_p_error``).
+Without a CUDA device it exits non-zero.
 """
 from __future__ import annotations
 
@@ -103,6 +109,31 @@ def main(argv=None):
               f"{err:.3g} {'ok' if ok else 'MISMATCH'}")
         rows.append(r)
 
+    # fused decode: B=8 at positions up to 1000, and 4 slots at 100-700
+    nb = 64
+    for b, pos in ((8, [999, 15, 16, 511, 256, 3, 640, 1000]),
+                   (4, [100, 371, 640, 700])):
+        bt = torch.randperm(b * nb, generator=gen, device=dev).reshape(
+            b, nb).to(torch.int32)
+        pos = torch.tensor(pos, dtype=torch.int32, device=dev)
+        q, kn, vn = (rnd(b, hk, g, d).to(dt), rnd(b, hk, d).to(dt),
+                     rnd(b, hk, d).to(dt))
+        mask = (torch.arange(nb * page, device=dev)[None, :]
+                <= pos[:, None].long())[:, None, None, :]
+        for quant in (False, True):
+            pl, sc = pools(b * nb + 1, quant)
+            kg, vg = gathered(*pl, sc.get("k_scales"), sc.get("v_scales"),
+                              bt)
+            mine = [t.clone() for t in pl]
+            msc = {k: v.clone() for k, v in sc.items()}
+            row(f"fused_paged_decode {'int8' if quant else 'fp'} B={b}",
+                lambda: TP.fused_paged_decode_grouped(
+                    q, kn, vn, *mine, bt, pos, theta=5e6, **msc)[0],
+                lambda: TR.fused_paged_decode_ref(
+                    q, kn, vn, *pl, bt, pos, theta=5e6, **sc)[0],
+                lambda: F.scaled_dot_product_attention(
+                    q.reshape(b, h, 1, d), kg, vg, attn_mask=mask))
+
     # verify window: B=4, S=5 at per-slot offsets 100-1000
     b, nb, s = 4, 64, 5
     bt = torch.randperm(b * nb, generator=gen, device=dev).reshape(
@@ -153,6 +184,17 @@ def main(argv=None):
         lambda: TF.flash_attention_bhsd(q, k, v, pos, pos, ones),
         lambda: TR.flash_attention_ref(q, k, v, pos, pos, ones),
         lambda: F.scaled_dot_product_attention(q, kr, vr, is_causal=True))
+
+    for d_ in (64, 128):
+        e = C.flash_p_error(TF, TR, dev, d_)
+        print(f"[bench] {args.label} flash numerics D={d_}: max "
+              f"{e['max_ulps']:.3g} bf16 ulps from the plain version ("
+              f"{e['raw_max_ulps']:.3g} with no floor, {e['raw_over_1ulp']} "
+              f"elements beyond one; the plain version "
+              f"{e['plain_f64_max_ulps']:.3g} from the rounded f64); mean "
+              f"|err| vs f64 {e['mean_err']:.4g} (plain "
+              f"{e['plain_mean_err']:.4g}, ratio {e['ratio']:.4f})")
+        rows.append(dict(name=f"flash numerics D={d_}", ok=True, **e))
 
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)),

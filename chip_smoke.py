@@ -16,7 +16,11 @@ device it fails (it never runs on the CPU instead).  Phases, in order:
      f32 and bf16, timed with CUDA events (L2 flushed before every launch)
      beside the bound the card's peaks give, the plain version, and
      ``F.scaled_dot_product_attention`` on the gathered K/V as the library
-     yardstick (timed here only: the port never calls it); the paged
+     yardstick (timed here only: the port never calls it); the fused
+     decode's and flash's rows also give the profiler's device time beside
+     SDPA's, and the decode's key splits; bf16 flash must lie within one
+     ulp of its plain version and no further from an f64 evaluation than
+     1.1 times it (P kept in f32); the paged
      prefill at S=256 (offsets 0 and 256) and S=600 (offset 0, the serve's
      longest prompt); then the fused decode's int8 mode (written rows and
      scales bit-equal), the paged prefill over int8 pools at the same
@@ -32,7 +36,8 @@ device it fails (it never runs on the CPU instead).  Phases, in order:
      with each epilogue, f32 and bf16, bf16 to f32) and the one-pass norm
      (rmsnorm at 4 and 512 rows of widths 4096 and 8192, bf16 and f32;
      layernorm with a bias), launched once each through the door with
-     the counters zeroed just before, then checked and timed beside
+     the counters zeroed just before (each matmul's path and K splits as
+     the wrapper planned them printed), then checked and timed beside
      ``torch.addmm``/``F.rms_norm``/``F.layer_norm``; and the model's
      f32-accumulating bf16 product (``matmul_f32``) against the widened
      product at yi-6b's MLP and head and jamba's mamba x projection;
@@ -129,6 +134,13 @@ def device_ms(fn, flush, reps=10):
                 if e.device_type == DeviceType.CUDA}
     fn()
     torch.cuda.synchronize()
+    if not device_ms.warm:
+        # the process's first profiler session (CUPTI starting) can miss
+        # kernels: one throwaway session over the same call
+        with profile(activities=[ProfilerActivity.CUDA]):
+            fn()
+            torch.cuda.synchronize()
+        device_ms.warm = True
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         flush.zero_()
         torch.cuda.synchronize()
@@ -140,6 +152,9 @@ def device_ms(fn, flush, reps=10):
         torch.cuda.synchronize()
     us = sum(t for k, t in kernels(prof).items() if k not in skip)
     return us / reps / 1e3
+
+
+device_ms.warm = False
 
 
 def bound_ms(nbytes, ops, dtype):
@@ -161,6 +176,58 @@ def assert_close(name, a, b, dtype):
           f"(atol=rtol={tol}) {'ok' if ok else 'MISMATCH'}")
     check(ok, f"{name} {dtype} disagrees with its plain version")
     return err
+
+
+def bf16_ulp(x):
+    """The spacing of bf16 values at the magnitude of each element of the
+    f32 tensor ``x`` (2^(e - 7) for 2^e <= |x| < 2^(e + 1))."""
+    a = x.abs().clamp_min(2.0 ** -126)
+    return torch.exp2(torch.floor(torch.log2(a)) - 7)
+
+
+def flash_p_error(TF, TR, dev, d, seed=11):
+    """The bf16 flash kernel's numerics at phase 3's flash shape (B=1,
+    H=32, Hkv=4, Sq=Skv=512, causal) and head dim ``d``: its largest
+    distance from the plain version in bf16 ulps (at the larger of the
+    two magnitudes and 2^-8 of the row's largest; and with no floor, with
+    the count of elements beyond one ulp), the plain version's own
+    largest distance from the correctly rounded f64 value, and the mean
+    absolute error of each against an f64 evaluation of the same function
+    on the same bf16 inputs."""
+    import math
+    gen = torch.Generator(device=dev).manual_seed(seed + d)
+    b, h, hk, s = 1, 32, 4, 512
+    bf = torch.bfloat16
+    q = torch.randn((b, h, s, d), generator=gen, device=dev).to(bf)
+    k = torch.randn((b, hk, s, d), generator=gen, device=dev).to(bf)
+    v = torch.randn((b, hk, s, d), generator=gen, device=dev).to(bf)
+    pos = torch.arange(s, dtype=torch.int32, device=dev)
+    ones = torch.ones((s,), dtype=torch.int32, device=dev)
+    out = TF.flash_attention_bhsd(q, k, v, pos, pos, ones).float()
+    plain = TR.flash_attention_ref(q, k, v, pos, pos, ones).float()
+    kr = k.double().repeat_interleave(h // hk, 1)
+    vr = v.double().repeat_interleave(h // hk, 1)
+    sc = torch.einsum("bhqd,bhkd->bhqk", q.double(), kr) / math.sqrt(d)
+    sc = sc.masked_fill(pos[None, :] > pos[:, None], float("-inf"))
+    ref = torch.einsum("bhqk,bhkd->bhqd", torch.softmax(sc, -1), vr)
+    # ulps at each element's magnitude, but at no less than 2^-8 of its
+    # row's largest (below that an output is a near-cancelling f32 sum
+    # whose rounding exceeds the bf16 ulp); raw: with no floor
+    floor = plain.abs().amax(-1, keepdim=True) * 2.0 ** -8
+    top = torch.maximum(out.abs(), plain.abs())
+    ulps = (out - plain).abs() / bf16_ulp(torch.maximum(top, floor))
+    raw = (out - plain).abs() / bf16_ulp(top)
+    # the plain version's own distance from the correctly rounded f64
+    # value, in ulps with no floor
+    rb = ref.to(torch.bfloat16).float()
+    own = (plain - rb).abs() / bf16_ulp(torch.maximum(plain.abs(),
+                                                      rb.abs()))
+    err = float((out.double() - ref).abs().mean())
+    plain_err = float((plain.double() - ref).abs().mean())
+    return dict(max_ulps=float(ulps.max()), raw_max_ulps=float(raw.max()),
+                raw_over_1ulp=int((raw > 1).sum()),
+                plain_f64_max_ulps=float(own.max()), mean_err=err,
+                plain_mean_err=plain_err, ratio=err / plain_err)
 
 
 # ---------------------------------------------------------------------------
@@ -213,16 +280,21 @@ def kernel_phase(dev, flush):
         qs = q.reshape(b, h, 1, d)
         mask = (torch.arange(nb * page, device=dev)[None, :]
                 <= pos[:, None].long())[:, None, None, :]
-        lib = bench(lambda: F.scaled_dot_product_attention(
-            qs, kg, vg, attn_mask=mask), flush)
+        sdpa = functools.partial(F.scaled_dot_product_attention, qs, kg, vg,
+                                 attn_mask=mask)
+        lib = bench(sdpa, flush)
         keys = int((pos.long() + 1).sum())
         nbytes = (2 * b * h * d + 4 * b * hk * d + 2 * keys * hk * d) * el \
             + 4 * (b + int(((pos.long() + page) // page).sum()))
         bnd, by = bound_ms(nbytes, 4 * keys * hk * g * d, dtype)
         results[("fused_paged_decode", dtype)] = dict(
             max_abs_err=err, ms=ms, plain_ms=plain, library_ms=lib,
-            bound_ms=bnd, bound_by=by, shape=f"B={b} Hkv={hk} G={g} D={d} "
-            f"P={page} NB={nb} pos<=1000")
+            bound_ms=bnd, bound_by=by,
+            device_ms=device_ms(lambda: TP.fused_paged_decode_grouped(
+                q, kn, vn, kpk, vpk, bt, pos, theta=5e6), flush),
+            library_device_ms=device_ms(sdpa, flush),
+            splits=TP.fused_paged_decode_grouped.last_split[0],
+            shape=f"B={b} Hkv={hk} G={g} D={d} P={page} NB={nb} pos<=1000")
 
         # -- paged prefill: S=256 at offset 0 and 256, 1024-token table;
         #    S=600 at offset 0 (the serve's longest prompt) -------------
@@ -286,16 +358,38 @@ def kernel_phase(dev, flush):
                       flush)
         kr = k.repeat_interleave(g, 1).contiguous()
         vr = v.repeat_interleave(g, 1).contiguous()
-        lib = bench(lambda: F.scaled_dot_product_attention(
-            q, kr, vr, is_causal=True), flush)
+        sdpa = functools.partial(F.scaled_dot_product_attention, q, kr, vr,
+                                 is_causal=True)
+        lib = bench(sdpa, flush)
         pairs = s * (s + 1) // 2
         nbytes = (2 * b * h * s * d + 2 * b * hk * s * d) * el + 12 * s
         bnd, by = bound_ms(nbytes, 4 * pairs * h * d, dtype)
         results[("flash_attention", dtype)] = dict(
             max_abs_err=err, ms=ms, plain_ms=plain, library_ms=lib,
             bound_ms=bnd, bound_by=by,
+            device_ms=device_ms(lambda: TF.flash_attention_bhsd(
+                q, k, v, qp, qp, ones), flush),
+            library_device_ms=device_ms(sdpa, flush),
             splits=splits_of(dtype, TF.flash_split(b, h, s, s)),
             shape=f"B=1 H={h} Hkv={hk} Sq=Skv={s} causal D={d}")
+        if dtype == torch.bfloat16:
+            # P stays f32 through P V (as bf16 hi + lo): within one ulp of
+            # the plain version, no further from f64 than it
+            for dd in (64, 128):
+                e = flash_p_error(TF, TR, dev, dd)
+                print(f"[kernels] flash numerics bf16 D={dd}: max "
+                      f"{e['max_ulps']:.3g} ulps from the plain version "
+                      f"({e['raw_max_ulps']:.3g} with no floor, "
+                      f"{e['raw_over_1ulp']} elements beyond one; the "
+                      f"plain version {e['plain_f64_max_ulps']:.3g} from "
+                      f"the rounded f64); "
+                      f"mean |err| vs f64 {e['mean_err']:.4g}, plain "
+                      f"{e['plain_mean_err']:.4g} (ratio "
+                      f"{e['ratio']:.4f})")
+                check(e["max_ulps"] <= 1.0 and e["ratio"] <= 1.1,
+                      f"bf16 flash at D={dd} strays from the f32-P "
+                      f"reference: {e}")
+                results[("flash_attention", dtype)][f"numerics_d{dd}"] = e
         print_rows(results, dtype, ("fused_paged_decode", "paged_prefill",
                                     "paged_prefill_s600", "flash_attention"))
     return results
@@ -310,11 +404,15 @@ def splits_of(dtype, plan):
 def print_rows(results, dtype, names):
     for name in names:
         r = results[(name, dtype)]
+        dev = ""
+        if "device_ms" in r:
+            dev = (f" [device {r['device_ms']:.4f} ms, sdpa device "
+                   f"{r['library_device_ms']:.4f} ms]")
         print(f"[kernels] {name} {str(dtype)[6:]} ({r['shape']}): "
               f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
               f"sdpa {r['library_ms']:.4f} ms, bound "
               f"{r['bound_ms']:.4f} ms ({r['bound_by']}), splits "
-              f"{r.get('splits', 1)}")
+              f"{r.get('splits', 1)}{dev}")
 
 
 def int8_kernel_phase(dev, flush, results):
@@ -387,8 +485,9 @@ def int8_kernel_phase(dev, flush, results):
         qs = q.reshape(b, h, 1, d)
         mask = (torch.arange(nb * page, device=dev)[None, :]
                 <= pos[:, None].long())[:, None, None, :]
-        lib = bench(lambda: F.scaled_dot_product_attention(
-            qs, kg, vg, attn_mask=mask), flush)
+        sdpa = functools.partial(F.scaled_dot_product_attention, qs, kg, vg,
+                                 attn_mask=mask)
+        lib = bench(sdpa, flush)
         keys = int((pos.long() + 1).sum())
         nbytes = window_bytes(keys, b, el, d + 4,
                               int(((pos.long() + page) // page).sum())) \
@@ -396,8 +495,14 @@ def int8_kernel_phase(dev, flush, results):
         bnd, by = bound_ms(nbytes, 4 * keys * hk * g * d, dtype)
         results[("fused_paged_decode_int8", dtype)] = dict(
             max_abs_err=err, ms=ms, plain_ms=pl, library_ms=lib,
-            bound_ms=bnd, bound_by=by, shape=f"B={b} Hkv={hk} G={g} D={d} "
-            f"P={page} NB={nb} pos<=1000 int8 pools")
+            bound_ms=bnd, bound_by=by,
+            device_ms=device_ms(lambda: TP.fused_paged_decode_grouped(
+                q, kn, vn, mine[0], mine[1], bt, pos, theta=5e6,
+                k_scales=mine[2], v_scales=mine[3]), flush),
+            library_device_ms=device_ms(sdpa, flush),
+            splits=TP.fused_paged_decode_grouped.last_split[0],
+            shape=f"B={b} Hkv={hk} G={g} D={d} P={page} NB={nb} pos<=1000 "
+            f"int8 pools")
 
         # -- int8 paged prefill: S=256 at offset 0 and 256; S=600 at 0 ----
         b, nb = 1, 64
@@ -717,10 +822,13 @@ def front_door_phase(dev, flush, results):
             if kind == "layernorm" else None
         norm_in[name] = (x, scale, bias, dict(kind=kind, eps=1e-6))
 
-    # the front door's run: counters at 0 just before, read just after
+    # the front door's run: counters at 0 just before, read just after;
+    # each matmul's path and K splits as the wrapper planned them
     matmul_fused.launches = norm_onepass.launches = 0
-    outs = {name: ops.matmul_fused(x, w, b, **kw)
-            for name, (x, w, b, kw) in mm_in.items()}
+    outs, plans = {}, {}
+    for name, (x, w, b, kw) in mm_in.items():
+        outs[name] = ops.matmul_fused(x, w, b, **kw)
+        plans[name] = matmul_fused.last_plan
     outs.update({name: ops.norm_onepass(x, s, b, **kw)
                  for name, (x, s, b, kw) in norm_in.items()})
     torch.cuda.synchronize()
@@ -761,7 +869,8 @@ def front_door_phase(dev, flush, results):
             max_abs_err=err, ms=ms, plain_ms=plain, library_ms=lib,
             library=lib_name, bound_ms=bnd, bound_by=by,
             device_ms=dev_ms, library_device_ms=lib_dev,
-            launches=launches["matmul_fused"],
+            launches=launches["matmul_fused"], path=plans[name][0],
+            splits=plans[name][1],
             shape=f"M={m} K={k} N={n} {act}"
                   f"{'' if bias is None else ' +bias'} "
                   f"{str(x.dtype)[6:]}->{str(out_dt)[6:]}")
@@ -804,7 +913,9 @@ def front_door_phase(dev, flush, results):
                   f"{str(x.dtype)[6:]} x, f32 scale")
     for name in (*mm_in, *norm_in):
         r = results[(name, (mm_in.get(name) or norm_in[name])[0].dtype)]
-        print(f"[front door] {name} ({r['shape']}): {r['ms']:.4f} ms "
+        plan = f", path {r['path']}, splits {r['splits']}" \
+            if "path" in r else ""
+        print(f"[front door] {name} ({r['shape']}{plan}): {r['ms']:.4f} ms "
               f"(device {r['device_ms']:.4f}), plain {r['plain_ms']:.4f} ms, "
               f"{r['library']} {r['library_ms']:.4f} ms (device "
               f"{r['library_device_ms']:.4f}), bound {r['bound_ms']:.4f} ms "
@@ -1383,7 +1494,7 @@ def profile_decode(eng, prompts, request_cls):
                "copy": 0.0, "other": 0.0}
     for key, sec in by_kernel.items():
         low = key.lower()
-        if "fused_decode_kernel" in key:
+        if "fused_decode" in key:          # the walk and its combine
             classes["fused_paged_decode"] += sec
         elif "paged_prefill" in key or "split_combine" in key:
             classes["paged_verify"] += sec     # the verify windows
@@ -1553,7 +1664,8 @@ def main():
                      "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                      "bound_by": r["bound_by"],
                      "library_ms": r["library_ms"],
-                     "splits": r.get("splits", 1)})
+                     "splits": r.get("splits", 1),
+                     **({"path": r["path"]} if "path" in r else {})})
     out_dir = os.path.join(HERE, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as f:

@@ -26,7 +26,13 @@
 //     softmax in the exp2 domain, row max and sum over the quad that
 //     shares a row.  P is rounded to bf16 in registers (on int8 pools
 //     after multiplying each column by its key's v scale) and is the A
-//     operand of O += P V, which stays in f32 registers.
+//     operand of O += P V, which stays in f32 registers.  With kSplitP
+//     (the flash instantiation: JAX's flash kernel and its ref keep P in
+//     f32) P goes in as two bf16 parts, hi = bf16(P) and lo = bf16(P - hi),
+//     two products into the same f32 accumulator: P keeps 16 significant
+//     bits, and the output's error is that of its own final rounding.  The
+//     paged instantiations keep the single rounding, as the paged refs
+//     round their probabilities to the activation dtype.
 //
 // A tile in which no row may attend any key is skipped before its K/V
 // are copied (Prob::tile_class, uniform across the block), so causal
@@ -117,6 +123,13 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&h);
 }
 
+// What pack_bf16 drops: bf16(a - bf16(a)), bf16(b - bf16(b)), packed the
+// same way (the differences are exact in f32).
+__device__ __forceinline__ uint32_t pack_lo_bf16(float a, float b) {
+  return pack_bf16(a - __bfloat162float(__float2bfloat16_rn(a)),
+                   b - __bfloat162float(__float2bfloat16_rn(b)));
+}
+
 // Byte offset of 16-byte chunk c of row r in a swizzled 64 x D bf16 tile.
 template <int D>
 __device__ __forceinline__ int swz(int r, int c) {
@@ -152,7 +165,7 @@ struct MmaSmem {
 //   int tile_class(int t0, int t1);  keys [t0, t1): 0 no pair admissible,
 //       1 mask per element, 2 every pair admissible; the same value in
 //       every thread of the block
-template <typename TP, int D, typename Prob>
+template <typename TP, int D, bool kSplitP, typename Prob>
 __device__ __forceinline__ void tile_attention_mma(
     const Prob& pb, const bf16* __restrict__ q, const TP* __restrict__ kbase,
     const TP* __restrict__ vbase, const float* __restrict__ ks,
@@ -375,7 +388,8 @@ __device__ __forceinline__ void tile_attention_mma(
     }
 
     // P in bf16 A fragments: k-step kk covers keys 16kk .. 16kk+15
-    uint32_t pa[4][4];
+    // (kSplitP: pl holds the parts the bf16 rounding dropped)
+    uint32_t pa[4][4], pl[kSplitP ? 4 : 1][4];
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
       float p0 = exp2f(s[j][0] - mu_lo), p1 = exp2f(s[j][1] - mu_lo);
@@ -391,6 +405,10 @@ __device__ __forceinline__ void tile_attention_mma(
       }
       pa[j >> 1][(j & 1) * 2] = pack_bf16(p0, p1);
       pa[j >> 1][(j & 1) * 2 + 1] = pack_bf16(p2, p3);
+      if constexpr (kSplitP) {
+        pl[j >> 1][(j & 1) * 2] = pack_lo_bf16(p0, p1);
+        pl[j >> 1][(j & 1) * 2 + 1] = pack_lo_bf16(p2, p3);
+      }
     }
 
     // O += P V
@@ -403,6 +421,10 @@ __device__ __forceinline__ void tile_attention_mma(
                               dp * 2 + (lane >> 4)), b);
         mma_bf16(o[2 * dp], pa[kk], b[0], b[1]);
         mma_bf16(o[2 * dp + 1], pa[kk], b[2], b[3]);
+        if constexpr (kSplitP) {
+          mma_bf16(o[2 * dp], pl[kk], b[0], b[1]);
+          mma_bf16(o[2 * dp + 1], pl[kk], b[2], b[3]);
+        }
       }
     }
     __syncthreads();                 // the next issue overwrites this stage
@@ -444,13 +466,15 @@ __device__ __forceinline__ void tile_attention_mma(
   }
 }
 
-// Merges nsplit workspace slices (m, l, unnormalised O in f32) of `rows`
-// rows into bf16 out; a row that no split admitted any key for writes 0.
-template <int D>
-__global__ void __launch_bounds__(256)
-split_combine_kernel(const float* __restrict__ ws_o,
-                     const float* __restrict__ ws_ml, bf16* __restrict__ out,
-                     size_t rows, int nsplit) {
+// Merges nsplit workspace slices (m in the exp2 domain, l, unnormalised
+// O, all f32) of `rows` rows into out (T: bf16 or f32), 4 columns per
+// thread; a row that no split admitted any key for writes 0.  Shared by
+// split_combine_kernel and the fused decode's own combine kernel.
+template <typename T, int D>
+__device__ __forceinline__ void combine_rows(const float* __restrict__ ws_o,
+                                             const float* __restrict__ ws_ml,
+                                             T* __restrict__ out, size_t rows,
+                                             int nsplit) {
   constexpr int C4 = D / 4;
   const size_t idx = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (idx >= rows * C4) return;
@@ -475,11 +499,19 @@ split_combine_kernel(const float* __restrict__ ws_o,
     }
   }
   const float inv = l > 0.f ? 1.f / l : 0.f;
-  bf16* o = out + row * D + c;
-  *reinterpret_cast<__nv_bfloat162*>(o) = __floats2bfloat162_rn(a0 * inv,
-                                                                a1 * inv);
-  *reinterpret_cast<__nv_bfloat162*>(o + 2) =
-      __floats2bfloat162_rn(a2 * inv, a3 * inv);
+  T* o = out + row * D + c;
+  o[0] = from_f32<T>(a0 * inv);
+  o[1] = from_f32<T>(a1 * inv);
+  o[2] = from_f32<T>(a2 * inv);
+  o[3] = from_f32<T>(a3 * inv);
+}
+
+template <int D>
+__global__ void __launch_bounds__(256)
+split_combine_kernel(const float* __restrict__ ws_o,
+                     const float* __restrict__ ws_ml, bf16* __restrict__ out,
+                     size_t rows, int nsplit) {
+  combine_rows<bf16, D>(ws_o, ws_ml, out, rows, nsplit);
 }
 
 // Launches the combine pass on `stream` when nsplit > 1; returns

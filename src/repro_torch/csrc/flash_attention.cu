@@ -18,7 +18,11 @@
 // cores (attn_mma.cuh): one block of 128 threads per (64 query rows,
 // head, key split) keeps its Q tile in registers as mma.sync A fragments
 // and streams 64-key K/V tiles through a two-stage cp.async ring; each
-// tile's k_pos/k_valid are staged beside it.  A tile that no row of the
+// tile's k_pos/k_valid are staged beside it.  The softmax probabilities
+// enter P V as two bf16 parts (hi + lo, two products into one f32
+// accumulator), because the Pallas kernel and its ref keep P in f32: a
+// single bf16 rounding of P would add its own error to the output's.
+// A tile that no row of the
 // block may attend (past the causal diagonal, outside the window, all
 // keys invalid) is skipped before it is copied, and a tile whose every
 // pair is admissible takes no per-element mask.  When the (query tile,
@@ -197,7 +201,7 @@ flash_mma_kernel(const mma::bf16* __restrict__ q,
   pb.t_end = min(pb.t_begin + split_keys, Skv);
   const size_t kv = ((size_t)b * Hkv + hk) * Skv * D;
   const size_t rows = (size_t)(gridDim.z / nsplit) * H * Sq;
-  mma::tile_attention_mma<mma::bf16, D>(pb, q, k + kv, v + kv, nullptr,
+  mma::tile_attention_mma<mma::bf16, D, true>(pb, q, k + kv, v + kv, nullptr,
                                         nullptr, out, ws_o, ws_ml, rows, z,
                                         scale, softcap);
 }

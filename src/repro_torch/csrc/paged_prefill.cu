@@ -195,7 +195,7 @@ paged_prefill_mma_kernel(const mma::bf16* __restrict__ q,
   pb.t_begin = z * split_keys;
   pb.t_end = min(min(pb.t_begin + split_keys, NB * P), pb.qmax + 1);
   const size_t rows = (size_t)(gridDim.z / nsplit) * Hkv * R;
-  mma::tile_attention_mma<TP, D>(pb, q, kp, vp, ks, vs, out, ws_o, ws_ml,
+  mma::tile_attention_mma<TP, D, false>(pb, q, kp, vp, ks, vs, out, ws_o, ws_ml,
                                  rows, z, scale, softcap);
 }
 

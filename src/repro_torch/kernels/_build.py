@@ -47,24 +47,28 @@ SIGNATURES = {
                             _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _F,
                             _P],
     # dtype, q, k_new, v_new, k_pages, v_pages, k_scales, v_scales, bt,
-    # positions, inv_freq, out, B, Hkv, G, D, P, NB, softcap, scale, stream
+    # positions, inv_freq, out, ws_o, ws_ml, nsplit, split_keys, B, Hkv, G,
+    # D, P, NB, softcap, scale, stream
     "repro_fused_paged_decode": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                                 _P, _P, _I, _I, _I, _I, _I, _I, _F, _F,
-                                 _P],
+                                 _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                                 _I, _I, _F, _F, _P],
     # dtype, q, k_pages, v_pages, k_scales, v_scales, bt, lengths, out,
     # B, Hkv, G, D, P, NB, softcap, scale, stream
     "repro_paged_attention": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
                               _I, _I, _I, _I, _F, _F, _P],
     # a, b, h0, out, N, S, F, stream
     "repro_linear_scan": [_P, _P, _P, _P, _I, _I, _I, _P],
-    # dtype, x, w, bias, bias_dtype, out, out_dtype, M, N, K, act, stream
-    "repro_matmul_fused": [_I, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _P],
+    # dtype, x, w, bias, bias_dtype, out, out_dtype, M, N, K, act, path,
+    # splits, split_rows, ws, stream
+    "repro_matmul_fused": [_I, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _I,
+                           _I, _I, _P, _P],
     # dtype, x, scale, scale_dtype, bias, bias_dtype, out, R, D, layernorm,
     # eps, stream
     "repro_norm_onepass": [_I, _P, _P, _I, _P, _I, _P, _I, _I, _I, _F, _P],
 }
 
 _lib = None            # the loaded library (one per process)
+_sms = {}              # device index -> SM count
 last_build = {}        # what the last load did: {"built": bool, "seconds": s}
 
 
@@ -169,6 +173,19 @@ def split_plan(blocks: int, keys: int, sms: int = 132) -> tuple[int, int]:
     n = max(1, min(sms // max(blocks, 1), tiles, MAX_SPLITS))
     per = -(-tiles // n)
     return -(-tiles // per), per * MMA_KEYS
+
+
+def sm_count(device) -> int:
+    """The SM count of a CUDA device, asked of the driver once per
+    device."""
+    import torch
+    idx = torch.device(device).index
+    if idx is None:
+        idx = torch.cuda.current_device()
+    if idx not in _sms:
+        _sms[idx] = torch.cuda.get_device_properties(idx) \
+            .multi_processor_count
+    return _sms[idx]
 
 
 def split_workspace(q, splits: int, rows: int, d: int):

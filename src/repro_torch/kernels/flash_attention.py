@@ -80,9 +80,7 @@ def flash_attention_bhsd(q, k, v, q_pos, k_pos, k_valid, *, causal=True,
     out = torch.empty_like(q)
     splits, per = 1, 1
     if q.dtype == torch.bfloat16:
-        splits, per = flash_split(
-            b, h, sq, skv,
-            torch.cuda.get_device_properties(q.device).multi_processor_count)
+        splits, per = flash_split(b, h, sq, skv, _build.sm_count(q.device))
     ws_o, ws_ml = _build.split_workspace(q, splits, b * h * sq, d)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream

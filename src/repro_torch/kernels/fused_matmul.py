@@ -8,6 +8,17 @@ on CUDA tensors it launches ``csrc/fused_matmul.cu`` or raises -- there is
 no fallback.  It is reached through ``dispatch_matmul`` and the
 ``kernels.ops.matmul_fused`` alias; no model calls it, as in JAX.
 
+The kernel has five paths, picked by ``matmul_plan`` from shapes and
+alignment alone (a dispatch by shape, not a fallback: a failed build or
+launch raises): ``wgmma`` (bf16, M > 16: TMA ring into Hopper's wgmma),
+``split_k`` (bf16, M <= 16: the weight streamed by blocks over K ranges,
+an f32 workspace allocated here and a reduce pass when K splits),
+``fma_tile`` (f32: 128 x 128 CUDA-core tiles, never TF32) -- these three
+need K and N multiples of 8 and x and w on 16-byte boundaries -- and for
+every other shape ``wmma`` (bf16) and ``fma`` (f32), with masked loads.
+``matmul_fused.last_plan`` records the ``(path, splits, split_rows)``
+of the last CUDA launch.
+
 Shape contract on CUDA: x (M, K) and w (K, N) contiguous, both float32 or
 both bfloat16, 1 <= M <= 4,194,240 and N, K >= 1 (any value: the kernel
 masks ragged edges; the TPU kernel's block divisibility is its tiling);
@@ -24,6 +35,32 @@ from repro_torch.kernels import ref as R
 
 ACTIVATION_CODES = {a: i for i, a in enumerate(R.ACTIVATIONS)}
 MAX_M = 65_535 * 64        # grid.y of 64-row tiles
+PATHS = ("wmma", "fma", "wgmma", "split_k", "fma_tile")   # the C codes 0-4
+SPLIT_K_MAX_M = 16         # rows of x that the split-K path takes
+SPLIT_K_COLS = 256         # columns of a split-K block
+SPLIT_K_ROWS = 32          # weight rows of a split-K stage
+MAX_K_SPLITS = 32
+
+
+def matmul_plan(m, n, k, dtype, aligned=True, sms=132):
+    """``(path, splits, split_rows)`` of a CUDA launch, from shapes and
+    alignment alone (``aligned``: x and w start on 16-byte boundaries).
+    split_k blocks take ``split_rows`` rows of K each (a multiple of the
+    32-row stage), enough splits that the column blocks fill ``sms`` SMs
+    about four times over, at most 32; every other path takes the whole
+    of K in one block."""
+    fast = aligned and n % 8 == 0 and k % 8 == 0
+    if dtype == torch.float32:
+        return ("fma_tile" if fast else "fma"), 1, k
+    if not fast:
+        return "wmma", 1, k
+    if m > SPLIT_K_MAX_M:
+        return "wgmma", 1, k
+    cols = -(-n // SPLIT_K_COLS)
+    want = max(1, min(MAX_K_SPLITS, -(-4 * sms // cols),
+                      -(-k // SPLIT_K_ROWS)))
+    rows = -(-(-(-k // want)) // SPLIT_K_ROWS) * SPLIT_K_ROWS
+    return "split_k", -(-k // rows), rows
 
 
 def check_matmul_contract(x, w, bias=None, *, activation="none",
@@ -71,7 +108,13 @@ def matmul_fused(x, w, bias=None, *, activation="none", out_dtype=None):
                                     out_dtype=out_dtype)
     out_dtype = out_dtype or x.dtype
     lib = _build.load_library()
+    aligned = x.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0
+    plan = matmul_plan(m, n, k, x.dtype, aligned,
+                       _build.sm_count(x.device))
+    path, splits, rows = plan
     out = torch.empty((m, n), dtype=out_dtype, device=x.device)
+    ws = torch.empty((splits, m, n), dtype=torch.float32, device=x.device) \
+        if splits > 1 else None
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.repro_matmul_fused(
@@ -79,10 +122,13 @@ def matmul_fused(x, w, bias=None, *, activation="none", out_dtype=None):
             None if bias is None else bias.data_ptr(),
             0 if bias is None else _build.dtype_code(bias.dtype),
             out.data_ptr(), _build.dtype_code(out_dtype), m, n, k,
-            ACTIVATION_CODES[activation], stream)
+            ACTIVATION_CODES[activation], PATHS.index(path), splits, rows,
+            None if ws is None else ws.data_ptr(), stream)
     _build.check(err, "matmul_fused")
     matmul_fused.launches += 1
+    matmul_fused.last_plan = plan
     return out
 
 
 matmul_fused.launches = 0
+matmul_fused.last_plan = None

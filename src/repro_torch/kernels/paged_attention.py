@@ -7,7 +7,12 @@ on int8 pools per-row scales ``(N, P, Hkv)`` f32):
   * ``fused_paged_decode_grouped`` -- RoPE on q and the fresh k, the fresh
     K/V row written into its page (quantized with its row scale on int8
     pools), and one-token GQA attention over the slot's pages
-    (``csrc/fused_paged_decode.cu``);
+    (``csrc/fused_paged_decode.cu``).  It splits the keys
+    (``decode_split``, from shapes alone) in every dtype: with more than
+    one split the kernel writes per-split partial rows into an f32
+    workspace allocated here, and a combine pass of the same C call
+    merges them (``fused_paged_decode_grouped.last_split`` records the
+    last launch's plan);
   * ``paged_attention_grouped`` -- the same one-token attention without
     RoPE and without the write, masked at ``kpos < lengths[b]``: the
     decode of rope-free attention (jamba), whose fresh row the model has
@@ -37,8 +42,9 @@ dtype in {float32, bfloat16}; the pools hold either that dtype or int8,
 and int8 pools come with f32 scales of shape (N, P, Hkv) (fp pools with
 none); D in {64, 128}; block tables (B, NB) and positions / offsets (B,)
 int32 (lengths (B,) int32 for ``paged_attention_grouped``); for both
-decode kernels G = H / Hkv in {1, 2, 4, 8}; any page size; q and the
-pools start on a 16-byte boundary (the prefill's cp.async copies).  Table
+decode kernels G = H / Hkv in {1, 2, 4, 8}; any page size; the pools
+(and for the prefill q) start on a 16-byte boundary (the fused decode's
+and the prefill's cp.async copies).  Table
 entries must lie in [0, N) and positions and offsets be >= 0: the front
 doors (``backend/dispatch.py``) clip the tables, and reading the values
 here would cost a device sync per launch.
@@ -110,6 +116,7 @@ def check_fused_decode_contract(q, k_new, v_new, k_pages, v_pages,
     _check_common(q, k_pages, v_pages, block_tables, k_scales, v_scales, b,
                   hk, d, (q, k_new, v_new, k_pages, v_pages, block_tables,
                           positions))
+    _build.check_aligned("fused paged decode", (k_pages, v_pages))
     return b, hk, g, d, k_pages.shape[1], block_tables.shape[1]
 
 
@@ -164,6 +171,26 @@ def prefill_split(b, hk, g, s, page, nb, offset=None, sms=132):
                              sms)
 
 
+def decode_split(b, hk, page, nb, sms=132):
+    """``(splits, keys_per_split)`` of a fused decode launch: (slot, kv
+    head) blocks against the card's SMs (one block an SM: its cp.async
+    ring takes up to 192 KB), over the NB * P-key table, in every dtype
+    and pool kind."""
+    return _build.split_plan(b * hk, nb * page, sms)
+
+
+_inv_freq = {}         # (d, theta, device) -> the RoPE table on the card
+
+
+def _rope_table(d, theta, device):
+    """``R.rope_inv_freq(d, theta, device)``, built once per (d, theta,
+    device) and reused by every launch."""
+    key = (d, float(theta), device)
+    if key not in _inv_freq:
+        _inv_freq[key] = R.rope_inv_freq(d, theta, device)
+    return _inv_freq[key]
+
+
 def _ptr(t):
     return None if t is None else t.data_ptr()
 
@@ -189,18 +216,22 @@ def fused_paged_decode_grouped(q, k_new, v_new, k_pages, v_pages,
         q, k_new, v_new, k_pages, v_pages, block_tables, positions,
         k_scales, v_scales)
     lib = _build.load_library()
-    inv_freq = R.rope_inv_freq(d, theta, q.device)
+    inv_freq = _rope_table(d, theta, q.device)
     out = torch.empty_like(q)
+    splits, per = decode_split(b, hk, page, nb, _build.sm_count(q.device))
+    ws_o, ws_ml = _build.split_workspace(q, splits, b * hk * g, d)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.repro_fused_paged_decode(
             _build.dtype_code(q.dtype), q.data_ptr(), k_new.data_ptr(),
             v_new.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
             _ptr(k_scales), _ptr(v_scales), block_tables.data_ptr(),
-            positions.data_ptr(), inv_freq.data_ptr(), out.data_ptr(), b,
-            hk, g, d, page, nb, float(softcap), 1.0 / math.sqrt(d), stream)
+            positions.data_ptr(), inv_freq.data_ptr(), out.data_ptr(),
+            _ptr(ws_o), _ptr(ws_ml), splits, per, b, hk, g, d, page, nb,
+            float(softcap), 1.0 / math.sqrt(d), stream)
     _build.check(err, "fused_paged_decode_grouped")
     fused_paged_decode_grouped.launches += 1
+    fused_paged_decode_grouped.last_split = (splits, per)
     return out, k_pages, v_pages, k_scales, v_scales
 
 
@@ -244,7 +275,7 @@ def _launch_paged_prefill(name, q, k_pages, v_pages, block_tables, offset,
     if q.dtype == torch.bfloat16:
         splits, per = prefill_split(
             b, hk, g, s, page, nb, None if per_slot else int(offset),
-            torch.cuda.get_device_properties(q.device).multi_processor_count)
+            _build.sm_count(q.device))
     ws_o, ws_ml = _build.split_workspace(q, splits, b * hk * g * s, d)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
@@ -300,6 +331,7 @@ def paged_verify_attention_grouped(q, k_pages, v_pages, block_tables,
 
 
 fused_paged_decode_grouped.launches = 0
+fused_paged_decode_grouped.last_split = None    # (splits, keys per split)
 paged_attention_grouped.launches = 0
 paged_prefill_attention_grouped.launches = 0
 paged_verify_attention_grouped.launches = 0

@@ -7,9 +7,13 @@ with the card:
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
 Tolerances: f32 at 2e-5 (order of summation); bf16 at 2e-2 (one bf16
-ulp is 2^-8 relative: the attention kernels round the softmax
-probabilities to bf16 for the tensor cores' P V product, where the plain
-versions keep f32).
+ulp is 2^-8 relative: the paged prefill and verify kernels round the
+softmax probabilities to bf16 for the tensor cores' P V product, and the
+paged plain versions round them to the activation dtype).  bf16 flash
+keeps P in f32 (as bf16 hi + lo): it must lie within one bf16 ulp of
+its plain version everywhere (the ulp at no less than 2^-8 of the row's
+largest output), with a mean error against an f64 evaluation at most
+1.1 times the plain version's.
 The int8 rows and scales the fused decode writes must equal the plain
 version's, and the linear scan's states must equal the plain version's
 bit for bit (both round the product and the sum separately in f32).  The
@@ -205,6 +209,109 @@ def test_flash_kernel_splits_and_fully_masked_rows(cuda_device, dtype, d):
             assert not out[:, :, empty].any()
 
 
+def _bf16_ulp(x):
+    """The spacing of bf16 values at |x| (x in f32)."""
+    a = x.abs().clamp_min(2.0 ** -126)
+    return torch.exp2(torch.floor(torch.log2(a)) - 7)
+
+
+@pytest.mark.parametrize("d", [64, 128])
+def test_flash_bf16_keeps_p_in_f32(cuda_device, d):
+    """Phase 3's flash shape in bf16: the kernel within one bf16 ulp of
+    the plain version (which keeps P in f32, as JAX's kernel and ref do)
+    at every element, and no further from an f64 evaluation of the same
+    function on average than 1.1 times the plain version (whose only
+    error is its final rounding to bf16).  The ulp is taken at the
+    element's magnitude, but at no less than 2^-8 of its row's largest:
+    below that, an output is a near-cancelling sum of 512 products, the
+    two f32 sums' rounding exceeds the bf16 ulp, and the plain version is
+    itself up to 58 ulps from the correctly rounded f64 value (NVIDIA
+    H100, PERF.md)."""
+    import math
+    g = torch.Generator(device=cuda_device).manual_seed(11 + d)
+    b, h, hk, s = 1, 32, 4, 512
+    bf = torch.bfloat16
+    q = torch.randn((b, h, s, d), generator=g, device=cuda_device).to(bf)
+    k = torch.randn((b, hk, s, d), generator=g, device=cuda_device).to(bf)
+    v = torch.randn((b, hk, s, d), generator=g, device=cuda_device).to(bf)
+    pos = torch.arange(s, dtype=torch.int32, device=cuda_device)
+    ones = torch.ones((s,), dtype=torch.int32, device=cuda_device)
+    out = TF.flash_attention_bhsd(q, k, v, pos, pos, ones).float()
+    plain = TR.flash_attention_ref(q, k, v, pos, pos, ones).float()
+    kr = k.double().repeat_interleave(h // hk, 1)
+    vr = v.double().repeat_interleave(h // hk, 1)
+    sc = torch.einsum("bhqd,bhkd->bhqk", q.double(), kr) / math.sqrt(d)
+    sc = sc.masked_fill(pos[None, :] > pos[:, None], float("-inf"))
+    ref = torch.einsum("bhqk,bhkd->bhqd", torch.softmax(sc, -1), vr)
+    floor = plain.abs().amax(-1, keepdim=True) * 2.0 ** -8
+    ulp = _bf16_ulp(torch.maximum(torch.maximum(out.abs(), plain.abs()),
+                                  floor))
+    assert float(((out - plain).abs() / ulp).max()) <= 1.0
+    err = (out.double() - ref).abs().mean()
+    plain_err = (plain.double() - ref).abs().mean()
+    assert err <= 1.1 * plain_err
+
+
+# (name, B, positions, NB): the serve's 4 slots, phase 3's B=8, and one
+# live slot whose 16 splits are all empty but the first
+DECODE_SPLIT_CASES = {
+    "serve": (4, [100, 371, 640, 700], 64),
+    "phase3": (8, [999, 15, 16, 511, 256, 3, 640, 1000], 64),
+    "one_slot": (1, [37], 64),
+    "ragged": (3, [0, 3, 24 * 43 - 1], 43),
+}
+
+
+@pytest.mark.parametrize("pool", ["fp", "int8"])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", sorted(DECODE_SPLIT_CASES))
+def test_fused_decode_splits_match_plain(cuda_device, case, dtype, d, pool):
+    """The split-KV fused decode (every case splits its keys) against its
+    plain version, with and without softcap; the written rows, and on
+    int8 pools their scales, bit-equal.  "ragged" has a 24-row page (a
+    tile straddles pages), a slot at 0, one at 3 (all but the first split
+    empty) and one at the table's last row."""
+    b, positions, nb = DECODE_SPLIT_CASES[case]
+    hk, grp = 4, 8
+    page = 24 if case == "ragged" else 16
+    g = torch.Generator(device=cuda_device).manual_seed(d + nb + b)
+    n = b * nb + 1
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=g, device=cuda_device)
+
+    assert TP.decode_split(b, hk, page, nb)[0] > 1
+    bt = torch.randperm(b * nb, generator=g, device=cuda_device).reshape(
+        b, nb).to(torch.int32)
+    pos = torch.tensor(positions, dtype=torch.int32, device=cuda_device)
+    q, kn, vn = (rnd(b, hk, grp, d).to(dtype), rnd(b, hk, d).to(dtype),
+                 rnd(b, hk, d).to(dtype))
+    if pool == "int8":
+        kq, ks = TR.quantize_int8_rows(rnd(n, page, hk, d))
+        vq, vs = TR.quantize_int8_rows(rnd(n, page, hk, d))
+        pools = [kq, vq, ks, vs]
+    else:
+        pools = [rnd(n, page, hk, d).to(dtype), rnd(n, page, hk, d).to(dtype),
+                 None, None]
+    mine = [None if t is None else t.clone() for t in pools]
+    plain = [None if t is None else t.clone() for t in pools]
+    for softcap in (0.0, 30.0):
+        out = TP.fused_paged_decode_grouped(
+            q, kn, vn, mine[0], mine[1], bt, pos, theta=5e6,
+            softcap=softcap, k_scales=mine[2], v_scales=mine[3])[0]
+        ref = TR.fused_paged_decode_ref(
+            q, kn, vn, plain[0], plain[1], bt, pos, theta=5e6,
+            softcap=softcap, k_scales=plain[2], v_scales=plain[3])[0]
+        torch.cuda.synchronize()
+        assert TP.fused_paged_decode_grouped.last_split == TP.decode_split(
+            b, hk, page, nb, torch.cuda.get_device_properties(
+                cuda_device).multi_processor_count)
+        _close(out, ref, dtype)
+    for a, r in zip(mine, plain):
+        assert a is None or torch.equal(a, r)
+
+
 def test_attention_wrappers_raise_on_misaligned_operands(cuda_device):
     """The cp.async copies need 16-byte aligned q, K/V and pools: a
     contiguous view that starts 2 bytes in raises before any launch."""
@@ -230,6 +337,11 @@ def test_attention_wrappers_raise_on_misaligned_operands(cuda_device):
         TP.paged_verify_attention_grouped(
             torch.zeros((1, 2, 4, 8, 64), **bf), kp, shifted(5, 16, 2, 64),
             bt, pos[:1])
+    with pytest.raises(ValueError):       # the fused decode's pools
+        TP.fused_paged_decode_grouped(
+            torch.zeros((1, 2, 4, 64), **bf), torch.zeros((1, 2, 64), **bf),
+            torch.zeros((1, 2, 64), **bf), shifted(5, 16, 2, 64), kp, bt,
+            pos[:1], theta=1e4)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -294,10 +406,17 @@ MM_MODES = {"f32": (torch.float32, None), "bf16": (torch.bfloat16, None),
 def test_matmul_fused_kernel_matches_plain(cuda_device, m, k, mode, act):
     """N = 11008 (yi-6b's d_ff), decode and prefill M, a K that is not a
     multiple of the tiles, and (K = 1001) the unvectorized loads; with and
-    without a bias (f32 and x's dtype)."""
+    without a bias (f32 and x's dtype).  K = 1000 takes the fast paths
+    (split_k at M <= 16, wgmma above, fma_tile in f32), K = 1001 the
+    masked ones (wmma, fma)."""
     from repro_torch.kernels import fused_matmul as TM
     dtype, out_dtype = MM_MODES[mode]
     n = 11008
+    if k % 8:
+        path = "fma" if dtype == torch.float32 else "wmma"
+    else:
+        path = "fma_tile" if dtype == torch.float32 else \
+            "split_k" if m <= 16 else "wgmma"
     g = torch.Generator(device=cuda_device).manual_seed(m * 7 + k)
     x = torch.randn((m, k), generator=g, device=cuda_device).to(dtype)
     w = (torch.randn((k, n), generator=g, device=cuda_device)
@@ -309,9 +428,64 @@ def test_matmul_fused_kernel_matches_plain(cuda_device, m, k, mode, act):
         ref = TR.matmul_fused_ref(x, w, b, activation=act,
                                   out_dtype=out_dtype)
         torch.cuda.synchronize()
+        assert TM.matmul_fused.last_plan[0] == path
         assert out.dtype == ref.dtype and out.shape == (m, n)
         torch.testing.assert_close(out.float(), ref.float(), atol=tol,
                                    rtol=tol)
+
+
+@pytest.mark.parametrize("act", ["none", "gelu", "silu", "relu2"])
+@pytest.mark.parametrize("mode", sorted(MM_MODES))
+@pytest.mark.parametrize("m", [4, 512])
+def test_matmul_fused_main_path_shapes(cuda_device, m, mode, act):
+    """yi-6b's gate projection (K = 4096, N = 11008) at the serve's 4
+    decode slots and a 512-token prefill chunk, every epilogue and output
+    dtype, with and without a bias: split_k (13 K splits) and wgmma in
+    bf16, fma_tile in f32."""
+    from repro_torch.kernels import fused_matmul as TM
+    dtype, out_dtype = MM_MODES[mode]
+    k, n = 4096, 11008
+    g = torch.Generator(device=cuda_device).manual_seed(m + 3)
+    x = torch.randn((m, k), generator=g, device=cuda_device).to(dtype)
+    w = (torch.randn((k, n), generator=g, device=cuda_device)
+         / k ** 0.5).to(dtype)
+    bias = torch.randn((n,), generator=g, device=cuda_device)
+    want = TM.matmul_plan(m, n, k, dtype)
+    assert want[0] == ("fma_tile" if dtype == torch.float32 else
+                       "split_k" if m == 4 else "wgmma")
+    tol = MM_TOLS[out_dtype or dtype]
+    for b in (None, bias, bias.to(dtype)):
+        out = TM.matmul_fused(x, w, b, activation=act, out_dtype=out_dtype)
+        ref = TR.matmul_fused_ref(x, w, b, activation=act,
+                                  out_dtype=out_dtype)
+        torch.cuda.synchronize()
+        assert TM.matmul_fused.last_plan == want
+        assert out.dtype == ref.dtype and out.shape == (m, n)
+        torch.testing.assert_close(out.float(), ref.float(), atol=tol,
+                                   rtol=tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m", [4, 600])
+def test_matmul_fused_misaligned_operands_take_the_masked_path(
+        cuda_device, m, dtype):
+    """x starting 8 bytes past a 16-byte boundary: K and N fit the fast
+    paths, but the plan takes the masked kernels, which still match."""
+    from repro_torch.kernels import fused_matmul as TM
+    k, n = 1000, 2048
+    g = torch.Generator(device=cuda_device).manual_seed(m)
+    off = 8 // torch.tensor([], dtype=dtype).element_size()
+    x = torch.randn((m * k + off,), generator=g, device=cuda_device).to(
+        dtype)[off:].view(m, k)
+    w = (torch.randn((k, n), generator=g, device=cuda_device)
+         / k ** 0.5).to(dtype)
+    out = TM.matmul_fused(x, w, None, activation="silu")
+    ref = TR.matmul_fused_ref(x, w, None, activation="silu")
+    torch.cuda.synchronize()
+    assert TM.matmul_fused.last_plan[0] == (
+        "fma" if dtype == torch.float32 else "wmma")
+    torch.testing.assert_close(out.float(), ref.float(), atol=MM_TOLS[dtype],
+                               rtol=MM_TOLS[dtype])
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
