@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Time the port's bf16 attention kernels at ``chip_smoke.py`` phase 3's
-shapes, on one NVIDIA GPU.
+"""Time the port's attention and norm kernels at ``chip_smoke.py`` phase
+3's shapes, on one NVIDIA GPU.
 
     python3 bench_attention.py [--src DIR] [--label NAME] [--out FILE]
 
@@ -16,13 +16,19 @@ fused decode (B=8 at positions up to 1000, and the serve's 4 slots at
 positions 100-700) over fp and int8 pools, the verify window (B=4, S=5,
 per-slot offsets 100-1000) over int8 and fp pools, the paged prefill at
 S=256 (offset 256) and S=600 (offset 0) over fp and int8 pools, and
-causal flash attention at Sq=Skv=512.  Each row
+causal flash attention at Sq=Skv=512; then the unfused paged decode
+(jamba's: Hkv=8, G=8, D=128, page 16, 64-entry tables) at phase 3's B=4
+with lengths up to 1000 and at the serve-hybrid's 4 slots at lengths
+100-700, bf16 and f32, fp and int8 pools; then the one-pass norm at the
+front door's shapes (``chip_smoke.FRONT_DOOR_NORMS``, f32 scales, a bias
+for layernorm).  Each row
 gives the kernel's CUDA-event time (median of 20 launches, L2 flushed
 before each: it includes the wrapper's host work whenever that outlasts
 the kernel) and its device time (``torch.profiler``, the mean over 10
-launches of the CUDA kernels each launch ran), and the same two for
-``F.scaled_dot_product_attention`` on K/V gathered beforehand, the
-library yardstick.  Then the flash kernel's numerics at the same
+launches of the CUDA kernels each launch ran), and the same two for the
+library yardstick: ``F.scaled_dot_product_attention`` on K/V gathered
+beforehand, ``F.rms_norm`` or ``F.layer_norm`` (x-dtype parameters) for
+the norms.  Then the flash kernel's numerics at the same
 shape, D = 64 and 128: its largest distance from the plain version in
 bf16 ulps, and its mean absolute error and the plain version's against
 an f64 evaluation of the same function (``chip_smoke.flash_p_error``).
@@ -31,6 +37,7 @@ Without a CUDA device it exits non-zero.
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import os
 import subprocess
@@ -92,20 +99,20 @@ def main(argv=None):
 
     rows = []
 
-    def row(name, kernel, plain, sdpa):
+    def row(name, kernel, plain, library, tol=C.TOL[dt]):
         out, ref = kernel(), plain()
         torch.cuda.synchronize()
         err = C.max_err(out, ref)
-        ok = torch.allclose(out.float(), ref.float(), atol=C.TOL[dt],
-                            rtol=C.TOL[dt])
+        ok = torch.allclose(out.float(), ref.float(), atol=tol, rtol=tol)
         r = dict(name=name, max_abs_err=err, ok=bool(ok),
                  ms=C.bench(kernel, flush), device_ms=C.device_ms(kernel,
                                                                    flush),
-                 sdpa_ms=C.bench(sdpa, flush),
-                 sdpa_device_ms=C.device_ms(sdpa, flush))
+                 library_ms=C.bench(library, flush),
+                 library_device_ms=C.device_ms(library, flush))
         print(f"[bench] {args.label} {name}: event {r['ms']:.4f} ms, device "
-              f"{r['device_ms']:.4f} ms; sdpa event {r['sdpa_ms']:.4f} ms, "
-              f"device {r['sdpa_device_ms']:.4f} ms; max_abs_err "
+              f"{r['device_ms']:.4f} ms; library event "
+              f"{r['library_ms']:.4f} ms, device "
+              f"{r['library_device_ms']:.4f} ms; max_abs_err "
               f"{err:.3g} {'ok' if ok else 'MISMATCH'}")
         rows.append(r)
 
@@ -184,6 +191,59 @@ def main(argv=None):
         lambda: TF.flash_attention_bhsd(q, k, v, pos, pos, ones),
         lambda: TR.flash_attention_ref(q, k, v, pos, pos, ones),
         lambda: F.scaled_dot_product_attention(q, kr, vr, is_causal=True))
+
+    # the unfused paged decode (Hkv=8): phase 3's lengths and the
+    # serve-hybrid's, each dtype and pool kind
+    hk8, nb = 8, 64
+    h8 = hk8 * g
+    for lens in ([1000, 17, 512, 256], [100, 371, 640, 700]):
+        b = len(lens)
+        bt = torch.randperm(b * nb, generator=gen, device=dev).reshape(
+            b, nb).to(torch.int32)
+        lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
+        mask = (torch.arange(nb * page, device=dev)[None, :]
+                < lengths[:, None].long())[:, None, None, :]
+        kq, ks = TR.quantize_int8_rows(rnd(b * nb + 1, page, hk8, d))
+        vq, vs = TR.quantize_int8_rows(rnd(b * nb + 1, page, hk8, d))
+        for adt in (torch.bfloat16, torch.float32):
+            q = rnd(b, hk8, g, d).to(adt)
+            kg = TR.dequantize_int8(kq, ks)[bt.long()].reshape(
+                b, nb * page, hk8, d).transpose(1, 2)
+            vg = TR.dequantize_int8(vq, vs)[bt.long()].reshape(
+                b, nb * page, hk8, d).transpose(1, 2)
+            kg = kg.repeat_interleave(g, 1).to(adt).contiguous()
+            vg = vg.repeat_interleave(g, 1).to(adt).contiguous()
+            for quant in (False, True):
+                pl = (kq, vq) if quant else (
+                    TR.dequantize_int8(kq, ks).to(adt),
+                    TR.dequantize_int8(vq, vs).to(adt))
+                sc = dict(k_scales=ks, v_scales=vs) if quant else {}
+                row(f"paged_attention {'int8' if quant else 'fp'} "
+                    f"{str(adt)[6:]} lengths {lens}",
+                    lambda: TP.paged_attention_grouped(q, *pl, bt, lengths,
+                                                       **sc),
+                    lambda: TR.paged_attention_ref(q, *pl, bt, lengths,
+                                                   **sc),
+                    lambda: F.scaled_dot_product_attention(
+                        q.reshape(b, h8, 1, d), kg, vg, attn_mask=mask),
+                    tol=C.TOL[adt])
+
+    # the one-pass norm at the front door's shapes
+    from repro_torch.kernels.layernorm import norm_onepass
+    for name, (r, dn, kind, ndt) in C.FRONT_DOOR_NORMS.items():
+        x = (rnd(r, dn) * 3 + 1).to(ndt)
+        scale = rnd(dn)
+        bias = rnd(dn) if kind == "layernorm" else None
+        ls = scale.to(ndt)
+        if kind == "layernorm":
+            lib = functools.partial(F.layer_norm, x, (dn,), ls, bias.to(ndt),
+                                    1e-6)
+        else:
+            lib = functools.partial(F.rms_norm, x, (dn,), ls, 1e-6)
+        row(f"{name} R={r} D={dn} {kind} {str(ndt)[6:]}",
+            lambda: norm_onepass(x, scale, bias, kind=kind, eps=1e-6),
+            lambda: TR.norm_onepass_ref(x, scale, bias, kind=kind, eps=1e-6),
+            lib, tol=C.NORM_TOL[ndt])
 
     for d_ in (64, 128):
         e = C.flash_p_error(TF, TR, dev, d_)

@@ -29,15 +29,19 @@ device it fails (it never runs on the CPU instead).  Phases, in order:
      a single slot at offset 1000 (16 splits, checked only); each
      attention line prints its bf16 key splits; then jamba's kernels: the
      unfused paged decode (B=4, Hkv=8, G=8, lengths up to 1000) over fp
-     and int8 pools, and the linear scan at mamba's decode (N=4, S=1,
-     F=262,144, with h0) and prefill (N=1, S=512) shapes, bit-equal; then
+     and int8 pools, with its key splits and device time beside SDPA's,
+     and with an empty slot (the uniform mean of V over its table), a
+     one-key slot and one past its table held to the plain version; and
+     the linear scan at mamba's decode (N=4, S=1, F=262,144, with h0) and
+     prefill (N=1, S=512) shapes, bit-equal, with device times; then
      the kernel front door, ``repro_torch.kernels.ops``: the fused matmul
      (yi-6b's gate projection at 4 and 512 tokens, a 4096-wide projection
      with each epilogue, f32 and bf16, bf16 to f32) and the one-pass norm
      (rmsnorm at 4 and 512 rows of widths 4096 and 8192, bf16 and f32;
      layernorm with a bias), launched once each through the door with
-     the counters zeroed just before (each matmul's path and K splits as
-     the wrapper planned them printed), then checked and timed beside
+     the counters zeroed just before (each matmul's path and K splits,
+     and each norm's path and launch plan, as the wrappers planned them
+     printed), then checked and timed beside
      ``torch.addmm``/``F.rms_norm``/``F.layer_norm``; and the model's
      f32-accumulating bf16 product (``matmul_f32``) against the widened
      product at yi-6b's MLP and head and jamba's mamba x projection;
@@ -617,13 +621,18 @@ def int8_kernel_phase(dev, flush, results):
 def hybrid_kernel_phase(dev, flush, results):
     """Phase 3, the jamba hybrid's kernels: the unfused paged decode
     (jamba's rope-free attention: B=4, Hkv=8, G=8, D=128, page 16,
-    64-entry tables, lengths up to 1000) on fp and int8 pools in f32 and
-    bf16, and the linear scan (f32 only) at mamba's decode shape (N=4,
-    S=1, F=d_inner*d_state=262,144, with h0) and prefill shape (N=1,
-    S=512, no h0), whose states must equal the plain version's bit for
-    bit.  SDPA over the gathered (dequantized) K/V is the attention's
-    library yardstick; ``torch.addcmul(b, a, h0)`` computes the scan at
-    S = 1; no single PyTorch call computes it over S > 1."""
+    64-entry tables, lengths up to 1000; its key splits printed) on fp
+    and int8 pools in f32 and bf16, then the same with an empty slot
+    (length 0: the uniform mean of V over its table, as the Pallas kernel
+    and both references give), a one-key slot and one past the table,
+    held to the plain version and the empty slot also to that mean; and
+    the linear scan (f32 only) at mamba's decode shape (N=4, S=1,
+    F=d_inner*d_state=262,144, with h0) and prefill shape (N=1, S=512, no
+    h0), whose states must equal the plain version's bit for bit.  SDPA
+    over the gathered (dequantized) K/V is the attention's library
+    yardstick; ``torch.addcmul(b, a, h0)`` computes the scan at S = 1; no
+    single PyTorch call computes it over S > 1.  Each row gives the
+    profiler's device time beside its yardstick's."""
     from repro_torch.kernels import linear_scan as TS
     from repro_torch.kernels import paged_attention as TP
     from repro_torch.kernels import ref as TR
@@ -673,8 +682,12 @@ def hybrid_kernel_phase(dev, flush, results):
             kg = kg.repeat_interleave(g, 1).to(dtype).contiguous()
             vg = vg.repeat_interleave(g, 1).to(dtype).contiguous()
             qs = q.reshape(b, h, 1, d)
-            lib = bench(lambda: F.scaled_dot_product_attention(
-                qs, kg, vg, attn_mask=mask), flush)
+            sdpa = functools.partial(F.scaled_dot_product_attention, qs,
+                                     kg, vg, attn_mask=mask)
+            lib = bench(sdpa, flush)
+            dev_ms = device_ms(lambda: TP.paged_attention_grouped(
+                q, *pools, bt, lengths, **sc), flush)
+            lib_dev = device_ms(sdpa, flush)
             nbytes = 2 * b * h * d * el + 2 * keys * hk * row_bytes \
                 + 4 * (tables + b)
             bnd, by = bound_ms(nbytes, 4 * keys * hk * g * d, dtype)
@@ -682,8 +695,27 @@ def hybrid_kernel_phase(dev, flush, results):
                 "paged_attention_int8"
             results[(name, dtype)] = dict(
                 max_abs_err=err, ms=ms, plain_ms=pl, library_ms=lib,
-                bound_ms=bnd, bound_by=by, shape=f"B={b} Hkv={hk} G={g} "
+                bound_ms=bnd, bound_by=by, device_ms=dev_ms,
+                library_device_ms=lib_dev,
+                splits=TP.paged_attention_grouped.last_split[0],
+                split_keys=TP.paged_attention_grouped.last_split[1],
+                shape=f"B={b} Hkv={hk} G={g} "
                 f"D={d} P={page} NB={nb} lengths<=1000 {pool} pools")
+
+            # an empty slot, one key, and a slot past its table
+            edge = torch.tensor([0, 1, nb * page + 76, 512],
+                                dtype=torch.int32, device=dev)
+            out = TP.paged_attention_grouped(q, *pools, bt, edge, **sc)
+            ref = TR.paged_attention_ref(q, *pools, bt, edge, **sc)
+            torch.cuda.synchronize()
+            results[(name, dtype)]["edge_max_abs_err"] = assert_close(
+                f"paged_attention {pool} pools, lengths 0, 1 and past the "
+                f"table", out, ref, dtype)
+            vt = TR.dequantize_int8(vq, vs) if sc else pools[1].float()
+            mean = vt[bt[0].long()].reshape(nb * page, hk, d).mean(0)
+            assert_close(f"paged_attention {pool} pools, the empty slot "
+                         f"against the mean of V over its table", out[0],
+                         mean[:, None].expand(hk, g, d), dtype)
 
     f = 262_144
     for name, (n_, s_, with_h0) in (("linear_scan", (4, 1, True)),
@@ -702,15 +734,18 @@ def hybrid_kernel_phase(dev, flush, results):
                     f"version's")
         ms = bench(lambda: TS.linear_scan(a, bb, h0), flush)
         pl = bench(lambda: TR.linear_scan_ref(a, bb, h0), flush)
-        lib = None
+        dev_ms = device_ms(lambda: TS.linear_scan(a, bb, h0), flush)
+        lib = lib_dev = None
         if s_ == 1:
-            h0s = h0[:, None]
-            lib = bench(lambda: torch.addcmul(bb, a, h0s), flush)
+            yard = functools.partial(torch.addcmul, bb, a, h0[:, None])
+            lib = bench(yard, flush)
+            lib_dev = device_ms(yard, flush)
         nbytes = 12 * n_ * s_ * f + (4 * n_ * f if with_h0 else 0)
         bnd, by = bound_ms(nbytes, 2 * n_ * s_ * f, torch.float32)
         results[(name, torch.float32)] = dict(
             max_abs_err=err, ms=ms, plain_ms=pl, library_ms=lib,
-            bound_ms=bnd, bound_by=by,
+            bound_ms=bnd, bound_by=by, device_ms=dev_ms,
+            library_device_ms=lib_dev,
             shape=f"N={n_} S={s_} F={f} {'with' if with_h0 else 'no'} h0")
     for key in (("paged_attention", torch.float32),
                 ("paged_attention", torch.bfloat16),
@@ -720,10 +755,14 @@ def hybrid_kernel_phase(dev, flush, results):
                 ("linear_scan_prefill", torch.float32)):
         r = results[key]
         lib = ("no single call" if r["library_ms"] is None
-               else f"{r['library_ms']:.4f} ms")
-        print(f"[kernels] {key[0]} {str(key[1])[6:]} ({r['shape']}): "
-              f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, library "
-              f"{lib}, bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
+               else f"{r['library_ms']:.4f} ms (device "
+                    f"{r['library_device_ms']:.4f})")
+        plan = f", splits {r['splits']} of {r['split_keys']} keys" \
+            if "splits" in r else ""
+        print(f"[kernels] {key[0]} {str(key[1])[6:]} ({r['shape']}{plan}): "
+              f"{r['ms']:.4f} ms (device {r['device_ms']:.4f}), plain "
+              f"{r['plain_ms']:.4f} ms, library {lib}, bound "
+              f"{r['bound_ms']:.4f} ms ({r['bound_by']})")
     return results
 
 
@@ -829,8 +868,9 @@ def front_door_phase(dev, flush, results):
     for name, (x, w, b, kw) in mm_in.items():
         outs[name] = ops.matmul_fused(x, w, b, **kw)
         plans[name] = matmul_fused.last_plan
-    outs.update({name: ops.norm_onepass(x, s, b, **kw)
-                 for name, (x, s, b, kw) in norm_in.items()})
+    for name, (x, s, b, kw) in norm_in.items():
+        outs[name] = ops.norm_onepass(x, s, b, **kw)
+        plans[name] = norm_onepass.last_plan
     torch.cuda.synchronize()
     launches = {"matmul_fused": matmul_fused.launches,
                 "norm_onepass": norm_onepass.launches}
@@ -907,14 +947,16 @@ def front_door_phase(dev, flush, results):
             max_abs_err=err, ms=ms, plain_ms=plain, library_ms=lib,
             library=lib_name, bound_ms=bnd, bound_by=by,
             device_ms=dev_ms, library_device_ms=lib_dev,
-            launches=launches["norm_onepass"],
+            launches=launches["norm_onepass"], path=plans[name][0],
+            plan=plans[name][1:],
             shape=f"R={r} D={d} {kw['kind']}"
                   f"{'' if bias is None else ' +bias'} "
                   f"{str(x.dtype)[6:]} x, f32 scale")
     for name in (*mm_in, *norm_in):
         r = results[(name, (mm_in.get(name) or norm_in[name])[0].dtype)]
         plan = f", path {r['path']}, splits {r['splits']}" \
-            if "path" in r else ""
+            if "splits" in r else f", path {r['path']}, (vectors, threads " \
+            f"a row, rows a block, blocks) {r['plan']}"
         print(f"[front door] {name} ({r['shape']}{plan}): {r['ms']:.4f} ms "
               f"(device {r['device_ms']:.4f}), plain {r['plain_ms']:.4f} ms, "
               f"{r['library']} {r['library_ms']:.4f} ms (device "
@@ -1498,7 +1540,7 @@ def profile_decode(eng, prompts, request_cls):
             classes["fused_paged_decode"] += sec
         elif "paged_prefill" in key or "split_combine" in key:
             classes["paged_verify"] += sec     # the verify windows
-        elif "paged_attention_kernel" in key:
+        elif "paged_attention" in key:     # the walk and its combine
             classes["paged_attention"] += sec
         elif "linear_scan_kernel" in key:
             classes["linear_scan"] += sec
@@ -1522,6 +1564,10 @@ def profile_decode(eng, prompts, request_cls):
     print(f"[profile] {ticks + 1} decode ticks, wall {wall:.4f} s, device "
           f"busy {busy:.4f} s ({busy / wall:.3f} of the wall)")
     print(f"[profile] device seconds by class {json.dumps(classes)}")
+    per_tick = {k: v * 1e3 / (ticks + 1) for k, v in classes.items()}
+    print(f"[profile] device ms per decode tick: busy "
+          f"{busy * 1e3 / (ticks + 1):.4f}, by class "
+          f"{json.dumps({k: round(v, 4) for k, v in per_tick.items()})}")
     for key, sec in top:
         print(f"[profile]   {sec:.5f} s  {key[:90]}")
     print(f"[profile] host ops {sum(n for _, n, _ in host)} in the window; "
@@ -1530,6 +1576,7 @@ def profile_decode(eng, prompts, request_cls):
         print(f"[profile]   host {sec:.5f} s  {n:6d} calls  {key[:70]}")
     return dict(ticks=ticks + 1, wall_s=wall, device_busy_s=busy,
                 busy_share=busy / wall if wall else 0.0, classes=classes,
+                per_tick_ms=per_tick,
                 top=top, host_top=host[:10], waits=waits)
 
 

@@ -201,123 +201,4 @@ __device__ __forceinline__ void tile_attention(const Prob& pb, float scale,
   }
 }
 
-// decode_walk() is the one-token decode engine behind fused_paged_decode.cu
-// and paged_attention.cu: one block of kDecodeThreads = 256 threads per
-// (slot, kv head) attends that head's G query rows (already in shared
-// memory: f32, (G, D) row-major) over the slot's logical key positions
-// t < t_end, resolving each key's page through the slot's block-table
-// row.  Each of the 8 warps walks every 8th key: a lane holds D/32
-// consecutive dims of the key and the value (on int8 pools dequantized
-// with the row's scale, one broadcast load per key), the G partial
-// scores are reduced with warp shuffles, and the warps' online-softmax
-// states (m, l, acc) merge in shared memory at the end.  So every visited
-// key and value is read from device memory once and serves all G query
-// rows of its group.  Key t_fresh (-1: none) is read from kfresh/vfresh
-// in shared memory instead of the pool (the fused decode's freshly
-// written row, attended as stored).  Every visited key is admissible; a
-// walk with no key writes 0.
-constexpr int kDecodeWarps = 8;
-constexpr int kDecodeThreads = kDecodeWarps * 32;
-
-template <typename T, typename TP, int D, int G>
-__device__ __forceinline__ void decode_walk(
-    const float* qs, const TP* __restrict__ kp,
-    const TP* __restrict__ vp, const float* __restrict__ ks,
-    const float* __restrict__ vs, const int* __restrict__ btb, int h,
-    int Hkv, int P, int t_end, int t_fresh, const float* kfresh,
-    const float* vfresh, float softcap, float scale, T* __restrict__ ob) {
-  constexpr int DL = D / 32;  // dims per lane
-  constexpr bool kQuant = std::is_same<TP, int8_t>::value;
-  __shared__ float red_m[kDecodeWarps][G], red_l[kDecodeWarps][G];
-  __shared__ float red_acc[kDecodeWarps][G][D];
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-
-  float qreg[G][DL];
-#pragma unroll
-  for (int g = 0; g < G; ++g)
-#pragma unroll
-    for (int e = 0; e < DL; ++e) qreg[g][e] = qs[g * D + lane * DL + e];
-  float acc[G][DL], m[G], l[G];
-#pragma unroll
-  for (int g = 0; g < G; ++g) {
-    m[g] = kNegInf;
-    l[g] = 0.f;
-#pragma unroll
-    for (int e = 0; e < DL; ++e) acc[g][e] = 0.f;
-  }
-
-  for (int t = warp; t < t_end; t += kDecodeWarps) {
-    float kx[DL], vx[DL];
-    if (t == t_fresh) {
-#pragma unroll
-      for (int e = 0; e < DL; ++e) {
-        kx[e] = kfresh[lane * DL + e];
-        vx[e] = vfresh[lane * DL + e];
-      }
-    } else {
-      const int page = btb[t / P];
-      const size_t ridx = ((size_t)page * P + (t % P)) * Hkv + h;
-      const size_t off = ridx * D + lane * DL;
-      float ksc = 1.f, vsc = 1.f;
-      if constexpr (kQuant) {
-        ksc = ks[ridx];
-        vsc = vs[ridx];
-      }
-#pragma unroll
-      for (int e = 0; e < DL; ++e) {
-        kx[e] = pool_f32<TP>(kp[off + e], ksc);
-        vx[e] = pool_f32<TP>(vp[off + e], vsc);
-      }
-    }
-    float s[G];
-#pragma unroll
-    for (int g = 0; g < G; ++g) {
-      float part = 0.f;
-#pragma unroll
-      for (int e = 0; e < DL; ++e) part = fmaf(qreg[g][e], kx[e], part);
-      s[g] = part;
-    }
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1)
-#pragma unroll
-      for (int g = 0; g < G; ++g) s[g] += __shfl_xor_sync(kFull, s[g], off);
-#pragma unroll
-    for (int g = 0; g < G; ++g) {
-      const float sc = apply_softcap(s[g] * scale, softcap);
-      const float m_new = fmaxf(m[g], sc);
-      const float alpha = expf(m[g] - m_new);
-      const float p = expf(sc - m_new);
-      l[g] = l[g] * alpha + p;
-#pragma unroll
-      for (int e = 0; e < DL; ++e) acc[g][e] = fmaf(p, vx[e], acc[g][e] * alpha);
-      m[g] = m_new;
-    }
-  }
-
-#pragma unroll
-  for (int g = 0; g < G; ++g) {
-    if (lane == 0) {
-      red_m[warp][g] = m[g];
-      red_l[warp][g] = l[g];
-    }
-#pragma unroll
-    for (int e = 0; e < DL; ++e) red_acc[warp][g][lane * DL + e] = acc[g][e];
-  }
-  __syncthreads();
-  for (int idx = tid; idx < G * D; idx += kDecodeThreads) {
-    const int g = idx / D, c = idx % D;
-    float mx = kNegInf;
-#pragma unroll
-    for (int w = 0; w < kDecodeWarps; ++w) mx = fmaxf(mx, red_m[w][g]);
-    float lsum = 0.f, asum = 0.f;
-#pragma unroll
-    for (int w = 0; w < kDecodeWarps; ++w) {
-      const float f = red_m[w][g] == kNegInf ? 0.f : expf(red_m[w][g] - mx);
-      lsum += red_l[w][g] * f;
-      asum += red_acc[w][g][c] * f;
-    }
-    ob[g * D + c] = from_f32<T>(lsum > 0.f ? asum / lsum : 0.f);
-  }
-}
-
 }  // namespace repro_torch

@@ -1,11 +1,10 @@
 // Split-KV, tiled-key walk for one-token paged decode (sm_90a).
 //
-// split_decode_walk<T, TP, D, G>() is the engine behind
-// fused_paged_decode.cu: one block of 256 threads (8 warps) attends the
-// G query rows of one (slot, kv head) over the logical key range
-// [t_begin, t_hi) of one key split; decode_walk() (attn_common.cuh) stays
-// the unfused paged decode's walk.  The keys go by in tiles of 64 (four
-// 16-row pages):
+// split_decode_walk<T, TP, D, G>() is the engine behind both one-token
+// decodes, fused_paged_decode.cu and paged_attention.cu: one block of 256
+// threads (8 warps) attends the G query rows of one (slot, kv head) over
+// the logical key range [t_begin, t_hi) of one key split.  The keys go by
+// in tiles of 64 (four 16-row pages):
 //
 //   * warp w owns keys 8w .. 8w+7 of every tile: it resolves their pool
 //     rows through the slot's block table once, a tile ahead of their
@@ -28,8 +27,8 @@
 //     dims, for all G rows; the 8 warps' (m, l, O) merge in shared
 //     memory at the end.
 //
-// The caller's prologue runs after the first tiles are issued, so RoPE
-// and the fresh row's write overlap their loads.  Key t_fresh (-1:
+// The caller's prologue runs after the first tiles are issued, so the
+// fused decode's RoPE and fresh-row write overlap their loads.  Key t_fresh (-1:
 // none) is never copied from the pool: the walk writes the caller's row
 // (pool format, from shared memory) into its tile, so it is attended as
 // stored.  Every key in [t_begin, t_hi) is admissible.  With ws_o null

@@ -53,9 +53,10 @@ SIGNATURES = {
                                  _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                                  _I, _I, _F, _F, _P],
     # dtype, q, k_pages, v_pages, k_scales, v_scales, bt, lengths, out,
-    # B, Hkv, G, D, P, NB, softcap, scale, stream
-    "repro_paged_attention": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
-                              _I, _I, _I, _I, _F, _F, _P],
+    # ws_o, ws_ml, nsplit, split_keys, B, Hkv, G, D, P, NB, softcap, scale,
+    # stream
+    "repro_paged_attention": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                              _I, _I, _I, _I, _I, _I, _I, _I, _F, _F, _P],
     # a, b, h0, out, N, S, F, stream
     "repro_linear_scan": [_P, _P, _P, _P, _I, _I, _I, _P],
     # dtype, x, w, bias, bias_dtype, out, out_dtype, M, N, K, act, path,
@@ -63,8 +64,9 @@ SIGNATURES = {
     "repro_matmul_fused": [_I, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _I,
                            _I, _I, _P, _P],
     # dtype, x, scale, scale_dtype, bias, bias_dtype, out, R, D, layernorm,
-    # eps, stream
-    "repro_norm_onepass": [_I, _P, _P, _I, _P, _I, _P, _I, _I, _I, _F, _P],
+    # eps, vectors, threads_per_row, rows_per_block, blocks, stream
+    "repro_norm_onepass": [_I, _P, _P, _I, _P, _I, _P, _I, _I, _I, _F, _I,
+                           _I, _I, _I, _P],
 }
 
 _lib = None            # the loaded library (one per process)

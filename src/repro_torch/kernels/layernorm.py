@@ -10,10 +10,17 @@ version (``ref.norm_onepass_ref``); on CUDA tensors it launches
 through ``dispatch_layernorm`` and the ``kernels.ops.norm_onepass``
 alias; the models normalize in plain PyTorch, as JAX's do in jnp.
 
+The kernel has two paths, picked by ``norm_plan`` from shapes and
+alignment alone (a dispatch by shape, not a fallback): ``vector`` keeps
+each row in registers, read and written in 16-byte vectors, and needs D
+a multiple of the vector width (8 bf16, 4 f32) and every operand on a
+16-byte boundary; ``scalar`` (one block a row, staged in shared memory)
+takes every other shape.  ``norm_onepass.last_plan`` records the plan of
+the last CUDA launch.
+
 Shape contract on CUDA: x (R, D) contiguous float32 or bfloat16 with
-R >= 1 and 1 <= D <= 32,768 (the row lives in shared memory as f32);
-scale and bias (None or) contiguous (D,), each float32 or x's dtype; all
-on one device.
+R >= 1 and 1 <= D <= 32,768; scale and bias (None or) contiguous (D,),
+each float32 or x's dtype; all on one device.
 """
 from __future__ import annotations
 
@@ -23,6 +30,33 @@ from repro_torch.kernels import _build
 from repro_torch.kernels import ref as R
 
 MAX_D = 32_768
+VEC_THREADS = 256      # a block of the vector path, unless a row needs more
+VALUES = 16            # values of x a thread of the vector path holds
+MAX_ROW_THREADS = 1024
+
+
+def norm_plan(r, d, dtype, aligned=True, sms=132):
+    """``(path, vectors, threads_per_row, rows_per_block, blocks)`` of a
+    CUDA launch, from shapes and alignment alone (``aligned``: every
+    operand starts on a 16-byte boundary).  The vector path gives each
+    thread 16 values of its row (two 16-byte vectors of bf16, four of
+    f32), twice that where a row would need more than 1,024 threads
+    (D > 16,384), and a row as many threads as that takes (a multiple of
+    32); blocks of up to 256 threads take several rows of a narrow D;
+    one block a row group, at most as many as the card holds at once
+    (2,048 threads an SM), which then walk the rows in a loop.  The
+    scalar path takes one 256-thread block a row."""
+    vec = 16 // (4 if dtype == torch.float32 else 2)
+    if d % vec or not aligned:
+        return "scalar", 0, 256, 1, r
+    nvec = d // vec
+    nv = VALUES // vec
+    while -(-nvec // nv) > MAX_ROW_THREADS:
+        nv *= 2
+    tpr = -(-nvec // (32 * nv)) * 32
+    rpb = max(1, min(8, VEC_THREADS // tpr))
+    blocks = min(-(-r // rpb), sms * max(1, 2048 // (tpr * rpb)))
+    return "vector", nv, tpr, rpb, blocks
 
 
 def check_norm_contract(x, scale, bias=None):
@@ -57,6 +91,13 @@ def norm_onepass(x, scale, bias=None, *, kind="rmsnorm", eps=1e-6):
     r, d = check_norm_contract(x, scale, bias)
     lib = _build.load_library()
     out = torch.empty_like(x)
+    layernorm = kind == "layernorm"
+    operands = (x, scale) if bias is None or not layernorm else \
+        (x, scale, bias)
+    plan = norm_plan(r, d, x.dtype,
+                     all(t.data_ptr() % 16 == 0 for t in operands),
+                     _build.sm_count(x.device))
+    _, nv, tpr, rpb, blocks = plan
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.repro_norm_onepass(
@@ -64,11 +105,13 @@ def norm_onepass(x, scale, bias=None, *, kind="rmsnorm", eps=1e-6):
             _build.dtype_code(scale.dtype),
             None if bias is None else bias.data_ptr(),
             0 if bias is None else _build.dtype_code(bias.dtype),
-            out.data_ptr(), r, d, int(kind == "layernorm"), float(eps),
-            stream)
+            out.data_ptr(), r, d, int(layernorm), float(eps), nv, tpr, rpb,
+            blocks, stream)
     _build.check(err, "norm_onepass")
     norm_onepass.launches += 1
+    norm_onepass.last_plan = plan
     return out
 
 
 norm_onepass.launches = 0
+norm_onepass.last_plan = None

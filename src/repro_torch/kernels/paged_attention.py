@@ -16,8 +16,11 @@ on int8 pools per-row scales ``(N, P, Hkv)`` f32):
   * ``paged_attention_grouped`` -- the same one-token attention without
     RoPE and without the write, masked at ``kpos < lengths[b]``: the
     decode of rope-free attention (jamba), whose fresh row the model has
-    already written (``csrc/paged_attention.cu``; int8 pages dequantized
-    in the loader);
+    already written (``csrc/paged_attention.cu``, on the fused decode's
+    split walk and plan; ``paged_attention_grouped.last_split`` records
+    the last launch's).  A slot with ``lengths[b] <= 0`` gives the
+    uniform mean of V over its NB * P table rows, as the Pallas kernel
+    and both references do;
   * ``paged_prefill_attention_grouped`` -- S fresh queries at
     ``offset..offset+S-1`` attending every mapped page causally, int8
     pages dequantized inside the kernel (``csrc/paged_prefill.cu``; bf16
@@ -43,9 +46,8 @@ and int8 pools come with f32 scales of shape (N, P, Hkv) (fp pools with
 none); D in {64, 128}; block tables (B, NB) and positions / offsets (B,)
 int32 (lengths (B,) int32 for ``paged_attention_grouped``); for both
 decode kernels G = H / Hkv in {1, 2, 4, 8}; any page size; the pools
-(and for the prefill q) start on a 16-byte boundary (the fused decode's
-and the prefill's cp.async copies).  Table
-entries must lie in [0, N) and positions and offsets be >= 0: the front
+(and for the prefill q) start on a 16-byte boundary (the decodes' and
+the prefill's cp.async copies).  Table entries must lie in [0, N) and positions and offsets be >= 0: the front
 doors (``backend/dispatch.py``) clip the tables, and reading the values
 here would cost a device sync per launch.
 """
@@ -134,6 +136,7 @@ def check_paged_decode_contract(q, k_pages, v_pages, block_tables, lengths,
         raise ValueError(f"lengths must be int32 of shape ({b},)")
     _check_common(q, k_pages, v_pages, block_tables, k_scales, v_scales, b,
                   hk, d, (q, k_pages, v_pages, block_tables, lengths))
+    _build.check_aligned("paged decode", (k_pages, v_pages))
     return b, hk, g, d, k_pages.shape[1], block_tables.shape[1]
 
 
@@ -172,10 +175,10 @@ def prefill_split(b, hk, g, s, page, nb, offset=None, sms=132):
 
 
 def decode_split(b, hk, page, nb, sms=132):
-    """``(splits, keys_per_split)`` of a fused decode launch: (slot, kv
-    head) blocks against the card's SMs (one block an SM: its cp.async
-    ring takes up to 192 KB), over the NB * P-key table, in every dtype
-    and pool kind."""
+    """``(splits, keys_per_split)`` of a fused or unfused decode launch:
+    (slot, kv head) blocks against the card's SMs (one block an SM: the
+    split walk's cp.async ring takes up to 192 KB), over the NB * P-key
+    table, in every dtype and pool kind."""
     return _build.split_plan(b * hk, nb * page, sms)
 
 
@@ -250,15 +253,19 @@ def paged_attention_grouped(q, k_pages, v_pages, block_tables, lengths, *,
         q, k_pages, v_pages, block_tables, lengths, k_scales, v_scales)
     lib = _build.load_library()
     out = torch.empty_like(q)
+    splits, per = decode_split(b, hk, page, nb, _build.sm_count(q.device))
+    ws_o, ws_ml = _build.split_workspace(q, splits, b * hk * g, d)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.repro_paged_attention(
             _build.dtype_code(q.dtype), q.data_ptr(), k_pages.data_ptr(),
             v_pages.data_ptr(), _ptr(k_scales), _ptr(v_scales),
-            block_tables.data_ptr(), lengths.data_ptr(), out.data_ptr(), b,
-            hk, g, d, page, nb, float(softcap), 1.0 / math.sqrt(d), stream)
+            block_tables.data_ptr(), lengths.data_ptr(), out.data_ptr(),
+            _ptr(ws_o), _ptr(ws_ml), splits, per, b, hk, g, d, page, nb,
+            float(softcap), 1.0 / math.sqrt(d), stream)
     _build.check(err, "paged_attention_grouped")
     paged_attention_grouped.launches += 1
+    paged_attention_grouped.last_split = (splits, per)
     return out
 
 
@@ -333,5 +340,6 @@ def paged_verify_attention_grouped(q, k_pages, v_pages, block_tables,
 fused_paged_decode_grouped.launches = 0
 fused_paged_decode_grouped.last_split = None    # (splits, keys per split)
 paged_attention_grouped.launches = 0
+paged_attention_grouped.last_split = None       # (splits, keys per split)
 paged_prefill_attention_grouped.launches = 0
 paged_verify_attention_grouped.launches = 0

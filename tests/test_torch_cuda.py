@@ -342,36 +342,61 @@ def test_attention_wrappers_raise_on_misaligned_operands(cuda_device):
             torch.zeros((1, 2, 4, 64), **bf), torch.zeros((1, 2, 64), **bf),
             torch.zeros((1, 2, 64), **bf), shifted(5, 16, 2, 64), kp, bt,
             pos[:1], theta=1e4)
+    with pytest.raises(ValueError):       # the unfused decode's pools
+        TP.paged_attention_grouped(torch.zeros((1, 2, 4, 64), **bf), kp,
+                                   shifted(5, 16, 2, 64), bt, pos[:1])
 
 
+# (B, Hkv, NB) at page 16: 16, 10, 4, 2 and 1 key splits on 132 SMs
+PAGED_SHAPES = [(1, 2, 64), (5, 2, 40), (4, 8, 64), (3, 2, 6), (17, 8, 8)]
+
+
+@pytest.mark.parametrize("grp", [1, 2, 4, 8])
+@pytest.mark.parametrize("d", [64, 128])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_paged_attention_kernel_matches_plain(cuda_device, dtype):
-    """The unfused paged decode over fp and int8 pools, ragged lengths
-    (a page end, mid-page, the whole table), with and without softcap."""
-    g = torch.Generator(device=cuda_device).manual_seed(3)
-    b, hk, grp, d, page, nb = 3, 2, 8, 128, 16, 6
-    n = b * nb + 1
+def test_paged_attention_kernel_matches_plain(cuda_device, dtype, d, grp):
+    """The unfused paged decode on the split walk over fp and int8 pools,
+    with and without softcap, at plans of 1 to 16 key splits (the plan
+    recorded); lengths 0 (the uniform mean of V over the table, as the
+    Pallas kernel and both references give), 1, a page end, mid-page and
+    past the table."""
+    from repro_torch.kernels import _build
+    page = 16
+    for b, hk, nb in PAGED_SHAPES:
+        g = torch.Generator(device=cuda_device).manual_seed(
+            b * 100 + nb + d + grp)
+        n = b * nb + 1
 
-    def rnd(*shape):
-        return torch.randn(shape, generator=g, device=cuda_device)
+        def rnd(*shape):
+            return torch.randn(shape, generator=g, device=cuda_device)
 
-    bt = torch.randperm(b * nb, generator=g, device=cuda_device).reshape(
-        b, nb).to(torch.int32)
-    lengths = torch.tensor([16, 37, nb * page], dtype=torch.int32,
-                           device=cuda_device)
-    q = rnd(b, hk, grp, d).to(dtype)
-    kq, ks = TR.quantize_int8_rows(rnd(n, page, hk, d))
-    vq, vs = TR.quantize_int8_rows(rnd(n, page, hk, d))
-    fp = (TR.dequantize_int8(kq, ks).to(dtype),
-          TR.dequantize_int8(vq, vs).to(dtype))
-    for pools, sc in ((fp, {}), ((kq, vq), dict(k_scales=ks, v_scales=vs))):
-        for softcap in (0.0, 30.0):
-            out = TP.paged_attention_grouped(q, *pools, bt, lengths,
+        bt = torch.randperm(b * nb, generator=g, device=cuda_device).reshape(
+            b, nb).to(torch.int32)
+        want = [0, 1, nb * page + 7, 16, 37][:b]
+        want += [int(x) for x in torch.randint(
+            0, nb * page + 1, (b - len(want),), generator=g,
+            device=cuda_device)]
+        lengths = torch.tensor(want, dtype=torch.int32, device=cuda_device)
+        q = rnd(b, hk, grp, d).to(dtype)
+        kq, ks = TR.quantize_int8_rows(rnd(n, page, hk, d))
+        vq, vs = TR.quantize_int8_rows(rnd(n, page, hk, d))
+        fp = (TR.dequantize_int8(kq, ks).to(dtype),
+              TR.dequantize_int8(vq, vs).to(dtype))
+        plan = TP.decode_split(b, hk, page, nb,
+                               _build.sm_count(cuda_device))
+        for pools, sc in ((fp, {}),
+                          ((kq, vq), dict(k_scales=ks, v_scales=vs))):
+            for softcap in (0.0, 30.0):
+                out = TP.paged_attention_grouped(q, *pools, bt, lengths,
+                                                 softcap=softcap, **sc)
+                ref = TR.paged_attention_ref(q, *pools, bt, lengths,
                                              softcap=softcap, **sc)
-            ref = TR.paged_attention_ref(q, *pools, bt, lengths,
-                                         softcap=softcap, **sc)
-            torch.cuda.synchronize()
-            _close(out, ref, dtype)
+                torch.cuda.synchronize()
+                assert TP.paged_attention_grouped.last_split == plan
+                _close(out, ref, dtype)
+                v = TR.dequantize_int8(vq, vs) if sc else pools[1].float()
+                mean = v[bt[0].long()].reshape(nb * page, hk, d).mean(0)
+                _close(out[0], mean[:, None].expand(hk, grp, d), dtype)
 
 
 @pytest.mark.parametrize("n,s", [(4, 1), (1, 512), (3, 37)])
@@ -489,24 +514,51 @@ def test_matmul_fused_misaligned_operands_take_the_masked_path(
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("d", [100, 4096, 8192])
+@pytest.mark.parametrize("d", [1, 7, 100, 4095, 4096, 8192, 32768])
 def test_norm_onepass_kernel_matches_plain(cuda_device, d, dtype):
-    """Rows of decode (4) and prefill (512) batches; f32 and x-dtype
-    scales; rmsnorm, and layernorm with and without a bias."""
+    """Rows of one, decode (4), prefill (512) and ragged (513) batches,
+    and more rows than the vector path's grid holds (2113: its blocks
+    walk several rows each, scale and bias kept across them);
+    f32 and x-dtype scales; rmsnorm, and layernorm with and without a
+    bias (f32 and x-dtype); then x, and then the scale, viewed one
+    element past a 16-byte boundary.  D a multiple of the vector width
+    with every operand aligned takes the vector path, every other shape
+    the scalar one (the plan recorded)."""
+    from repro_torch.kernels import _build
     from repro_torch.kernels import layernorm as TL
     g = torch.Generator(device=cuda_device).manual_seed(d)
     tol = NORM_TOLS[dtype]
-    for r in (4, 512):
+    sms = _build.sm_count(cuda_device)
+
+    def shifted(n, dt):
+        return torch.randn((n + 1,), generator=g, device=cuda_device).to(
+            dt)[1:]
+
+    for r in (1, 4, 512, 513, 2113):
         x = (torch.randn((r, d), generator=g, device=cuda_device) * 3
              + 1).to(dtype)
         scale = torch.randn((d,), generator=g, device=cuda_device)
         bias = torch.randn((d,), generator=g, device=cuda_device)
-        for kw in (dict(scale=scale), dict(scale=scale.to(dtype)),
-                   dict(scale=scale, bias=bias, kind="layernorm"),
-                   dict(scale=scale.to(dtype), kind="layernorm")):
-            out = TL.norm_onepass(x, **kw)
-            ref = TR.norm_onepass_ref(x, **kw)
+        cases = [(x, dict(scale=scale)), (x, dict(scale=scale.to(dtype))),
+                 (x, dict(scale=scale, bias=bias, kind="layernorm")),
+                 (x, dict(scale=scale.to(dtype), bias=bias.to(dtype),
+                          kind="layernorm")),
+                 (x, dict(scale=scale.to(dtype), kind="layernorm"))]
+        if r in (4, 513):
+            xs = shifted(r * d, dtype).view(r, d)
+            xs.copy_(x)
+            cases += [(xs, dict(scale=scale)),
+                      (xs, dict(scale=scale, bias=bias, kind="layernorm")),
+                      (x, dict(scale=shifted(d, torch.float32),
+                               bias=bias, kind="layernorm"))]
+        for xi, kw in cases:
+            out = TL.norm_onepass(xi, **kw)
+            ref = TR.norm_onepass_ref(xi, **kw)
             torch.cuda.synchronize()
+            ops = [xi, kw["scale"]] + ([kw["bias"]] if "bias" in kw else [])
+            aligned = all(t.data_ptr() % 16 == 0 for t in ops)
+            assert TL.norm_onepass.last_plan == TL.norm_plan(
+                r, d, dtype, aligned, sms)
             assert out.dtype == dtype
             torch.testing.assert_close(out.float(), ref.float(), atol=tol,
                                        rtol=tol)

@@ -740,6 +740,43 @@ def test_paged_attention_plain_matches_pallas_interpret(softcap):
     close(to, ja, F32)
 
 
+@pytest.mark.parametrize("softcap", [0.0, 30.0])
+@pytest.mark.parametrize("pool", ["fp", "int8"])
+def test_paged_attention_empty_and_overlong_slots_match_jax(pool, softcap):
+    """A slot at length 0 and one past its NB * P table: the wrapper's CPU
+    path against the Pallas kernel in interpret mode (fp pools; its int8
+    pools go to the JAX reference) and JAX's ref.  Length 0 masks every
+    key to the same -1e30, so every weight is equal: the uniform mean of V
+    over the slot's table rows, which the CUDA kernel also gives."""
+    o = _pool_setup(91, d=128, g=4, page=16)
+    lengths = np.array([0, 3 * 16 + 5, 21], np.int32)
+    if pool == "int8":
+        kp, vp, ks, vs = _int8_pools(92, n=o["kp"][1].shape[0], page=16,
+                                     hk=2, d=128)
+        kw_j = dict(k_scales=ks[0], v_scales=vs[0])
+        kw_t = dict(k_scales=ks[1], v_scales=vs[1])
+    else:
+        kp, vp = o["kp"], o["vp"]
+        kw_j = kw_t = {}
+    to = TP.paged_attention_grouped(o["q"][1], kp[1], vp[1], o["bt"][1],
+                                    torch.from_numpy(lengths),
+                                    softcap=softcap, **kw_t)
+    ja = JR.paged_attention_ref(o["q"][0], kp[0], vp[0], o["bt"][0],
+                                jnp.asarray(lengths), softcap=softcap,
+                                **kw_j)
+    close(to, ja, F32)
+    if pool == "fp":
+        pa = pallas_paged(o["q"][0], kp[0], vp[0], o["bt"][0],
+                          jnp.asarray(lengths), softcap=softcap,
+                          interpret=True)
+        close(to, pa, F32)
+    vt = vp[1].float()
+    if pool == "int8":
+        vt = vt * kw_t["v_scales"][..., None]
+    mean = vt[o["bt"][1][0].long()].reshape(-1, 2, 128).mean(0)
+    close(to[0], mean[:, None].expand(2, 4, 128), F32)
+
+
 @pytest.mark.parametrize("dtype", sorted(DTYPES))
 def test_paged_attention_ref_with_scales_matches_jax(dtype):
     jdt, tol = DTYPES[dtype]

@@ -1,17 +1,20 @@
-"""The split-KV fused decode and the fused matmul's paths, on the CPU.
+"""The split-KV decodes, the fused matmul's paths and the norm's plan, on
+the CPU.
 
 The CUDA kernels run only on a GPU (``tests/test_torch_cuda.py``).  What
 surrounds them is plain Python that runs here: the plans that pick the
-fused decode's key splits and the fused matmul's path and K splits from
-shapes alone, and the host-side caches of the wrappers.  The fused
-decode's split-and-combine arithmetic -- 64-key tiles, one online-softmax
-update per tile and warp in the exp2 domain, per-split (m, l, O) and the
-combine pass, empty splits included -- is written out below in plain
-torch and held to the port's plain version and to JAX's
-``repro.kernels.ref.fused_paged_decode_ref`` on the same numpy inputs,
-f32 at atol = rtol = 2e-5 (the JAX kernel tests' bound: another order of
-summation).
+decodes' key splits, the fused matmul's path and K splits and the norm's
+launch shape from shapes alone, and the host-side caches of the wrappers.
+The split walk's arithmetic, which both decodes share -- 64-key tiles,
+one online-softmax update per tile and warp in the exp2 domain, per-split
+(m, l, O) and the combine pass, empty splits included -- is written out
+below in plain torch and held to the port's plain versions and to JAX's
+``repro.kernels.ref.fused_paged_decode_ref`` and ``paged_attention_ref``
+on the same numpy inputs, f32 at atol = rtol = 2e-5 (the JAX kernel
+tests' bound: another order of summation).  The unfused decode's model
+includes its empty slot (length 0: zero query rows over the whole table).
 """
+import ctypes
 import math
 
 import numpy as np
@@ -26,6 +29,7 @@ from repro.kernels import ref as JR  # noqa: E402
 from repro_torch.bridge import tensor_from_numpy  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels import fused_matmul as TM  # noqa: E402
+from repro_torch.kernels import layernorm as TL  # noqa: E402
 from repro_torch.kernels import paged_attention as TP  # noqa: E402
 from repro_torch.kernels import ref as TR  # noqa: E402
 
@@ -67,6 +71,27 @@ def test_decode_split_covers_the_table_once(b, page, nb):
     n, per = TP.decode_split(b, 4, page, nb)
     assert per % TILE == 0 and 1 <= n <= 16
     assert (n - 1) * per < nb * page <= n * per
+
+
+# the unfused decode (jamba's rope-free attention, Hkv = 8): (label,
+# (B, page, NB), expected plan) at 132 SMs
+PAGED_PLANS = [
+    # the serve-hybrid's 4 slots and phase 3's B=4: 32 blocks, 4 splits
+    ("serve-hybrid and phase 3", (4, 16, 64), (4, 256)),
+    # one live slot: 8 blocks, 16 splits of one tile
+    ("one slot", (1, 16, 64), (16, 64)),
+    # 17 slots fill the card alone
+    ("17 slots", (17, 16, 64), (1, 1024)),
+]
+
+
+@pytest.mark.parametrize("label,shape,want", PAGED_PLANS,
+                         ids=[c[0] for c in PAGED_PLANS])
+def test_unfused_decode_split_at_serve_hybrid_and_phase3(label, shape, want):
+    b, page, nb = shape
+    n, per = TP.decode_split(b, 8, page, nb)
+    assert (n, per) == want
+    assert (n - 1) * per < nb * page <= n * per      # the table, once
 
 
 # (label, (M, N, K, dtype, aligned), expected (path, splits, split_rows))
@@ -144,6 +169,28 @@ def split_decode_plain(q, k_new, v_new, k_pages, v_pages, block_tables,
     else:
         k_pages[pages, rows] = kr.to(k_pages.dtype)
         v_pages[pages, rows] = v_new.to(v_pages.dtype)
+    t_ends = [min(int(p) + 1, nb * page) for p in positions]
+    out = split_walk_plain(qr, k_pages, v_pages, block_tables, t_ends,
+                           splits=splits, keys_per_split=keys_per_split,
+                           softcap=softcap, k_scales=k_scales,
+                           v_scales=v_scales)
+    return out.to(q.dtype), k_pages, v_pages, k_scales, v_scales
+
+
+def split_walk_plain(q, k_pages, v_pages, block_tables, t_ends, *, splits,
+                     keys_per_split, softcap=0.0, k_scales=None,
+                     v_scales=None):
+    """The split walk of both decodes (``decode_split.cuh``) in plain
+    torch: per (slot, kv head) ``splits`` key ranges of ``keys_per_split``
+    keys, slot b's keys ``t < t_ends[b]`` admissible, each range walked in
+    64-key tiles of which warp w takes keys 8w .. 8w+7: one online-softmax
+    update per tile and warp (exp2 domain, m starting at -1e30, a key past
+    the range scoring -1e30 and weighing 0), the eight warps' (m, l, O)
+    merged at the end of the split, and the combine pass over the splits,
+    which skips a split that saw no key.  q (B, Hkv, G, D) f32; returns
+    f32 (B, Hkv, G, D)."""
+    b, hk, g, d = q.shape
+    page, nb = k_pages.shape[1], block_tables.shape[1]
     bt = block_tables.long()
     k = k_pages[bt].reshape(b, nb * page, hk, d).float()
     v = v_pages[bt].reshape(b, nb * page, hk, d).float()
@@ -158,7 +205,7 @@ def split_decode_plain(q, k_new, v_new, k_pages, v_pages, block_tables,
     warps = TILE // 8
     out = torch.empty((b, hk, g, d), dtype=torch.float32)
     for bi in range(b):
-        t_end = min(int(positions[bi]) + 1, nb * page)
+        t_end = t_ends[bi]
         for h in range(hk):
             parts = []
             for z in range(splits):
@@ -169,7 +216,7 @@ def split_decode_plain(q, k_new, v_new, k_pages, v_pages, block_tables,
                 for a in range(t0, t_hi, TILE):
                     for w in range(warps):
                         keys = torch.arange(a + 8 * w, a + 8 * w + 8)
-                        s = qr[bi, h] @ k[bi, keys, h].T * scale
+                        s = q[bi, h] @ k[bi, keys, h].T * scale
                         if softcap > 0:
                             s = softcap * torch.tanh(s / softcap)
                         s = torch.where(keys < t_hi, s * log2e, NEG_INF)
@@ -194,7 +241,25 @@ def split_decode_plain(q, k_new, v_new, k_pages, v_pages, block_tables,
                 lsum = lsum + f * l
                 osum = osum + f[:, None] * o
             out[bi, h] = osum / lsum[:, None]
-    return out.to(q.dtype), k_pages, v_pages, k_scales, v_scales
+    return out
+
+
+def paged_split_plain(q, k_pages, v_pages, block_tables, lengths, *, splits,
+                      keys_per_split, softcap=0.0, k_scales=None,
+                      v_scales=None):
+    """The unfused decode as its kernel computes it: the split walk over
+    each slot's ``min(lengths[b], NB * P)`` keys, and for a slot with
+    ``lengths[b] <= 0`` zero query rows over the whole table (every score
+    0, so the uniform mean of V, as the references give)."""
+    nb, page = block_tables.shape[1], k_pages.shape[1]
+    empty = lengths <= 0
+    qz = torch.where(empty[:, None, None, None], 0.0, q.float())
+    t_ends = [nb * page if int(n) <= 0 else min(int(n), nb * page)
+              for n in lengths]
+    return split_walk_plain(qz, k_pages, v_pages, block_tables, t_ends,
+                            splits=splits, keys_per_split=keys_per_split,
+                            softcap=softcap, k_scales=k_scales,
+                            v_scales=v_scales).to(q.dtype)
 
 
 def _decode_inputs(seed, *, b, hk, g, d, page, nb, int8):
@@ -261,6 +326,49 @@ def test_split_and_combine_match_plain_and_jax(case, d, int8, softcap):
         assert a is None or torch.equal(a, p)
 
 
+# (lengths, NB, page): an empty slot, one of 3 keys (3 of 4 splits
+# empty), one past the table; the same at a 24-row page
+PAGED_SPLIT_CASES = {
+    "page16": ([0, 3, 32 * 16 + 9], 32, 16),
+    "page24": ([0, 3, 24 * 22 - 1], 22, 24),
+}
+
+
+@pytest.mark.parametrize("softcap", [0.0, 30.0])
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("case", sorted(PAGED_SPLIT_CASES))
+def test_unfused_split_and_combine_match_plain_and_jax(case, d, int8,
+                                                       softcap):
+    lengths, nb, page = PAGED_SPLIT_CASES[case]
+    b, hk, g = 3, 8, 4
+    ins = _decode_inputs(11 + d + nb, b=b, hk=hk, g=g, d=d, page=page,
+                         nb=nb, int8=int8)
+    splits, per = TP.decode_split(b, hk, page, nb)
+    assert splits > 1
+    n = np.asarray(lengths, np.int32)
+    t = {k: tensor_from_numpy(v, "cpu") for k, v in ins.items()}
+    sc = dict(k_scales=t["ks"], v_scales=t["vs"]) if int8 else {}
+    args = (t["q"], t["kp"], t["vp"], t["bt"], torch.from_numpy(n))
+    got = paged_split_plain(*args, splits=splits, keys_per_split=per,
+                            softcap=softcap, **sc)
+    plain = TR.paged_attention_ref(*args, softcap=softcap, **sc)
+    jsc = dict(k_scales=jnp.asarray(ins["ks"]),
+               v_scales=jnp.asarray(ins["vs"])) if int8 else {}
+    jax_out = JR.paged_attention_ref(
+        *(jnp.asarray(ins[k]) for k in ("q", "kp", "vp", "bt")),
+        jnp.asarray(n), softcap=softcap, **jsc)
+    np.testing.assert_allclose(got.numpy(), plain.numpy(), **F32)
+    np.testing.assert_allclose(got.numpy(), np.asarray(jax_out), **F32)
+    # the empty slot: the uniform mean of V over its table rows
+    v = t["vp"][t["bt"][0].long()].float()
+    if int8:
+        v = v * t["vs"][t["bt"][0].long()][..., None]
+    mean = v.reshape(nb * page, hk, d).mean(0)
+    np.testing.assert_allclose(got[0].numpy(),
+                               mean[:, None].expand(hk, g, d).numpy(), **F32)
+
+
 def test_one_split_walks_the_whole_table():
     """With one split the walk is the plain online softmax over every
     tile: the same output."""
@@ -318,6 +426,28 @@ def test_fused_decode_contract_raises_on_misaligned_pools():
             TP.check_fused_decode_contract(q, kn, kn, *pools, bt, pos)
 
 
+def test_paged_decode_contract_raises_on_misaligned_pools():
+    """The unfused decode now copies pool rows with the split walk's
+    16-byte cp.async too."""
+    b, hk, g, d, page, nb = 2, 8, 8, 128, 16, 4
+    q = torch.zeros((b, hk, g, d))
+    kp = torch.zeros((9, page, hk, d))
+    bad = torch.zeros(9 * page * hk * d + 1)[1:].view(9, page, hk, d)
+    bt = torch.zeros((b, nb), dtype=torch.int32)
+    n = torch.zeros((b,), dtype=torch.int32)
+    assert TP.check_paged_decode_contract(q, kp, kp, bt, n) == \
+        (b, hk, g, d, page, nb)
+    for pools in ((bad, kp), (kp, bad)):
+        with pytest.raises(ValueError, match="16-byte"):
+            TP.check_paged_decode_contract(q, *pools, bt, n)
+    k8 = torch.zeros((9, page, hk, d), dtype=torch.int8)
+    bad8 = torch.zeros(9 * page * hk * d + 1, dtype=torch.int8)[1:].view(
+        9, page, hk, d)
+    sc = torch.ones((9, page, hk))
+    with pytest.raises(ValueError, match="16-byte"):
+        TP.check_paged_decode_contract(q, bad8, k8, bt, n, sc, sc)
+
+
 def test_ctypes_signatures_match_the_c_entry_points():
     """Each C entry point's parameter count equals its ctypes argtypes
     (ctypes passes extra arguments unconverted, so a missing entry would
@@ -330,3 +460,74 @@ def test_ctypes_signatures_match_the_c_entry_points():
     assert set(found) == set(_build.SIGNATURES)
     for name, argtypes in _build.SIGNATURES.items():
         assert found[name] == len(argtypes), name
+
+
+@pytest.mark.parametrize("name,params", [
+    ("repro_paged_attention", ("ws_o", "ws_ml", "nsplit", "split_keys")),
+    ("repro_norm_onepass", ("nv", "tpr", "rpb", "blocks")),
+])
+def test_entry_points_take_their_plans(name, params):
+    """The unfused decode's entry point takes the split workspace and
+    plan, the norm's its launch plan, each as the ctypes argtypes say."""
+    import re
+    src = "".join(p.read_text() for p in sorted(_build.CSRC.glob("*.cu")))
+    found = re.search(r'extern "C" int ' + name + r'\(([^)]*)\)', src)
+    names = [p.split()[-1].lstrip("*") for p in found.group(1).split(",")]
+    assert all(p in names for p in params)
+    assert len(names) == len(_build.SIGNATURES[name])
+    types = dict(zip(names, _build.SIGNATURES[name]))
+    assert all(types[p] is (ctypes.c_void_p if p.startswith("ws")
+                            else ctypes.c_int) for p in params)
+
+
+# -- the one-pass norm's plan -----------------------------------------------
+
+# (label, (R, D, dtype, aligned), expected plan) at 132 SMs: the front
+# door's rows, a narrow D, the widest, and the shapes the scalar path takes
+NORM_PLANS = [
+    ("bf16 R=512 D=4096", (512, 4096, torch.bfloat16, True),
+     ("vector", 2, 256, 1, 512)),
+    ("bf16 R=4 D=8192", (4, 8192, torch.bfloat16, True),
+     ("vector", 2, 512, 1, 4)),
+    ("f32 R=512 D=8192", (512, 8192, torch.float32, True),
+     ("vector", 4, 512, 1, 512)),
+    ("f32 R=512 D=4096", (512, 4096, torch.float32, True),
+     ("vector", 4, 256, 1, 512)),
+    ("bf16 D=1024", (512, 1024, torch.bfloat16, True),
+     ("vector", 2, 64, 4, 128)),
+    ("bf16 D=32768", (513, 32768, torch.bfloat16, True),
+     ("vector", 4, 1024, 1, 264)),
+    ("f32 D=32768", (4, 32768, torch.float32, True),
+     ("vector", 8, 1024, 1, 4)),
+    ("odd D", (512, 4095, torch.bfloat16, True), ("scalar", 0, 256, 1, 512)),
+    ("f32 D=4098", (4, 4098, torch.float32, True), ("scalar", 0, 256, 1, 4)),
+    ("misaligned", (512, 4096, torch.bfloat16, False),
+     ("scalar", 0, 256, 1, 512)),
+]
+
+
+@pytest.mark.parametrize("label,shape,want", NORM_PLANS,
+                         ids=[c[0] for c in NORM_PLANS])
+def test_norm_plan_at_front_door_and_odd_shapes(label, shape, want):
+    assert TL.norm_plan(*shape) == want
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("r", [1, 4, 512, 513, 100_000])
+@pytest.mark.parametrize("d", [8, 64, 1000, 4096, 8192, 12_288, 32_768])
+def test_norm_plan_vector_path_covers_each_row_once(dtype, r, d):
+    """The C entry point's checks: whole 16-byte vectors, 16 values a
+    thread or 32 for the widest rows, threads a multiple of 32 that cover
+    the row, a
+    block of at most 256 threads unless one row needs more (then one row
+    a block), at most 8 rows a block, and at least one block a row
+    group, at most a full card's worth."""
+    path, nv, tpr, rpb, blocks = TL.norm_plan(r, d, dtype)
+    vec = 16 // torch.tensor([], dtype=dtype).element_size()
+    assert path == "vector" and nv * vec in ((16, 32) if d > 16_384
+                                             else (16,))
+    assert tpr % 32 == 0 and 32 <= tpr <= 1024
+    assert nv * vec * (tpr - 32) < d <= nv * vec * tpr
+    assert 1 <= rpb <= 8 and (tpr * rpb <= 256 or rpb == 1)
+    assert 1 <= blocks <= -(-r // rpb)
+    assert blocks == -(-r // rpb) or blocks * tpr * rpb >= 132 * 2048 // 2
