@@ -31,9 +31,13 @@ device it fails (it never runs on the CPU instead).  Phases, in order:
      unfused paged decode (B=4, Hkv=8, G=8, lengths up to 1000) over fp
      and int8 pools, with its key splits and device time beside SDPA's,
      and with an empty slot (the uniform mean of V over its table), a
-     one-key slot and one past its table held to the plain version; and
-     the linear scan at mamba's decode (N=4, S=1, F=262,144, with h0) and
-     prefill (N=1, S=512) shapes, bit-equal, with device times; then
+     one-key slot and one past its table held to the plain version; the
+     linear scan at mamba's decode (N=4, S=1, F=262,144, with h0) and at
+     N=1, S=512 on its vector path and at an odd F on its scalar path,
+     bit-equal, with device times; the fused selective scan (mamba's
+     prefill) at N=1, S=600 and N=4, S=100 with h0 (d_inner 16,384,
+     d_state 16) within 1e-5 of its plain version, timed beside the
+     materialized route it replaces (``was_ms``); then
      the kernel front door, ``repro_torch.kernels.ops``: the fused matmul
      (yi-6b's gate projection at 4 and 512 tokens, a 4096-wide projection
      with each epilogue, f32 and bf16, bf16 to f32) and the one-pass norm
@@ -67,7 +71,9 @@ device it fails (it never runs on the CPU instead).  Phases, in order:
      32-token segment); then serve-hybrid: the jamba hybrid at full
      width, 16 layers, bf16, the same engine size and request shape.
      The kernels' launch counters are zeroed just before each serve and
-     read just after: each must be nonzero, and every logit finite.  A
+     read just after: each must be nonzero (on serve-hybrid the fused
+     selective scan counts admissions, the linear scan decode steps),
+     and every logit finite.  A
      short profiled decode window follows each serve.
 
 It prints a ``{"kernels": [...]}`` JSON line, then as its last line
@@ -625,17 +631,25 @@ def hybrid_kernel_phase(dev, flush, results):
     and int8 pools in f32 and bf16, then the same with an empty slot
     (length 0: the uniform mean of V over its table, as the Pallas kernel
     and both references give), a one-key slot and one past the table,
-    held to the plain version and the empty slot also to that mean; and
-    the linear scan (f32 only) at mamba's decode shape (N=4, S=1,
-    F=d_inner*d_state=262,144, with h0) and prefill shape (N=1, S=512, no
-    h0), whose states must equal the plain version's bit for bit.  SDPA
-    over the gathered (dequantized) K/V is the attention's library
-    yardstick; ``torch.addcmul(b, a, h0)`` computes the scan at S = 1; no
-    single PyTorch call computes it over S > 1.  Each row gives the
-    profiler's device time beside its yardstick's."""
+    held to the plain version and the empty slot also to that mean; the
+    linear scan (f32 only) at mamba's decode shape (N=4, S=1,
+    F=d_inner*d_state=262,144, with h0) and at N=1, S=512 (no h0) on its
+    vector path, and at an odd F (262,143) on its scalar path, whose
+    states must equal the plain version's bit for bit; and the fused
+    selective scan (mamba's prefill) at serve-hybrid's longest admission
+    (N=1, S=600, d_inner 16,384, d_state 16, no h0) and a batched one with
+    h0 (N=4, S=100), whose y and h_last must lie within 1e-5 of the plain
+    version's, timed beside the materialized route it replaces on the
+    same tensors (``was_ms``: exp, the products, the linear scan kernel
+    and the C contraction).  SDPA over the gathered (dequantized) K/V is
+    the attention's library yardstick; ``torch.addcmul(b, a, h0)``
+    computes the scan at S = 1; no single PyTorch call computes either
+    scan over S > 1.  Each row gives the profiler's device time beside
+    its yardstick's."""
     from repro_torch.kernels import linear_scan as TS
     from repro_torch.kernels import paged_attention as TP
     from repro_torch.kernels import ref as TR
+    from repro_torch.kernels import selective_scan as SS
     F = torch.nn.functional
     hk, g, d, page, b, nb = 8, 8, 128, 16, 4, 64
     h = hk * g
@@ -717,9 +731,10 @@ def hybrid_kernel_phase(dev, flush, results):
                          f"against the mean of V over its table", out[0],
                          mean[:, None].expand(hk, g, d), dtype)
 
-    f = 262_144
-    for name, (n_, s_, with_h0) in (("linear_scan", (4, 1, True)),
-                                    ("linear_scan_prefill", (1, 512, False))):
+    for name, (n_, s_, f, with_h0, path) in (
+            ("linear_scan", (4, 1, 262_144, True, "vector")),
+            ("linear_scan_prefill", (1, 512, 262_144, False, "vector")),
+            ("linear_scan_odd_f", (4, 1, 262_143, True, "scalar"))):
         a = torch.rand((n_, s_, f), generator=gen, device=dev) * 0.5 + 0.5
         bb = rnd((n_, s_, f))
         h0 = rnd((n_, f)) if with_h0 else None
@@ -728,10 +743,14 @@ def hybrid_kernel_phase(dev, flush, results):
         torch.cuda.synchronize()
         same = torch.equal(out, ref)
         err = max_err(out, ref)
-        print(f"[kernels] {name} float32 N={n_} S={s_} F={f}: states "
+        took = TS.linear_scan.last_plan
+        print(f"[kernels] {name} float32 N={n_} S={s_} F={f}: {took[0]} "
+              f"path ({took[1]} threads, {took[2]} blocks a row); states "
               f"bit-equal to the plain version: {same} (max_abs_err {err})")
         check(same, f"{name}: the kernel's states differ from the plain "
                     f"version's")
+        check(took[0] == path, f"{name}: took the {took[0]} path, not the "
+                               f"{path} one")
         ms = bench(lambda: TS.linear_scan(a, bb, h0), flush)
         pl = bench(lambda: TR.linear_scan_ref(a, bb, h0), flush)
         dev_ms = device_ms(lambda: TS.linear_scan(a, bb, h0), flush)
@@ -745,23 +764,87 @@ def hybrid_kernel_phase(dev, flush, results):
         results[(name, torch.float32)] = dict(
             max_abs_err=err, ms=ms, plain_ms=pl, library_ms=lib,
             bound_ms=bnd, bound_by=by, device_ms=dev_ms,
-            library_device_ms=lib_dev,
+            library_device_ms=lib_dev, path=took[0],
             shape=f"N={n_} S={s_} F={f} {'with' if with_h0 else 'no'} h0")
+
+    di, ds = 16_384, 16                 # jamba's d_inner and d_state
+    a_mat = -torch.arange(1, ds + 1, dtype=torch.float32,
+                          device=dev).repeat(di, 1)
+    for name, (n_, s_, with_h0) in (("mamba_scan_fused", (1, 600, False)),
+                                    ("mamba_scan_fused_b4", (4, 100, True))):
+        # delta as softplus(dt + dt_bias) gives it at jamba's init
+        delta = F.softplus(rnd((n_, s_, di)) * 0.1 - 4.6)
+        xs, bm, cm = rnd((n_, s_, di)), rnd((n_, s_, ds)), rnd((n_, s_, ds))
+        h0 = rnd((n_, di, ds)) if with_h0 else None
+        args = (delta, xs, bm, cm, a_mat, h0)
+        y, hl = SS.mamba_scan_fused(*args)
+        ry, rh = TR.mamba_scan_fused_ref(*args)
+        torch.cuda.synchronize()
+        err = max(max_err(y, ry), max_err(hl, rh))
+        ok = all(torch.allclose(u, v, atol=1e-5, rtol=1e-5)
+                 for u, v in ((y, ry), (hl, rh)))
+        took = SS.mamba_scan_fused.last_plan
+        print(f"[kernels] {name} float32 N={n_} S={s_} d_inner={di} "
+              f"d_state={ds}: plan {took}; y and h_last max_abs_err="
+              f"{err:.3g} (atol=rtol=1e-05) {'ok' if ok else 'MISMATCH'}")
+        check(ok, f"{name}: the kernel disagrees with its plain version")
+
+        def was(delta=delta, xs=xs, bm=bm, cm=cm, h0=h0, n_=n_, s_=s_):
+            """The route it replaces: (N, S, d_inner, d_state) tensors."""
+            a = torch.exp(delta[..., None] * a_mat)
+            b_ = (delta * xs)[..., None] * bm[:, :, None, :]
+            h_all = TS.linear_scan(
+                a.reshape(n_, s_, -1), b_.reshape(n_, s_, -1),
+                None if h0 is None else h0.reshape(n_, -1))
+            h_all = h_all.reshape(n_, s_, di, ds)
+            return torch.matmul(h_all, cm[..., None])[..., 0], h_all[:, -1]
+        wy, wh = was()
+        torch.cuda.synchronize()
+        check(all(torch.allclose(u, v, atol=1e-5, rtol=1e-5)
+                  for u, v in ((wy, ry), (wh, rh))),
+              f"{name}: the materialized route disagrees with the plain "
+              f"version")
+        del wy, wh
+        ms = bench(lambda: SS.mamba_scan_fused(*args), flush)
+        pl = bench(lambda: TR.mamba_scan_fused_ref(*args), flush, iters=5,
+                   warmup=1)
+        was_ms = bench(was, flush)
+        dev_ms = device_ms(lambda: SS.mamba_scan_fused(*args), flush)
+        was_dev = device_ms(was, flush)
+        torch.cuda.empty_cache()
+        nbytes = 4 * (3 * n_ * s_ * di + 2 * n_ * s_ * ds + di * ds
+                      + (2 if with_h0 else 1) * n_ * di * ds)
+        # 7 ops a state and step (delta*A, exp, (delta*x)*B, a*h, +, the
+        # C product and sum) and delta*x a channel and step
+        bnd, by = bound_ms(nbytes, n_ * s_ * di * (7 * ds + 1),
+                           torch.float32)
+        results[(name, torch.float32)] = dict(
+            max_abs_err=err, ms=ms, plain_ms=pl, library_ms=None,
+            bound_ms=bnd, bound_by=by, device_ms=dev_ms,
+            library_device_ms=None, was_ms=was_ms, was_device_ms=was_dev,
+            plan=took, shape=f"N={n_} S={s_} d_inner={di} d_state={ds} "
+            f"{'with' if with_h0 else 'no'} h0")
     for key in (("paged_attention", torch.float32),
                 ("paged_attention", torch.bfloat16),
                 ("paged_attention_int8", torch.float32),
                 ("paged_attention_int8", torch.bfloat16),
                 ("linear_scan", torch.float32),
-                ("linear_scan_prefill", torch.float32)):
+                ("linear_scan_prefill", torch.float32),
+                ("linear_scan_odd_f", torch.float32),
+                ("mamba_scan_fused", torch.float32),
+                ("mamba_scan_fused_b4", torch.float32)):
         r = results[key]
         lib = ("no single call" if r["library_ms"] is None
                else f"{r['library_ms']:.4f} ms (device "
                     f"{r['library_device_ms']:.4f})")
         plan = f", splits {r['splits']} of {r['split_keys']} keys" \
             if "splits" in r else ""
+        plan += f", {r['path']} path" if "path" in r else ""
+        was = (f", was {r['was_ms']:.4f} ms (device "
+               f"{r['was_device_ms']:.4f})" if "was_ms" in r else "")
         print(f"[kernels] {key[0]} {str(key[1])[6:]} ({r['shape']}{plan}): "
               f"{r['ms']:.4f} ms (device {r['device_ms']:.4f}), plain "
-              f"{r['plain_ms']:.4f} ms, library {lib}, bound "
+              f"{r['plain_ms']:.4f} ms, library {lib}{was}, bound "
               f"{r['bound_ms']:.4f} ms ({r['bound_by']})")
     return results
 
@@ -1491,7 +1574,7 @@ def serve_hybrid_phase(dev, kernels):
         fn.launches = 0
     torch.cuda.reset_peak_memory_stats()
     path = {k: kernels[k] for k in ("paged_attention", "linear_scan",
-                                    "paged_prefill")}
+                                    "mamba_scan_fused", "paged_prefill")}
     prompts = serve_prompts(cfg, 0, repeat_segment=False)
     eng, hy = serve_run("hybrid paged", model, params, prompts, path)
     check(eng.prefill_bucket == 1 and not eng._suffix_reuse
@@ -1532,7 +1615,8 @@ def profile_decode(eng, prompts, request_cls):
             by_kernel[evt.key] = (by_kernel.get(evt.key, 0.0)
                                   + evt.self_device_time_total / 1e6)
     classes = {"fused_paged_decode": 0.0, "paged_verify": 0.0,
-               "paged_attention": 0.0, "linear_scan": 0.0, "gemm": 0.0,
+               "paged_attention": 0.0, "linear_scan": 0.0,
+               "mamba_scan_fused": 0.0, "gemm": 0.0,
                "copy": 0.0, "other": 0.0}
     for key, sec in by_kernel.items():
         low = key.lower()
@@ -1542,8 +1626,10 @@ def profile_decode(eng, prompts, request_cls):
             classes["paged_verify"] += sec     # the verify windows
         elif "paged_attention" in key:     # the walk and its combine
             classes["paged_attention"] += sec
-        elif "linear_scan_kernel" in key:
+        elif "linear_scan" in key:         # the vector or scalar path
             classes["linear_scan"] += sec
+        elif "selective_scan" in key:
+            classes["mamba_scan_fused"] += sec
         elif any(w in low for w in ("gemm", "gemv", "nvjet", "xmma",
                                     "cutlass")):
             classes["gemm"] += sec
@@ -1609,6 +1695,7 @@ def main():
     from repro_torch.kernels.paged_attention import (
         fused_paged_decode_grouped, paged_attention_grouped,
         paged_prefill_attention_grouped, paged_verify_attention_grouped)
+    from repro_torch.kernels.selective_scan import mamba_scan_fused
     t0 = time.perf_counter()
     _build.load_library(verbose=True)
     print(f"[build] kernels built and loaded in "
@@ -1639,6 +1726,7 @@ def main():
                    "paged_verify": paged_verify_attention_grouped,
                    "flash_attention": flash_attention_bhsd,
                    "linear_scan": linear_scan,
+                   "mamba_scan_fused": mamba_scan_fused,
                    "matmul_fused": matmul_fused,
                    "norm_onepass": norm_onepass}
         t0 = time.perf_counter()
@@ -1680,6 +1768,13 @@ def main():
                         "src/repro/kernels/linear_scan.py:46"),
         "linear_scan_prefill": ("src/repro_torch/csrc/linear_scan.cu",
                                 "src/repro/kernels/linear_scan.py:46"),
+        "linear_scan_odd_f": ("src/repro_torch/csrc/linear_scan.cu",
+                              "src/repro/kernels/linear_scan.py:46"),
+        # no Pallas kernel: the JAX package's default mamba prefill is jnp
+        "mamba_scan_fused": ("src/repro_torch/csrc/selective_scan.cu",
+                             "src/repro/models/ssm.py:31"),
+        "mamba_scan_fused_b4": ("src/repro_torch/csrc/selective_scan.cu",
+                                "src/repro/models/ssm.py:31"),
         **{name: ("src/repro_torch/csrc/fused_matmul.cu",
                   "src/repro/kernels/fused_matmul.py:59")
            for name in FRONT_DOOR_MATMULS},
@@ -1688,12 +1783,16 @@ def main():
            for name in FRONT_DOOR_NORMS},
     }
     # launches: serve-full and serve-int8-spec for yi-6b's kernels,
-    # serve-hybrid for jamba's (both scan rows are one wrapper's count),
-    # the front-door run for the matmul and norm rows (one count each)
+    # serve-hybrid for jamba's (the scan rows are one wrapper's count, the
+    # selective scan's another), the front-door run for the matmul and
+    # norm rows (one count each)
     hy = served["hybrid"]["launches"]
     launches = {**served["launches"], "paged_attention": hy["paged_attention"],
                 "linear_scan": hy["linear_scan"],
                 "linear_scan_prefill": hy["linear_scan"],
+                "linear_scan_odd_f": hy["linear_scan"],
+                "mamba_scan_fused": hy["mamba_scan_fused"],
+                "mamba_scan_fused_b4": hy["mamba_scan_fused"],
                 "paged_prefill_s600": served["launches"]["paged_prefill"],
                 "paged_prefill_int8_s600":
                     served["launches"]["paged_prefill_int8"],
@@ -1712,7 +1811,8 @@ def main():
                      "bound_by": r["bound_by"],
                      "library_ms": r["library_ms"],
                      "splits": r.get("splits", 1),
-                     **({"path": r["path"]} if "path" in r else {})})
+                     **({"path": r["path"]} if "path" in r else {}),
+                     **({"was_ms": r["was_ms"]} if "was_ms" in r else {})})
     out_dir = os.path.join(HERE, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as f:

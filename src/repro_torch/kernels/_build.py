@@ -23,8 +23,8 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build"
 SOURCES = ("flash_attention.cu", "paged_prefill.cu", "fused_paged_decode.cu",
-           "paged_attention.cu", "linear_scan.cu", "fused_matmul.cu",
-           "layernorm.cu")
+           "paged_attention.cu", "linear_scan.cu", "selective_scan.cu",
+           "fused_matmul.cu", "layernorm.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
 LIB_NAME = "librepro_torch_kernels.so"
@@ -57,8 +57,12 @@ SIGNATURES = {
     # stream
     "repro_paged_attention": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                               _I, _I, _I, _I, _I, _I, _I, _I, _F, _F, _P],
-    # a, b, h0, out, N, S, F, stream
-    "repro_linear_scan": [_P, _P, _P, _P, _I, _I, _I, _P],
+    # a, b, h0, out, N, S, F, vec, threads, blocks, stream
+    "repro_linear_scan": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    # delta, x, B, C, A, h0, y, h_last, N, S, D, n, vec, lanes, states,
+    # blocks, stream
+    "repro_selective_scan": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                             _I, _I, _I, _I, _I, _P],
     # dtype, x, w, bias, bias_dtype, out, out_dtype, M, N, K, act, path,
     # splits, split_rows, ws, stream
     "repro_matmul_fused": [_I, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _I,

@@ -7,8 +7,15 @@ does.  On CPU tensors it runs the plain version
 (``ref.linear_scan_ref``); on CUDA tensors it launches
 ``csrc/linear_scan.cu`` or raises -- there is no fallback.  The model
 reaches it through mamba (``models/ssm.py``): every decode step at S = 1
-with the slot's state as ``h0``, and every prefill at the prompt's
-length.
+with the slot's state as ``h0`` (prefill, S > 1, takes the fused
+selective scan, ``kernels/selective_scan.py``).
+
+The kernel has two paths, picked by ``scan_plan`` from shapes and
+alignment alone (a dispatch by shape, not a fallback): ``vector`` gives
+each thread 4 neighbouring features in 16-byte loads and stores and
+needs F a multiple of 4 and every operand on a 16-byte boundary;
+``scalar`` (one thread a feature) takes every other shape.
+``linear_scan.last_plan`` records the plan of the last CUDA launch.
 
 Shape contract on CUDA: a and b contiguous float32 of one shape
 (N, S, F) with N <= 65,535; h0 None or contiguous float32 (N, F); all on
@@ -23,6 +30,18 @@ from repro_torch.kernels import _build
 from repro_torch.kernels import ref as R
 
 MAX_ROWS = 65_535          # grid.y
+VEC_THREADS = 128          # a block of the vector path (csrc: launch bound)
+SCALAR_THREADS = 256
+
+
+def scan_plan(f, aligned=True):
+    """``(path, threads, blocks)`` of a CUDA launch along F (the grid's
+    second axis is N), from the feature count and alignment alone
+    (``aligned``: every operand starts on a 16-byte boundary): the vector
+    path's threads own 4 features each, the scalar path's one."""
+    if f % 4 == 0 and aligned:
+        return "vector", VEC_THREADS, -(-(f // 4) // VEC_THREADS)
+    return "scalar", SCALAR_THREADS, -(-f // SCALAR_THREADS)
 
 
 def check_linear_scan_contract(a, b, h0=None):
@@ -55,14 +74,20 @@ def linear_scan(a, b, h0=None):
     n, s, f = check_linear_scan_contract(a, b, h0)
     lib = _build.load_library()
     out = torch.empty_like(a)
+    operands = (a, b, out) if h0 is None else (a, b, out, h0)
+    plan = scan_plan(f, all(t.data_ptr() % 16 == 0 for t in operands))
+    path, threads, blocks = plan
     with torch.cuda.device(a.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.repro_linear_scan(
             a.data_ptr(), b.data_ptr(), None if h0 is None else h0.data_ptr(),
-            out.data_ptr(), n, s, f, stream)
+            out.data_ptr(), n, s, f, int(path == "vector"), threads, blocks,
+            stream)
     _build.check(err, "linear_scan")
     linear_scan.launches += 1
+    linear_scan.last_plan = plan
     return out
 
 
 linear_scan.launches = 0
+linear_scan.last_plan = None

@@ -289,3 +289,26 @@ def linear_scan_ref(a, b, h0=None):
         h = af[:, t] * h + bf[:, t]
         out[:, t] = h
     return out.to(a.dtype)
+
+
+def mamba_scan_fused_ref(delta, xi, bm, cm, a_mat, h0=None):
+    """The selective scan of mamba, memory-lean: delta, xi (N, S, di) f32;
+    bm, cm (N, S, n) f32; a_mat (di, n) f32; h0 (N, di, n) f32 or None
+    (zeros).  Returns (y (N, S, di) with ``y_t = C_t . h_t``, h_last
+    (N, di, n)), as the JAX ``mamba_scan_fused``.  It steps through t with
+    the arithmetic of the materialized route (``a_t = exp(delta_t A)``,
+    ``b_t = (delta_t x_t) B_t``, ``h = a_t h + b_t`` as two separately
+    rounded f32 ops, ``y_t = h C_t``), holding one (N, di, n) state and
+    never a (N, S, di, n) tensor."""
+    n_, s, di = delta.shape
+    h = (torch.zeros((n_, di, a_mat.shape[1]), dtype=torch.float32,
+                     device=delta.device)
+         if h0 is None else h0.to(torch.float32))
+    y = torch.empty((n_, s, di), dtype=torch.float32, device=delta.device)
+    for t in range(s):
+        d = delta[:, t]
+        a = torch.exp(d[..., None] * a_mat)
+        b = (d * xi[:, t])[..., None] * bm[:, t, None, :]
+        h = a * h + b
+        y[:, t] = torch.matmul(h, cm[:, t, :, None])[..., 0]
+    return y, h

@@ -8,13 +8,17 @@ Counterpart of the mamba half of the JAX package's ``models/ssm.py``:
 ``state`` is the O(1) recurrent state a slot carries between steps,
 ``{"conv": (B, d_conv - 1, d_inner), "ssm": (B, d_inner, d_state)}``
 (both f32 in the caches); ``state=None`` starts from zeros.  The
-recurrence ``h_t = exp(delta_t A) h_{t-1} + delta_t B_t x_t`` runs
-through ``dispatch_linear_scan`` (the Hopper kernel on CUDA, its plain
-version on CPU) on every call: one step per decode (S = 1), the whole
-prompt at prefill, with the gate and input tensors materialized as
-(B, S, d_inner * d_state) f32.  That is the JAX package's non-fused
-branch (``REPRO_MAMBA`` other than "fused"); its fused chunk path, which
-keeps those tensors out of HBM on a TPU, is not ported.
+selective SSM ``h_t = exp(delta_t A) h_{t-1} + delta_t B_t x_t``,
+``y_t = C_t . h_t`` takes the path the JAX package takes with
+``REPRO_MAMBA`` unset (the port reads no environment variable for it):
+
+  * S > 1 (prefill): ``mamba_scan_fused``, the fused selective scan
+    (``kernels/selective_scan.py``: the Hopper kernel on CUDA, its plain
+    version on CPU), which forms the gate and input in registers and
+    never materializes a (B, S, d_inner, d_state) tensor;
+  * S == 1 (decode): the gate and input of the one step, (B, 1,
+    d_inner * d_state) f32, through ``dispatch_linear_scan`` with the
+    slot's state as h0, then the C contraction.
 
 Dtypes as on the JAX side: the in/x/out projections take the activation
 dtype; the in and out projections are cast back to it, and the x
@@ -32,6 +36,7 @@ import torch.nn.functional as F
 
 from repro_torch.backend import dispatch as kops
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels import selective_scan as SS
 from repro_torch.models.layers import dense_init, matmul_f32
 
 
@@ -99,6 +104,17 @@ def _scan_dispatch(a, b, h0=None):
     return h_all, h_all[:, -1].to(torch.float32)
 
 
+def mamba_scan_fused(delta, xi, bm, cm, a_mat, h0=None):
+    """The memory-lean selective scan, as the JAX function of that name:
+    delta, xi (B, S, di) f32; bm, cm (B, S, n) f32 (views of the x
+    projection are fine); a_mat (di, n); h0 (B, di, n) or None.  Returns
+    (y = C.h per step (B, S, di), h_last (B, di, n) f32)."""
+    return SS.mamba_scan_fused(
+        delta.contiguous(), xi.contiguous(), bm.contiguous(),
+        cm.contiguous(), a_mat.contiguous(),
+        None if h0 is None else h0.to(torch.float32).contiguous())
+
+
 def apply_mamba(p, x, cfg: ModelConfig, state: Optional[dict] = None):
     """x: (B, S, d).  state: {"conv": (B, k-1, di), "ssm": (B, di, n)} or
     None.  Returns (out (B, S, d) in x's dtype, {"conv", "ssm"})."""
@@ -118,10 +134,14 @@ def apply_mamba(p, x, cfg: ModelConfig, state: Optional[dict] = None):
 
     # selective SSM: h_t = exp(delta A) h_{t-1} + delta B_t x_t; y = C_t.h
     xf = xi.to(f32)
-    a = torch.exp(delta[..., None] * a_mat)                      # (B,S,di,n)
-    b = (delta * xf)[..., None] * bm[:, :, None, :]
-    h_all, h_last = _scan_dispatch(a, b, state["ssm"] if state else None)
-    y = torch.matmul(h_all, cm[..., None])[..., 0]               # (B,S,di)
+    h0 = state["ssm"] if state else None
+    if x.shape[1] > 1:
+        y, h_last = mamba_scan_fused(delta, xf, bm, cm, a_mat, h0)
+    else:
+        a = torch.exp(delta[..., None] * a_mat)                  # (B,1,di,n)
+        b = (delta * xf)[..., None] * bm[:, :, None, :]
+        h_all, h_last = _scan_dispatch(a, b, h0)
+        y = torch.matmul(h_all, cm[..., None])[..., 0]           # (B,1,di)
     y = y + xf * p["D"]
     y = (y * F.silu(z.to(f32))).to(dt_)
     out = torch.matmul(y, p["out_proj"]).to(dt_)

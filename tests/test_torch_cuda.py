@@ -16,7 +16,10 @@ largest output), with a mean error against an f64 evaluation at most
 1.1 times the plain version's.
 The int8 rows and scales the fused decode writes must equal the plain
 version's, and the linear scan's states must equal the plain version's
-bit for bit (both round the product and the sum separately in f32).  The
+bit for bit on both its paths (both round the product and the sum
+separately in f32).  The fused selective scan is held at 1e-5: it rounds
+as its plain version does, but its expf and its order of the C sum may
+differ.  The
 fused matmul and the one-pass norm are held at the JAX kernel tests'
 tolerances, by output dtype: matmul 1e-4 (f32) / 2e-2 (bf16, one bf16
 ulp is at most 2^-7 relative), norm 1e-5 / 3e-2.
@@ -415,6 +418,83 @@ def test_linear_scan_kernel_equals_plain(cuda_device, n, s, with_h0):
     ref = TR.linear_scan_ref(a, b, h0)
     torch.cuda.synchronize()
     assert torch.equal(out, ref)
+    assert TS.linear_scan.last_plan[0] == "vector"
+
+
+@pytest.mark.parametrize("case", ["odd_f", "misaligned"])
+@pytest.mark.parametrize("with_h0", [False, True])
+def test_linear_scan_scalar_path_equals_plain(cuda_device, case, with_h0):
+    """An odd F (262,143) and operands one float past a 16-byte boundary
+    take the scalar path, bit-equal to the plain version too."""
+    from repro_torch.kernels import linear_scan as TS
+    g = torch.Generator(device=cuda_device).manual_seed(7)
+    n, s = 4, 3
+    f = 262_143 if case == "odd_f" else 4096
+
+    def place(t):
+        """The same values, one float past a 16-byte boundary when the
+        case asks for it."""
+        if case != "misaligned":
+            return t
+        buf = torch.empty(t.numel() + 1, device=cuda_device)
+        return buf[1:].view(t.shape).copy_(t)
+
+    a = place(torch.rand((n, s, f), generator=g, device=cuda_device) * 0.5
+              + 0.5)
+    b = place(torch.randn((n, s, f), generator=g, device=cuda_device))
+    h0 = place(torch.randn((n, f), generator=g, device=cuda_device)) \
+        if with_h0 else None
+    out = TS.linear_scan(a, b, h0)
+    ref = TR.linear_scan_ref(a, b, h0)
+    torch.cuda.synchronize()
+    assert TS.linear_scan.last_plan[0] == "scalar"
+    assert torch.equal(out, ref)
+
+
+# (N, S, D, d_state): serve-hybrid's longest admission, the batched one
+# with h0, a ragged D (scalar copies), S = 1, padded states, D past one
+# block
+SCAN_SHAPES = [(1, 600, 16_384, 16), (4, 100, 16_384, 16), (4, 7, 1001, 16),
+               (2, 1, 1000, 8), (3, 37, 96, 5), (2, 65, 40, 32)]
+
+
+@pytest.mark.parametrize("shape", SCAN_SHAPES)
+@pytest.mark.parametrize("with_h0", [False, True])
+def test_mamba_scan_fused_kernel_matches_plain(cuda_device, shape, with_h0):
+    """y and h_last against the plain version at atol = rtol = 1e-5 (only
+    expf and the order of the C sum differ)."""
+    from repro_torch.kernels import selective_scan as SS
+    n_, s, d, n = shape
+    g = torch.Generator(device=cuda_device).manual_seed(s * 100 + n)
+
+    def rnd(*sh):
+        return torch.randn(sh, generator=g, device=cuda_device)
+
+    delta = torch.rand((n_, s, d), generator=g, device=cuda_device) \
+        * 0.49 + 0.01
+    a_mat = -(torch.rand((d, n), generator=g, device=cuda_device) * 0.9
+              + 0.1)
+    args = (delta, rnd(n_, s, d), rnd(n_, s, n), rnd(n_, s, n), a_mat,
+            rnd(n_, d, n) if with_h0 else None)
+    y, h = SS.mamba_scan_fused(*args)
+    ry, rh = TR.mamba_scan_fused_ref(*args)
+    torch.cuda.synchronize()
+    assert SS.mamba_scan_fused.last_plan == SS.selective_scan_plan(d, n)
+    torch.testing.assert_close(y, ry, atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(h, rh, atol=1e-5, rtol=1e-5)
+
+
+def test_mamba_scan_fused_raises_on_device_mixes(cuda_device):
+    from repro_torch.kernels import selective_scan as SS
+    b, s, d, n = 1, 4, 64, 16
+    cpu = [torch.zeros(sh) for sh in ((b, s, d), (b, s, d), (b, s, n),
+                                       (b, s, n), (d, n), (b, d, n))]
+    for i in range(len(cpu)):
+        for base, other in (("cpu", cuda_device), (cuda_device, "cpu")):
+            ops = [t.to(base) for t in cpu]
+            ops[i] = ops[i].to(other)
+            with pytest.raises(ValueError):
+                SS.mamba_scan_fused(*ops)
 
 
 MM_TOLS = {torch.float32: 1e-4, torch.bfloat16: 2e-2}

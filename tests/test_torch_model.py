@@ -338,8 +338,10 @@ def _mamba_pair(hybrid, seed, s):
 
 
 def test_apply_mamba_prefill_matches_jax_chunked(hybrid, monkeypatch):
-    """Prefill against JAX's materialized-scan branch (REPRO_MAMBA=chunked,
-    the branch the port takes): atol = rtol = 1e-5."""
+    """Prefill against JAX's materialized-scan branch (REPRO_MAMBA=chunked):
+    atol = rtol = 1e-5.  The port prefills through its fused selective
+    scan, whose plain version steps through t with that branch's
+    arithmetic (exp(delta A), (delta x) B, a h + b, then C . h)."""
     JS, TSM, pj, pt, x, jc, tc = _mamba_pair(hybrid, 11, 12)
     monkeypatch.setenv("REPRO_MAMBA", "chunked")
     jy, jst = JS.apply_mamba(pj, jnp.asarray(x), jc)
