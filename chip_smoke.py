@@ -22,7 +22,12 @@ device it fails (it never runs on the CPU instead).  Phases, in order:
      ulp of its plain version and no further from an f64 evaluation than
      1.1 times it (P kept in f32); the paged
      prefill at S=256 (offsets 0 and 256) and S=600 (offset 0, the serve's
-     longest prompt); then the fused decode's int8 mode (written rows and
+     longest prompt); the plan path's new shapes: flash at the dense
+     chunked-prefill continuation (Sq=128 and 64 queries at pos_base 128
+     against a 1024-row ring whose rows 128..1023 are not yet written,
+     plus their own keys; at Sq=64 whole bf16 key splits hold no valid
+     key), and the paged prefill at S=48 from offsets 48, 56 (mid-page)
+     and 96; then the fused decode's int8 mode (written rows and
      scales bit-equal), the paged prefill over int8 pools at the same
      shapes, and the verify window (B=4, S=5, per-slot offsets 100-1000)
      over fp and int8 pools, whose bf16 launch must split its keys, plus
@@ -61,7 +66,14 @@ device it fails (it never runs on the CPU instead).  Phases, in order:
      the gold's streams on a staggered schedule whose warm admission
      shares blocks without compute reuse, a paged prefill + unfused
      decode must give ``Model.forward``'s logits, and int8 pools the fp
-     run's first tokens;
+     run's first tokens.  Plans: f32 yi-6b (2 layers) through
+     ``uniform_plan(2, 2, n_microbatches=2)`` at chunk 16, dense and
+     paged, must give the gold's streams, and paged int8 with
+     ``speculate=4`` the monolithic int8 engine's; the f32 hybrid (one
+     period) through a 1-stage plan with 2 decode replicas at chunk 16,
+     paged, the gold's streams.  Each plan run zeroes the launch counters
+     just before and reads them just after: every kernel of its path
+     must have launched;
   5. the main path at full size: yi-6b, all 32 layers, bf16, random
      weights from ``torch.Generator`` seed 0, served by the paged engine
      (4 slots, max_seq 1024, 8 requests of 100-600 prompt tokens, four
@@ -73,8 +85,12 @@ device it fails (it never runs on the CPU instead).  Phases, in order:
      The kernels' launch counters are zeroed just before each serve and
      read just after: each must be nonzero (on serve-hybrid the fused
      selective scan counts admissions, the linear scan decode steps),
-     and every logit finite.  A
-     short profiled decode window follows each serve.
+     and every logit finite.  serve-plan: serve-full's model, requests
+     and engine under the launcher's ``--strategy hybrid:2 --replicas 2
+     --chunk 128`` (the searched 2-stage plan, its ``describe()``
+     printed; both stages and replicas share the card), its numbers
+     beside serve-full's.  A short profiled decode window follows each
+     serve.
 
 It prints a ``{"kernels": [...]}`` JSON line, then as its last line
 ``{"ok": true, "device": {...}}``.  Any failed check exits non-zero
@@ -85,6 +101,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import gc
 import json
 import os
 import subprocess
@@ -400,8 +417,113 @@ def kernel_phase(dev, flush):
                       f"bf16 flash at D={dd} strays from the f32-P "
                       f"reference: {e}")
                 results[("flash_attention", dtype)][f"numerics_d{dd}"] = e
+
+        # -- flash at the dense chunked-prefill continuation: a chunk of Sq
+        #    queries at pos_base 128 attends a 1024-row ring (rows
+        #    128..1023 not yet written: negative positions, k_valid 0) and
+        #    its own Sq keys.  Sq=128 is the serve's chunk (timed); at
+        #    Sq=64 the bf16 launch splits 4 ways and two splits hold no
+        #    valid key at all (their partial rows must add nothing) -----
+        base, ring = 128, 1024
+        ridx = torch.arange(ring, device=dev)
+        rpos = (base - 1) - torch.remainder((base - 1) - ridx, ring)
+        empties = {}
+        for sq in (64, 128):
+            skv = ring + sq
+            q = rnd((1, h, sq, d), dtype)
+            k, v = rnd((1, hk, skv, d), dtype), rnd((1, hk, skv, d), dtype)
+            qp = (base + torch.arange(sq, device=dev)).to(torch.int32)
+            kp = torch.cat([rpos, base + torch.arange(sq, device=dev)]).to(
+                torch.int32)
+            kv = torch.cat([rpos >= 0, torch.ones(sq, dtype=torch.bool,
+                                                  device=dev)]).to(
+                torch.int32)
+            out = TF.flash_attention_bhsd(q, k, v, qp, kp, kv)
+            ref = TR.flash_attention_ref(q, k, v, qp, kp, kv)
+            err = assert_close(f"flash_attention continuation Sq={sq} "
+                               f"Skv={skv}", out, ref, dtype)
+            check(bool(torch.isfinite(out).all()),
+                  f"flash continuation Sq={sq}: non-finite output")
+            splits, per = TF.flash_split(1, h, sq, skv)
+            empties[sq] = sum(int(kv[z * per:(z + 1) * per].sum()) == 0
+                              for z in range(splits))
+            print(f"[kernels] flash_attention continuation Sq={sq} "
+                  f"{str(dtype)[6:]}: bf16 plan {splits} key splits of "
+                  f"{per}, {empties[sq]} without a valid key")
+        check(empties[64] > 0, "the Sq=64 continuation must leave a bf16 "
+                               "key split without a valid key")
+        ms = bench(lambda: TF.flash_attention_bhsd(q, k, v, qp, kp, kv),
+                   flush)
+        plain = bench(lambda: TR.flash_attention_ref(q, k, v, qp, kp, kv),
+                      flush)
+        kr = k.repeat_interleave(g, 1).contiguous()
+        vr = v.repeat_interleave(g, 1).contiguous()
+        mask = (kv.bool()[None, :] & (kp[None, :] <= qp[:, None]))
+        sdpa = functools.partial(F.scaled_dot_product_attention, q, kr, vr,
+                                 attn_mask=mask)
+        lib = bench(sdpa, flush)
+        pairs = sq * base + sq * (sq + 1) // 2
+        nbytes = (2 * h * sq * d + 2 * hk * skv * d) * el \
+            + 4 * (sq + 2 * skv)
+        bnd, by = bound_ms(nbytes, 4 * pairs * h * d, dtype)
+        results[("flash_attention_cont", dtype)] = dict(
+            max_abs_err=err, ms=ms, plain_ms=plain, library_ms=lib,
+            bound_ms=bnd, bound_by=by,
+            device_ms=device_ms(lambda: TF.flash_attention_bhsd(
+                q, k, v, qp, kp, kv), flush),
+            library_device_ms=device_ms(sdpa, flush),
+            splits=splits_of(dtype, TF.flash_split(1, h, sq, skv)),
+            shape=f"B=1 H={h} Hkv={hk} Sq={sq} Skv={skv} pos_base={base} "
+            f"ring rows {base}..{ring - 1} invalid D={d}")
+
+        # -- paged prefill at the plan serve's mid-table chunks: S=48 at
+        #    offsets 48 and 96 and at 56 (a chunk starting mid-page) ------
+        b, nb, s = 1, 64, 48
+        bt = torch.randperm(nb, generator=gen, device=dev)[None].to(
+            torch.int32)
+        kp, vp = rnd((nb + 1, page, hk, d), dtype), \
+            rnd((nb + 1, page, hk, d), dtype)
+        q = rnd((b, hk, g, s, d), dtype)
+        for offset in (48, 56, 96):
+            out = TP.paged_prefill_attention_grouped(q, kp, vp, bt, offset)
+            ref = TR.paged_prefill_attention_ref(q, kp, vp, bt, offset)
+            e = assert_close(f"paged_prefill S={s} offset={offset}", out,
+                             ref, dtype)
+            if offset == 96:
+                err = e
+        ms = bench(lambda: TP.paged_prefill_attention_grouped(
+            q, kp, vp, bt, offset), flush)
+        plain = bench(lambda: TR.paged_prefill_attention_ref(
+            q, kp, vp, bt, offset), flush)
+        kg = kp[bt.long()].reshape(b, nb * page, hk, d).transpose(1, 2)
+        vg = vp[bt.long()].reshape(b, nb * page, hk, d).transpose(1, 2)
+        kg = kg.repeat_interleave(g, 1).contiguous()
+        vg = vg.repeat_interleave(g, 1).contiguous()
+        qs = q.reshape(b, h, s, d)
+        mask = (torch.arange(nb * page, device=dev)[None, :]
+                <= offset + torch.arange(s, device=dev)[:, None])
+        sdpa = functools.partial(F.scaled_dot_product_attention, qs, kg, vg,
+                                 attn_mask=mask)
+        lib = bench(sdpa, flush)
+        t = offset + s
+        pairs = s * offset + s * (s + 1) // 2
+        nbytes = (2 * hk * g * s * d + 2 * t * hk * d) * el \
+            + 4 * (-(-t // page))
+        bnd, by = bound_ms(nbytes, 4 * pairs * hk * g * d, dtype)
+        results[("paged_prefill_s48", dtype)] = dict(
+            max_abs_err=err, ms=ms, plain_ms=plain, library_ms=lib,
+            bound_ms=bnd, bound_by=by,
+            device_ms=device_ms(lambda: TP.paged_prefill_attention_grouped(
+                q, kp, vp, bt, offset), flush),
+            library_device_ms=device_ms(sdpa, flush),
+            splits=splits_of(dtype, TP.prefill_split(
+                b, hk, g, s, page, nb, offset)),
+            shape=f"B=1 Hkv={hk} G={g} S={s} offset={offset} (also 48, "
+            f"56) D={d} P={page} NB={nb}")
         print_rows(results, dtype, ("fused_paged_decode", "paged_prefill",
-                                    "paged_prefill_s600", "flash_attention"))
+                                    "paged_prefill_s600", "flash_attention",
+                                    "flash_attention_cont",
+                                    "paged_prefill_s48"))
     return results
 
 
@@ -1180,6 +1302,146 @@ def watch_engine(eng, model, max_seq):
     return finite, gaps
 
 
+def watch_plan_engine(eng):
+    """Wrap a plan engine's replica steps and prefill finish so that every
+    logit they produce is checked for finiteness (the same stage walk,
+    with the logits kept)."""
+    from repro_torch.plan.serving import stage_walk
+    rt, model, plan = eng._rt, eng.model, eng.plan.plan
+    finite = []
+
+    def decode(params, cache, tokens, positions, block_tables=None):
+        logits = stage_walk(model, plan, params, cache, tokens, positions,
+                            block_tables)
+        finite.append(torch.isfinite(logits).all())
+        return logits[:, -1].argmax(-1).to(torch.int32)[:, None], cache
+
+    def verify(params, cache, tokens, positions, block_tables=None):
+        logits = stage_walk(model, plan, params, cache, tokens, positions,
+                            block_tables)
+        finite.append(torch.isfinite(logits).all())
+        return logits.argmax(-1).to(torch.int32), cache
+
+    finish = rt.finish
+
+    def checked_finish(params, hidden):
+        nxt, logits = finish(params, hidden)
+        finite.append(torch.isfinite(logits).all())
+        return nxt, logits
+
+    rt.decode_step, rt.verify_step, rt.finish = decode, verify, \
+        checked_finish
+    return finite
+
+
+def run_plan_engine(label, model, params, sched, splan, path, max_seq,
+                    **kw):
+    """One plan-driven engine over ``sched``, the launch counters of the
+    kernels in ``path`` zeroed just before and read just after; each must
+    have launched, and every logit must be finite.  Returns (engine,
+    {uid: Request}, launches)."""
+    from repro_torch.serving import Request, ServingEngine
+    eng = ServingEngine(model, params, slots=splan.slots, max_seq=max_seq,
+                        plan=splan, **kw)
+    finite = watch_plan_engine(eng)
+    for fn in path.values():
+        fn.launches = 0
+    got = run_schedule(eng, sched, Request)
+    torch.cuda.synchronize()
+    launches = {name: fn.launches for name, fn in path.items()}
+    print(f"[plan] {label}: {len(got)} requests, chunks per admission "
+          f"{eng.prefill_chunk_counts}, launches {json.dumps(launches)}")
+    check(bool(torch.stack(finite).all()), f"{label}: non-finite logits")
+    check(all(n > 0 for n in launches.values()),
+          f"{label}: a kernel of the path never launched: {launches}")
+    return eng, got, launches
+
+
+def plan_parity_phase(dev, kernels):
+    """Phase 4, plans: f32 yi-6b at full width, 2 layers, through
+    ``uniform_plan(2, 2, n_microbatches=2)`` lowered for 4 slots and chunk
+    16 (2 stages, 2 decode replicas): the dense and the paged engine must
+    give the one-shot gold's streams (chunks of 16, 14, 2 and 1 tokens;
+    dense continuations through flash with unwritten ring rows masked,
+    paged chunks at mid-table offsets); paged int8 pools with speculate=4
+    must give the monolithic int8 engine's streams without speculation,
+    on a schedule whose streams make the drafter propose."""
+    from repro_torch.configs import REGISTRY
+    from repro_torch.models import build_model
+    from repro_torch.plan import lower_serving, uniform_plan
+    from repro_torch.serving import Request, ServingEngine
+    cfg = dataclasses.replace(REGISTRY["yi-6b"], num_layers=2,
+                              dtype="float32", param_dtype="float32")
+    model = build_model(cfg, device=dev)
+    params = model.init(torch.Generator(device=dev).manual_seed(1))
+    splan = lower_serving(uniform_plan(cfg.num_groups, 2, n_microbatches=2),
+                          slots=4, chunk=16)
+    print(f"[plan] {splan.describe()}")
+    rng = np.random.default_rng(3)
+    v = cfg.vocab_size
+
+    def toks(n):
+        return rng.integers(1, v, n).astype(np.int32)
+
+    prefix = toks(64)
+    sched = [(np.concatenate([prefix, toks(16)]), 4, 0),
+             (toks(50), 10, 0), (toks(120), 8, 0), (toks(33), 12, 1),
+             (np.concatenate([prefix, toks(30)]), 10, 3),   # warm prefix
+             (toks(70), 9, 5)]
+    max_seq = 256
+    golds, gaps = {}, {}
+    for uid, (prompt, max_new, _) in enumerate(sched):
+        golds[uid], lgs = gold_decode(model, params, prompt, max_new,
+                                      max_seq)
+        gaps[uid] = [top2_gap(x) for x in lgs]
+    launches = {}
+    _, got, launches["dense"] = run_plan_engine(
+        "dense fp", model, params, sched, splan,
+        {"flash_attention": kernels["flash_attention"]}, max_seq)
+    compare_streams("plan dense fp vs one-shot gold", got, golds, gaps)
+    eng, got, launches["paged"] = run_plan_engine(
+        "paged fp", model, params, sched, splan,
+        {k: kernels[k] for k in ("fused_paged_decode", "paged_prefill")},
+        max_seq, paged=True, page_size=16)
+    compare_streams("plan paged fp vs one-shot gold", got, golds, gaps)
+    st = eng.cache_stats()
+    check(st["prefill_compute_hits"] >= 1
+          and st["reused_prefill_tokens"] >= 64,
+          "plan paged: the warm admission did not reuse the prefix")
+
+    # speculation: redraw the prompts' last 8 tokens (as phase 4 does)
+    # until the monolithic int8 streams make the drafter propose
+    base = sched
+    for attempt in range(16):
+        redraw = np.random.default_rng(200 + attempt)
+        sched = [(np.concatenate([p[:-8], redraw.integers(1, v, 8)]).astype(
+            np.int32), m + 8, t) for p, m, t in base]
+        eng = ServingEngine(model, params, slots=4, max_seq=max_seq,
+                            paged=True, page_size=16, kv_dtype="int8")
+        ref = {u: r.out_tokens
+               for u, r in run_schedule(eng, sched, Request).items()}
+        if would_draft(sched, ref):
+            break
+    else:
+        check(False, "no schedule variant makes the drafter propose")
+    eng, got, launches["int8_spec"] = run_plan_engine(
+        "paged int8 speculate=4", model, params, sched, splan,
+        {"fused_paged_decode": kernels["fused_paged_decode"],
+         "paged_prefill": kernels["paged_prefill"],
+         "paged_verify": kernels["paged_verify"]},
+        max_seq, paged=True, page_size=16, kv_dtype="int8", speculate=4)
+    compare_streams("plan paged int8 speculate=4 vs monolithic int8 "
+                    "speculate=0", got, ref, {})
+    spec = {k: eng.stats()[k] for k in ("spec_steps", "spec_proposed",
+                                        "spec_accepted", "tokens_per_step")}
+    print(f"[plan] paged int8 speculate=4 (variant {attempt}): "
+          f"{json.dumps(spec)}")
+    check(spec["spec_steps"] > 0, "plan int8 speculate=4: nothing verified")
+    del eng, params
+    torch.cuda.empty_cache()
+    return dict(launches=launches, spec=spec)
+
+
 def would_draft(sched, streams, k=4):
     """True when, replaying ``streams`` ({uid: tokens}) token by token,
     the drafter would propose for some request at some decode tick with a
@@ -1315,7 +1577,7 @@ LOGIT_TOL = 1e-3
 # sequence) through 8 layers of width 8192; logits are of order 1-10.
 
 
-def hybrid_parity_phase(dev):
+def hybrid_parity_phase(dev, kernels):
     """Phase 4, the hybrid: jamba-dense-ffn at full width cut to one
     period (8 layers: 7 mamba, 1 attention), f32.  A staggered schedule
     (one request sharing a 64-token prefix with an earlier one) through
@@ -1323,9 +1585,13 @@ def hybrid_parity_phase(dev):
     the warm admission must share the prefix's blocks without reusing
     their compute; a paged prefill + unfused decode must give the logits
     of ``Model.forward`` on the same tokens; and int8 pools must give the
-    fp run's first tokens."""
+    fp run's first tokens.  Then the same schedule through a 1-stage plan
+    with 2 decode replicas and chunk 16 on the paged engine (chunked mamba:
+    the selective scan from the state the previous chunk left; the unfused
+    decode per replica) must give the gold's streams too."""
     from repro_torch.configs import REGISTRY
     from repro_torch.models import build_model
+    from repro_torch.plan import lower_serving, uniform_plan
     from repro_torch.serving import Request, ServingEngine
     cfg = dataclasses.replace(REGISTRY[HYBRID], num_layers=8,
                               dtype="float32", param_dtype="float32")
@@ -1385,6 +1651,17 @@ def hybrid_parity_phase(dev):
                   "hybrid warm prefix: blocks must be shared without "
                   "compute reuse")
 
+    splan = lower_serving(uniform_plan(cfg.num_groups, 1, n_microbatches=2),
+                          slots=4, chunk=16)
+    print(f"[plan] hybrid: {splan.describe()}")
+    _, got, plan_launches = run_plan_engine(
+        "hybrid paged fp", model, params, sched, splan,
+        {k: kernels[k] for k in ("mamba_scan_fused", "linear_scan",
+                                 "paged_attention", "paged_prefill")},
+        max_seq, paged=True, page_size=16)
+    compare_streams("hybrid plan paged fp vs one-shot gold", got, golds,
+                    gaps)
+
     # paged prefill + unfused decode against the full forward
     prompt, new = sched[2][0], 4
     nb = max_seq // 16
@@ -1417,7 +1694,8 @@ def hybrid_parity_phase(dev):
     torch.cuda.empty_cache()
     return dict(logit_rel_err=worst,
                 int8_equal_fp_gold=sum(streams["paged int8"][u] == golds[u]
-                                       for u in golds))
+                                       for u in golds),
+                plan_launches=plan_launches)
 
 
 def serve_prompts(cfg, seed, repeat_segment):
@@ -1442,12 +1720,16 @@ def serve_prompts(cfg, seed, repeat_segment):
 
 def serve_run(label, model, params, prompts, kernels, new=64, **engine_kw):
     """Serve ``prompts`` at full size, the kernels' launch counters set to
-    0 just before and read just after.  Returns (engine, results)."""
+    0 just before and read just after, and the peak device memory over
+    the serve.  Returns (engine, results)."""
     from repro_torch.serving import Request, ServingEngine
     max_seq = 1024
     eng = ServingEngine(model, params, slots=4, max_seq=max_seq, paged=True,
                         page_size=16, **engine_kw)
-    finite, _ = watch_engine(eng, model, max_seq)
+    if eng.plan is not None:
+        finite = watch_plan_engine(eng)
+    else:
+        finite, _ = watch_engine(eng, model, max_seq)
     draft_s = [0.0]                     # host time of prompt-lookup drafting
     if eng._spec_k:
         draft_all = eng._draft_all
@@ -1460,16 +1742,24 @@ def serve_run(label, model, params, prompts, kernels, new=64, **engine_kw):
         eng._draft_all = timed_draft_all
     for fn in kernels.values():
         fn.launches = 0
+    # the watch wrappers make engine <-> closure cycles: collect them, so
+    # that no earlier phase's weights stay allocated into this peak
+    gc.collect()
+    torch.cuda.empty_cache()
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     for uid, p in enumerate(prompts):
         eng.submit(Request(uid, p, new))
     done = {r.uid: r for r in eng.run()}
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 1e9
     launches = {name: fn.launches for name, fn in kernels.items()}
     st = eng.stats()
     ttft = sorted(st["ttft_s"])
+    # the first wave: the requests admitted into the 4 empty slots
+    wave = sorted(done[u].t_first - done[u].t_submit for u in range(4))
     tick = st["phase_time_s"]["decode"] / max(st["decode_steps"], 1)
     print(f"[serve] {label}: {len(done)} requests, {st['gen_tokens']} "
           f"tokens in {wall:.3f} s: {st['gen_tokens'] / wall:.2f} tok/s; "
@@ -1483,6 +1773,10 @@ def serve_run(label, model, params, prompts, kernels, new=64, **engine_kw):
           f"kv_capacity_x {st['cache']['kv_capacity_x']:.4f}; drafting "
           f"{draft_s[0]:.4f} s of host time")
     print(f"[serve] {label}: phase_time_s {json.dumps(st['phase_time_s'])}")
+    print(f"[serve] {label}: prefill phase "
+          f"{st['phase_time_s']['prefill']:.4f} s; first-wave TTFT "
+          f"{json.dumps([round(t, 4) for t in wave])} s; peak device memory "
+          f"{peak:.3f} GB")
     print(f"[serve] {label}: launches on the path: {json.dumps(launches)}")
     check(len(done) == len(prompts)
           and all(len(done[u].out_tokens) == new for u in done),
@@ -1492,7 +1786,9 @@ def serve_run(label, model, params, prompts, kernels, new=64, **engine_kw):
           f"{label}: a kernel of the path never launched: {launches}")
     return eng, dict(
         launches=launches, tok_s=st["gen_tokens"] / wall, wall_s=wall,
-        ttft_s=ttft, phase_time_s=st["phase_time_s"], tick_s=tick,
+        ttft_s=ttft, first_wave_ttft_s=wave, peak_memory_gb=peak,
+        phase_time_s=st["phase_time_s"], tick_s=tick,
+        prefill_chunk_counts=eng.prefill_chunk_counts,
         draft_s=draft_s[0],
         decode_steps=st["decode_steps"], cache=st["cache"],
         spec={k: st[k] for k in ("spec_steps", "spec_proposed",
@@ -1542,6 +1838,35 @@ def serve_phase(dev, kernels):
     del eng
     torch.cuda.empty_cache()
 
+    # serve-plan: the same model, requests and engine under the launcher's
+    # --strategy hybrid:2 --replicas 2 --chunk 128 (stages and replicas
+    # share the card)
+    from repro_torch.launch.serve import _build_serving_plan
+    splan = _build_serving_plan(cfg, "hybrid:2", 4, 2, 128, 1024)
+    print(f"[serve] plan hybrid:2:\n{splan.describe()}")
+    eng, pl = serve_run("plan hybrid:2 paged", model, params, prompts,
+                        {k: kernels[k] for k in ("fused_paged_decode",
+                                                 "paged_prefill")},
+                        plan=splan)
+    pl["plan"] = splan.describe()
+    pl["profile"] = profile_decode(eng, prompts[4:], Request)
+    for key, unit in (("tok_s", ""), ("tick_s", " s"), ("peak_memory_gb",
+                                                         " GB")):
+        print(f"[serve] serve-plan vs serve-full, {key}: {pl[key]:.4f} vs "
+              f"{fp[key]:.4f}{unit}")
+    print(f"[serve] serve-plan vs serve-full, TTFT p50/max: "
+          f"{pl['ttft_s'][len(pl['ttft_s']) // 2]:.4f}/{pl['ttft_s'][-1]:.4f}"
+          f" vs {fp['ttft_s'][len(fp['ttft_s']) // 2]:.4f}/"
+          f"{fp['ttft_s'][-1]:.4f} s; prefill phase "
+          f"{pl['phase_time_s']['prefill']:.4f} vs "
+          f"{fp['phase_time_s']['prefill']:.4f} s; device ms per decode "
+          f"tick {pl['profile']['per_tick_ms']['gemm']:.4f} (gemm) of "
+          f"{sum(pl['profile']['per_tick_ms'].values()):.4f} vs "
+          f"{fp['profile']['per_tick_ms']['gemm']:.4f} of "
+          f"{sum(fp['profile']['per_tick_ms'].values()):.4f}")
+    del eng
+    torch.cuda.empty_cache()
+
     int8_kernels = {"fused_paged_decode_int8": kernels["fused_paged_decode"],
                     "paged_prefill_int8": kernels["paged_prefill"],
                     "paged_verify": kernels["paged_verify"]}
@@ -1549,7 +1874,7 @@ def serve_phase(dev, kernels):
     eng, q8 = serve_run("int8 speculate=4", model, params, prompts,
                         int8_kernels, kv_dtype="int8", speculate=4)
     q8["profile"] = profile_decode(eng, prompts[4:], Request)
-    return dict(fp=fp, int8_spec=q8,
+    return dict(fp=fp, int8_spec=q8, plan=pl,
                 launches={**fp["launches"], **q8["launches"]})
 
 
@@ -1572,7 +1897,6 @@ def serve_hybrid_phase(dev, kernels):
           f"{nparam * 2 / 1e9:.1f} GB, init {time.perf_counter() - t0:.1f} s")
     for fn in kernels.values():
         fn.launches = 0
-    torch.cuda.reset_peak_memory_stats()
     path = {k: kernels[k] for k in ("paged_attention", "linear_scan",
                                     "mamba_scan_fused", "paged_prefill")}
     prompts = serve_prompts(cfg, 0, repeat_segment=False)
@@ -1580,9 +1904,6 @@ def serve_hybrid_phase(dev, kernels):
     check(eng.prefill_bucket == 1 and not eng._suffix_reuse
           and eng._spec_k == 0, "the hybrid engine must prefill at the "
           "exact length, without compute reuse or speculation")
-    hy["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
-    print(f"[serve] hybrid paged: peak device memory "
-          f"{hy['peak_memory_gb']:.1f} GB")
     hy["profile"] = profile_decode(eng, prompts[4:], Request)
     return hy
 
@@ -1716,10 +2037,6 @@ def main():
         del flush
         torch.cuda.empty_cache()
         print(f"[kernels] phase {time.perf_counter() - t0:.1f} s")
-        t0 = time.perf_counter()
-        parity = parity_phase(dev)
-        parity["hybrid"] = hybrid_parity_phase(dev)
-        print(f"[parity] phase {time.perf_counter() - t0:.1f} s")
         kernels = {"fused_paged_decode": fused_paged_decode_grouped,
                    "paged_attention": paged_attention_grouped,
                    "paged_prefill": paged_prefill_attention_grouped,
@@ -1729,6 +2046,11 @@ def main():
                    "mamba_scan_fused": mamba_scan_fused,
                    "matmul_fused": matmul_fused,
                    "norm_onepass": norm_onepass}
+        t0 = time.perf_counter()
+        parity = parity_phase(dev)
+        parity["plan"] = plan_parity_phase(dev, kernels)
+        parity["hybrid"] = hybrid_parity_phase(dev, kernels)
+        print(f"[parity] phase {time.perf_counter() - t0:.1f} s")
         t0 = time.perf_counter()
         served = serve_phase(dev, kernels)
         served["front_door_launches"] = front_door_counts()
@@ -1762,6 +2084,9 @@ def main():
                             "src/repro/backend/dispatch.py:232"),
         "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
                             "src/repro/kernels/flash_attention.py:85"),
+        "flash_attention_cont": ("src/repro_torch/csrc/flash_attention.cu",
+                                 "src/repro/kernels/flash_attention.py:85"),
+        "paged_prefill_s48": prefill,
         "paged_attention": ("src/repro_torch/csrc/paged_attention.cu",
                             "src/repro/kernels/paged_attention.py:394"),
         "linear_scan": ("src/repro_torch/csrc/linear_scan.cu",
@@ -1798,7 +2123,14 @@ def main():
                     served["launches"]["paged_prefill_int8"],
                 # one wrapper and kernel for both pool kinds; only
                 # serve-int8-spec speculates (on int8 pools)
-                "paged_verify_fp": served["launches"]["paged_verify"]}
+                "paged_verify_fp": served["launches"]["paged_verify"],
+                # this slice's paths: the dense plan parity run (flash at
+                # every chunk, the continuations among them) and
+                # serve-plan (chunked paged prefill)
+                "flash_attention_cont":
+                    parity["plan"]["launches"]["dense"]["flash_attention"],
+                "paged_prefill_s48":
+                    served["plan"]["launches"]["paged_prefill"]}
     line = []
     for name, (src, tpu) in meta.items():
         r = results.get((name, torch.bfloat16),

@@ -1,5 +1,6 @@
 """Serving launcher of the port: batched greedy inference through the
-monolithic continuous-batching engine, on the GPU by default.
+continuous-batching engine, monolithic or plan-driven, on the GPU by
+default.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --paged
     PYTHONPATH=src python -m repro_torch.launch.serve --paged \\
@@ -8,6 +9,10 @@ monolithic continuous-batching engine, on the GPU by default.
         --requests 4 --new-tokens 8
     PYTHONPATH=src python -m repro_torch.launch.serve \\
         --arch jamba-1.5-large-398b-dense-ffn --layers 16 --paged
+    PYTHONPATH=src python -m repro_torch.launch.serve --paged \\
+        --strategy hybrid:2 --replicas 2 --chunk 128 --max-seq 1024
+    PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \\
+        --layers 4 --paged --strategy pipeline:2 --replicas 2 --chunk 4
 
 The model is the registry config at its published width (yi-6b: d_model
 4096, 32 heads, 4 KV heads, head_dim 128; the jamba hybrid with dense
@@ -24,6 +29,16 @@ with per-row scales; ``--speculate K`` drafts up to K tokens per slot by
 prompt lookup and verifies them in one batched step (``--no-speculate``
 forces it off).  ``--device cpu`` runs the plain PyTorch versions instead
 of the CUDA kernels.
+
+Plan-driven serving, as the JAX launcher's: ``--strategy pipeline:S``
+serves a uniform S-stage cut, ``--strategy hybrid:N`` the SSR search's
+N-accelerator plan (``_build_serving_plan``: the evolutionary search over
+8 chips of the cost model's default chip, with the same arguments and
+seed as the JAX launcher, so both lower the same plan for the same
+config).  The plan's stages then run the chunked prefill (``--chunk``
+tokens a chunk, one stage-step a tick) and ``--replicas`` slot-partitioned
+decode replicas walk them; on one card every stage and replica shares the
+device.  ``--adapt`` (live re-planning) is not ported yet and raises.
 """
 from __future__ import annotations
 
@@ -34,9 +49,49 @@ import time
 import numpy as np
 import torch
 
-from repro_torch.configs import REGISTRY
+from repro_torch.configs import REGISTRY, ShapeConfig
 from repro_torch.models import build_model
 from repro_torch.serving import Request, ServingEngine
+
+
+def _parse_strategy(strategy: str):
+    """'pipeline:S' / 'hybrid:N' -> (kind, n); a usage error otherwise."""
+    kind, _, n = strategy.partition(":")
+    if kind in ("pipeline", "hybrid") and n.isdigit() and int(n) >= 1:
+        return kind, int(n)
+    raise SystemExit(f"bad --strategy {strategy!r} "
+                     f"(mono | pipeline:S | hybrid:N)")
+
+
+def _build_serving_plan(cfg, strategy: str, slots: int, replicas: int,
+                        chunk: int, max_seq: int):
+    """Lower the requested strategy to a ServingPlan (None = monolithic),
+    exactly as the JAX launcher does."""
+    from repro_torch.plan import lower, lower_serving, uniform_plan
+
+    if strategy in ("mono", "sequential"):
+        return None
+    reps = replicas or min(2, slots)
+    kind, n = _parse_strategy(strategy)
+    if kind == "pipeline":
+        plan = uniform_plan(cfg.num_groups, n, n_microbatches=reps)
+    else:
+        from repro_torch.core import build_graph, evolutionary_search, \
+            ssr_dse
+        from repro_torch.core.assignment import contiguous_assignment
+        n_acc = n
+        g = build_graph(cfg, ShapeConfig("serve", max_seq, 8, "prefill"))
+        res = evolutionary_search(g, 8, n_acc=n_acc, n_batches=2, n_pop=6,
+                                  n_child=6, n_iter=3, seed=0)
+        plan = lower(res.assignment, g, mesh_devices=8, n_microbatches=reps)
+        if plan.n_stages < n_acc:
+            # the EA legitimately collapses uniform stacks onto sequential;
+            # serve the N-stage cut through the same customization pass
+            _, _, assign = ssr_dse(
+                g, contiguous_assignment(g, n_acc, 8).acc_of, 8,
+                n_batches=n_acc)
+            plan = lower(assign, g, mesh_devices=8, n_microbatches=reps)
+    return lower_serving(plan, slots=slots, chunk=chunk)
 
 
 def main(argv=None):
@@ -50,6 +105,16 @@ def main(argv=None):
     ap.add_argument("--max-seq", type=int, default=128)
     ap.add_argument("--eos", type=int, default=-1,
                     help="retire a slot on this token id (-1: disabled)")
+    ap.add_argument("--strategy", default="mono",
+                    help="mono | pipeline:S | hybrid:N (plan-driven)")
+    ap.add_argument("--replicas", type=int, default=0,
+                    help="spatial decode replicas for plan-driven serving "
+                         "(0: min(2, slots))")
+    ap.add_argument("--chunk", type=int, default=8,
+                    help="prefill chunk length for plan-driven serving")
+    ap.add_argument("--adapt", action=argparse.BooleanOptionalAction,
+                    default=False,
+                    help="live re-planning: not ported yet (raises)")
     ap.add_argument("--paged", action="store_true",
                     help="pool-backed slot caches with prefix sharing")
     ap.add_argument("--page-size", type=int, default=16,
@@ -82,6 +147,9 @@ def main(argv=None):
     if args.prefix_cache and not args.paged:
         raise SystemExit("--prefix-cache requires --paged: prefix blocks "
                          "live in the paged block pool")
+    if args.adapt:
+        raise NotImplementedError(
+            "--adapt (live re-planning) is not ported yet")
     if args.device.startswith("cuda") and not torch.cuda.is_available():
         raise SystemExit("no CUDA device: pass --device cpu to run the "
                          "plain PyTorch versions")
@@ -94,11 +162,15 @@ def main(argv=None):
                          f"{len(cfg.block_pattern)} layers")
     if args.layers:
         cfg = dataclasses.replace(cfg, num_layers=args.layers)
+    splan = _build_serving_plan(cfg, args.strategy, args.slots,
+                                args.replicas, args.chunk, args.max_seq)
+    if splan is not None:
+        print(splan.describe())
     model = build_model(cfg, device=args.device)
     gen = torch.Generator(device=args.device).manual_seed(0)
     params = model.init(gen)
     eng = ServingEngine(model, params, slots=args.slots,
-                        max_seq=args.max_seq, paged=args.paged,
+                        max_seq=args.max_seq, plan=splan, paged=args.paged,
                         page_size=args.page_size, num_blocks=args.num_blocks,
                         prefix_cache=prefix_cache, speculate=args.speculate,
                         kv_dtype=args.kv_dtype)
@@ -114,6 +186,10 @@ def main(argv=None):
     wall = time.perf_counter() - t0
     st = eng.stats()
     extra = ""
+    if "plan_stages" in st:
+        extra = (f", {st['plan_stages']} stages x "
+                 f"{st['decode_replicas']} replicas (chunk "
+                 f"{st['prefill_chunk']})")
     c = st["cache"]
     if c["layout"] == "paged":
         extra += (f", paged p{c['page_size']}: "

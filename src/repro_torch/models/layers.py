@@ -191,14 +191,16 @@ def _scale_kw(cache):
 
 def multi_head_attention(p, x, cfg: ModelConfig, *, kv_cache=None,
                          cache_index=None, block_tables=None,
-                         write_tables=None):
+                         write_tables=None, attend_cache: bool = False):
     """GQA attention with RoPE over an optional KV cache.
 
     Modes (as on the JAX side):
       * no cache: full causal attention over x;
       * dense cache ``{"k", "v"}: (B, W, Hkv, D)``, scalar ``cache_index``:
-        prefill (x longer than one token, the tail written to the ring) or
-        lock-step decode (write, then attend the ring);
+        prefill (x longer than one token, the tail written to the ring;
+        with ``attend_cache`` a chunked-prefill continuation, whose
+        queries also attend the ``cache_index`` tokens already in the
+        ring) or lock-step decode (write, then attend the ring);
       * dense cache, (B,) ``cache_index``: per-slot decode, each slot at its
         own position;
       * paged cache ``{"k_pages", "v_pages"}: (N, P, Hkv, D)`` (int8
@@ -310,10 +312,29 @@ def multi_head_attention(p, x, cfg: ModelConfig, *, kv_cache=None,
         kc, vc = kv_cache["k"], kv_cache["v"]
         W = kc.shape[1]
         if s > 1 and not per_slot:
-            # prefill: attend the fresh k/v, write the tail into the ring
-            out = _attend(q, k, v, cfg, q_pos=q_pos,
-                          k_pos=torch.arange(s, device=dev), k_valid=None,
-                          causal=True, window=0, dt=dt)
+            if attend_cache:
+                # chunked-prefill continuation: the chunk's queries attend
+                # the ring's rows at their absolute positions (rows not
+                # yet written masked by k_valid) and the fresh k/v; the
+                # ring is position-ordered, so the valid keys sum in the
+                # one-shot prefill's order
+                k_pos_old, k_valid_old = ring_k_positions(
+                    torch.tensor(offset - 1, device=dev), W)
+                out = _attend(
+                    q, torch.cat([kc.to(dt), k], dim=1),
+                    torch.cat([vc.to(dt), v], dim=1), cfg, q_pos=q_pos,
+                    k_pos=torch.cat([k_pos_old,
+                                     offset + torch.arange(s, device=dev)]),
+                    k_valid=torch.cat([k_valid_old,
+                                       torch.ones((s,), dtype=torch.bool,
+                                                  device=dev)]),
+                    causal=True, window=0, dt=dt)
+            else:
+                # prefill: attend the fresh k/v
+                out = _attend(q, k, v, cfg, q_pos=q_pos,
+                              k_pos=torch.arange(s, device=dev),
+                              k_valid=None, causal=True, window=0, dt=dt)
+            # write the tail into the ring
             tail = min(s, W)
             slots = (offset + torch.arange(s - tail, s, device=dev)) % W
             kc[:, slots] = k[:, s - tail:].to(kc.dtype)

@@ -60,9 +60,10 @@ def init_block(generator, cfg: ModelConfig, blk: BlockSpec, device):
 
 
 def apply_block(p, x, cfg: ModelConfig, blk: BlockSpec, *, state=None,
-                cache_index=None, block_tables=None, write_tables=None):
+                cache_index=None, block_tables=None, write_tables=None,
+                attend_cache: bool = False):
     """Returns (x, state) -- ``state`` is the block's cache, written in
-    place (None without a cache)."""
+    place (None without a cache).  ``attend_cache``: see ``run_stack``."""
     h = L.apply_norm(p["norm1"], x, cfg)
     if blk.mixer == "mamba":
         st = state["ssm_state"] if state else None
@@ -74,7 +75,7 @@ def apply_block(p, x, cfg: ModelConfig, blk: BlockSpec, *, state=None,
         h, _ = L.multi_head_attention(
             p["mixer"], h, cfg, kv_cache=state.get("kv") if state else None,
             cache_index=cache_index, block_tables=block_tables,
-            write_tables=write_tables)
+            write_tables=write_tables, attend_cache=attend_cache)
     x = x + h
     h = L.apply_norm(p["norm2"], x, cfg)
     x = x + L.apply_mlp(p["ffn"], h, cfg)
@@ -91,8 +92,16 @@ def group_view(cache, g: int):
 
 def run_stack(stack_params: List[Dict[str, Any]], x, cfg: ModelConfig, *,
               cache=None, cache_index=None, block_tables=None,
-              write_tables=None):
-    """Run every group of the stack in order.  Returns (x, cache)."""
+              write_tables=None, attend_cache: bool = False):
+    """Run every group of ``stack_params`` in order against the cache
+    leaves' matching group entries (a plan stage passes its group slice of
+    both).  Returns (x, cache).
+
+    attend_cache: chunked-prefill continuation -- attention blocks attend
+    the tokens already in a dense ``cache`` (scalar ``cache_index`` = their
+    count) beside the fresh chunk; recurrent blocks continue from the
+    cached state either way, and a paged prefill always attends every
+    mapped page."""
     for g, gp in enumerate(stack_params):
         gc = group_view(cache, g) if cache is not None else None
         for j, blk in enumerate(cfg.block_pattern):
@@ -100,7 +109,7 @@ def run_stack(stack_params: List[Dict[str, Any]], x, cfg: ModelConfig, *,
                 gp[f"b{j}"], x, cfg, blk,
                 state=gc[f"b{j}"] if gc is not None else None,
                 cache_index=cache_index, block_tables=block_tables,
-                write_tables=write_tables)
+                write_tables=write_tables, attend_cache=attend_cache)
     return x, cache
 
 
@@ -248,6 +257,36 @@ def merge_prefill_view(full_cache, new_view, slot: int):
     dense = {bk: v for bk, v in new_view.items()
              if not _block_is_paged(full_cache[bk])}
     return scatter_cache_slot(full_cache, dense, slot)
+
+
+def slice_cache_groups(cache, first_group: int, n_groups: int):
+    """A plan stage's view of a cache: every leaf's group range
+    [first_group, first_group + n_groups) on the leading axis, dense and
+    paged leaves alike.  Views, not copies: the stage's writes land in
+    ``cache``.
+
+    The JAX package also needs ``merge_cache_groups``,
+    ``concat_cache_groups`` and ``rebind_pool_leaves`` (and its engine
+    ``_share_pool``) because its steps return fresh, donated buffers that
+    must be stitched back and re-aliased across replicas; the port writes
+    in place, so a stage's or a replica's writes are already in the one
+    cache and none of those exist here."""
+    return {bk: {key: {n: t[first_group:first_group + n_groups]
+                       for n, t in leaf.items()}
+                 for key, leaf in sub.items()}
+            for bk, sub in cache.items()}
+
+
+def slice_cache_slots(cache, first: int, n: int):
+    """A decode replica's view of a cache: dense leaves' slot range
+    [first, first + n) on axis 1; paged pool leaves pass through whole (a
+    slot's paged state is its block-table row, and every replica fronts
+    the one pool).  Views, not copies."""
+    return {bk: (sub if _block_is_paged(sub)
+                 else {key: {nm: t[:, first:first + n]
+                             for nm, t in leaf.items()}
+                       for key, leaf in sub.items()})
+            for bk, sub in cache.items()}
 
 
 def copy_cache_pages(full_cache, src: int, dst: int):

@@ -1,6 +1,6 @@
-"""Serving engine of the port: per-slot continuous batching, monolithic and
-synchronous, over a dense or a paged KV cache, with int8 paged pools and
-prompt-lookup speculative decoding.
+"""Serving engine of the port: per-slot continuous batching, synchronous,
+over a dense or a paged KV cache, with int8 paged pools, prompt-lookup
+speculative decoding, and plan-driven serving.
 
 It serves the dense GQA decoders and the attention + mamba hybrid (jamba
 with dense FFNs): a hybrid's mamba state is dense per slot beside the
@@ -8,10 +8,10 @@ paged attention pools, its prompts prefill at their exact length, and a
 warm prefix shares its blocks' memory but is prefilled in full
 (speculation is off for it, as in JAX).
 
-The counterpart of the JAX package's ``serving/engine.py`` without plans,
-the overlapped runtime, adaptive re-planning and tracing (the constructor
-raises on each of them).  The engine owns a
-slot-indexed cache for its whole lifetime.  Admission prefills one request
+The counterpart of the JAX package's ``serving/engine.py`` without the
+overlapped runtime, adaptive re-planning and tracing (the constructor
+raises NotImplementedError for ``overlap``, ``adapt`` and ``trace``).  The
+engine owns a slot-indexed cache for its whole lifetime.  Admission prefills one request
 (batch 1) into a free slot: on a dense cache through ``prefill_into_slot``
 (flash attention, then a slot scatter), on a paged cache through
 ``prefill_suffix_paged`` (only the suffix a warm prefix leaves, written
@@ -25,10 +25,23 @@ model agrees with, and rolls the rejected tail back.  With
 ``kv_dtype="int8"`` the paged pools hold int8 rows with per-row f32
 scales.  A retiring slot never interrupts the others.
 
-Guarantee (held by ``tests/test_torch_serving.py``): each request's token
-stream equals the JAX engine's stream for it and, on fp caches, an
-isolated one-shot greedy decode of that request, with or without
-speculation.  int8 pools change the numbers the decode sees, so their
+**Plan-driven mode** (``plan=lower_serving(execution_plan, slots,
+chunk)``, ``repro_torch.plan.serving``): admission becomes a chunked
+prefill -- the prompt is cut into ``chunk``-token pieces that stream
+through the plan's stage slices, one stage-step a tick, between decode
+steps -- and the plan's spatial width becomes N decode replicas, each
+owning a contiguous range of the slots and walking the stage slices per
+decode step.  On one card the stages and replicas share the device,
+time-multiplexed.  The replicas' caches are views of the engine's one
+cache (``T.slice_cache_slots``: dense leaves sliced on the slot axis,
+the paged pools whole), and the pager is engine-wide, so every write of a
+replica's step lands in ``self._cache`` and blocks are shared across
+replicas.
+
+Guarantee (held by ``tests/test_torch_serving.py`` and, for plans,
+``tests/test_torch_plan_serving.py``): each request's token stream equals
+the JAX engine's stream for it and, on fp caches, an isolated one-shot
+greedy decode of that request, with or without speculation or a plan.  int8 pools change the numbers the decode sees, so their
 streams are held to the JAX engine's int8 streams.
 
 The cache is updated in place: the steps return the same cache object.
@@ -46,6 +59,7 @@ from repro_torch.backend import dispatch
 from repro_torch.cache import ConcurrentPeakTracker, PagedCacheManager
 from repro_torch.models import transformer as T
 from repro_torch.models.model import Model
+from repro_torch.plan.serving import PlanRuntime, PrefillPipeline
 
 
 def make_serve_step(model: Model):
@@ -143,7 +157,13 @@ class ServingEngine:
     prefill_bucket: admitted prompts are right-padded to the next multiple
     of this (exact under causal attention: pad tokens sit after every real
     token and their rows are overwritten before any mask admits them).
-    Forced to 1 (exact-length prefill) when any mixer is recurrent.
+    Forced to 1 (exact-length prefill) when any mixer is recurrent, and in
+    plan mode (chunks run at exact lengths).
+
+    plan: a ``repro_torch.plan.ServingPlan`` (``lower_serving``) -- run
+    plan-driven: chunked prefill through the plan's stages and
+    slot-partitioned decode replicas.  Its ``slots`` must equal the
+    engine's.
 
     paged: global-attention KV lives in a pool of ``num_blocks`` pages of
     ``page_size`` tokens behind per-slot block tables, with content-hash
@@ -161,9 +181,9 @@ class ServingEngine:
     kv_dtype: "int8" stores the paged pools as int8 rows with per-row f32
     scales (needs ``paged=True``); "fp" at the model dtype.
 
-    ``plan``, ``overlap``, ``adapt`` and ``trace`` name the JAX engine's
-    features this port does not have yet: anything but their defaults
-    raises NotImplementedError.
+    ``overlap``, ``adapt`` and ``trace`` name the JAX engine's features
+    this port does not have yet: anything but their defaults raises
+    NotImplementedError.
     """
     model: Model
     params: Any
@@ -182,14 +202,14 @@ class ServingEngine:
     trace: Optional[Any] = None
 
     def __post_init__(self):
-        for name, off in (("plan", self.plan is None),
-                          ("overlap", not self.overlap),
+        for name, off in (("overlap", not self.overlap),
                           ("adapt", self.adapt is None),
                           ("trace", not self.trace)):
             if not off:
                 raise NotImplementedError(
                     f"ServingEngine({name}=...) is not ported yet: the port "
-                    f"serves the monolithic synchronous engine")
+                    f"serves the synchronous engine, monolithic or "
+                    f"plan-driven")
         self.cfg = self.model.cfg
         self.device = torch.device(self.model.device)
         self.kernel_path = dispatch.kernel_path(self.device)
@@ -231,6 +251,9 @@ class ServingEngine:
                 self.model, self.max_seq)
             total = (self.num_blocks
                      or self.slots * (self.max_seq // self.page_size))
+            # ONE manager for the whole engine, monolithic or plan mode:
+            # rows are global slot ids and every replica's view fronts
+            # the same pool, so prefix blocks are shared engine-wide
             self._pager = PagedCacheManager(
                 self.slots, self.max_seq, self.page_size, total,
                 prefix_cache=self.prefix_cache, kv_dtype=self.kv_dtype,
@@ -241,6 +264,20 @@ class ServingEngine:
                 num_blocks=total, kv_dtype=self.kv_dtype)
         else:
             self._cache = self.model.init_cache(self.slots, self.max_seq)
+        self._rt = self._pf = self._caches = None
+        if self.plan is not None:
+            if self.plan.slots != self.slots:
+                raise ValueError(
+                    f"ServingPlan was lowered for {self.plan.slots} slots "
+                    f"but the engine has {self.slots}; re-lower via "
+                    f"lower_serving(plan, slots={self.slots})")
+            self._rt = PlanRuntime(self.model, self.plan, self.max_seq)
+            self._pf = PrefillPipeline(self._rt, self.params)
+            # one cache VIEW per decode replica over self._cache (its
+            # slot range; the paged pools whole)
+            self._caches = self._replica_views(self.plan, self._cache)
+            self.prefill_bucket = 1       # chunks run at exact lengths
+        self._reserved = set()           # slots mid-(chunked)-prefill
         self._pos = np.zeros((self.slots,), np.int32)    # tokens in cache
         self._cur = np.zeros((self.slots, 1), np.int32)  # next input token
         self._slot_req: List[Optional[Request]] = [None] * self.slots
@@ -265,10 +302,12 @@ class ServingEngine:
         return sum(r is not None for r in self._slot_req)
 
     def tick(self) -> bool:
-        """Admit whatever fits, then run one batched decode step.  Returns
-        True while there is work in flight.  Host wall-clock per phase
-        accrues in ``phase_time`` (prefill compute launched inside
-        admission is credited to "prefill")."""
+        """Admit whatever fits, advance the chunked prefills in flight by
+        one stage-step (plan mode), then run one batched decode step (per
+        replica in plan mode).  Returns True while there is work in
+        flight.  Host wall-clock per phase accrues in ``phase_time``
+        (prefill compute launched inside admission, and the pipeline's
+        stage-steps, are credited to "prefill")."""
         t_enter = time.perf_counter()
         if self._t_tick_end is not None:
             self.phase_time["idle"] += t_enter - self._t_tick_end
@@ -278,12 +317,21 @@ class ServingEngine:
         t1 = time.perf_counter()
         self.phase_time["admission"] += (t1 - t0) - self._prefill_window
         self.phase_time["prefill"] += self._prefill_window
+        if self._pf is not None and self._pf.busy:
+            finished = self._pf.step(caches=self._caches,
+                                     on_chunk=self._chunk_committed)
+            for item in finished:
+                self._finish_prefill(item)
+            t2 = time.perf_counter()
+            self.phase_time["prefill"] += t2 - t1
+            t1 = t2
         if self.active:
             self._decode_once()
             self.phase_time["decode"] += time.perf_counter() - t1
         self.ticks += 1
         self._t_tick_end = time.perf_counter()
-        return bool(self.active or self.queue)
+        return bool(self.active or self.queue
+                    or (self._pf is not None and self._pf.busy))
 
     def run(self, max_steps: int = 10_000):
         """Drive ticks until every submitted request retires."""
@@ -302,6 +350,7 @@ class ServingEngine:
         self._decode_slot_steps = 0
         self.prefill_batch_sizes: List[int] = []
         self.prefill_token_counts: List[int] = []
+        self.prefill_chunk_counts: List[int] = []  # chunks per admission
         self.ticks = 0
         self.spec_steps = 0               # decode ticks that ran a verify
         self.spec_proposed = 0            # drafted tokens offered to verify
@@ -381,6 +430,12 @@ class ServingEngine:
             "ticks": self.ticks,
             "phase_time_s": dict(self.phase_time),
             "cache": self.cache_stats(),
+            "plan_label": (self.plan.label if self.plan is not None
+                           else "mono"),
+            **({"plan_stages": self.plan.n_stages,
+                "decode_replicas": self.plan.n_replicas,
+                "prefill_chunk": self.plan.chunk}
+               if self.plan is not None else {}),
         }
 
     # -- internals ---------------------------------------------------------
@@ -397,14 +452,39 @@ class ServingEngine:
         return min(-(-n // b) * b, self.max_seq - 1)
 
     def _free_slots(self):
-        return [s for s in range(self.slots) if self._slot_req[s] is None]
+        return [s for s in range(self.slots)
+                if self._slot_req[s] is None and s not in self._reserved]
+
+    def _replica_views(self, plan, full):
+        """One view of the full cache per decode replica: dense leaves
+        sliced to its slot range, the paged pools whole."""
+        return [T.slice_cache_slots(full, a, b - a)
+                for a, b in (plan.replica_range(r)
+                             for r in range(plan.n_replicas))]
+
+    def _pick_slot(self, free):
+        """Admission slot choice: the first free slot, or in plan mode a
+        free slot on the least-loaded replica, so admissions spread over
+        the decode replicas."""
+        if self.plan is None:
+            return free[0]
+        load = [0] * self.plan.n_replicas
+        for s in range(self.slots):
+            if self._slot_req[s] is not None or s in self._reserved:
+                load[self.plan.replica_of_slot(s)[0]] += 1
+        return min(free,
+                   key=lambda s: (load[self.plan.replica_of_slot(s)[0]], s))
 
     def _admit(self):
         while self.queue:
+            req = self.queue[0]
             free = self._free_slots()
             if not free:
                 return
-            if not self._admit_one(self.queue[0], free[0]):
+            slot = self._pick_slot(free)
+            ok = (self._admit_one_plan(req, slot)
+                  if self.plan is not None else self._admit_one(req, slot))
+            if not ok:
                 return    # head-of-line waits for pool blocks (stays FIFO)
             self.queue.pop(0)
 
@@ -445,8 +525,59 @@ class ServingEngine:
             self._prefill_window += time.perf_counter() - t0
         self.prefill_batch_sizes.append(1)
         self.prefill_token_counts.append(slen)
+        self.prefill_chunk_counts.append(1)
         self._activate(req, slot, tok)
         return True
+
+    # ---- plan-driven admission (chunked prefill as plan stages) ----------
+    def _admit_one_plan(self, req: Request, slot: int) -> bool:
+        """Reserve the slot and enter the chunked-prefill pipeline: the
+        prompt streams through the plan's stage slices one stage-step a
+        tick.  A paged admission reserves the prompt's pool blocks up
+        front (its table row maps them only at commit, so a reserved slot
+        riding along in its replica's decode writes nothing)."""
+        replica, local = self.plan.replica_of_slot(slot)
+        reused = 0
+        tables = None
+        if self._pager is not None:
+            ap = self._pager.admit(slot, req.prompt,
+                                   req.max_new_tokens + self._spec_k,
+                                   reuse_compute=self._suffix_reuse)
+            if ap is None:
+                return False
+            reused = ap.reused_tokens
+            tables = (ap.block_table, ap.write_table)
+        self._reserved.add(slot)
+        self._pf.admit(req, slot, replica, local, reused=reused,
+                       tables=tables)
+        self.prefill_batch_sizes.append(1)
+        self.prefill_token_counts.append(len(req.prompt) - reused)
+        self.prefill_chunk_counts.append(len(self._pf.items[-1].chunks))
+        return True
+
+    def _chunk_committed(self, slot: int, tokens_done: int):
+        """A chunk left the last stage with its pool pages written:
+        publish the slot's newly completed blocks for prefix reuse now,
+        before the whole admission finishes."""
+        if self._pager is not None:
+            self._pager.commit_chunk(slot, tokens_done)
+
+    def _finish_prefill(self, item):
+        """The last chunk left the last stage: take the first token,
+        scatter the request's batch-1 dense leaves (all of them on a dense
+        cache; the mamba state on a paged one, whose K/V already sit in
+        the pool) into its slot of the replica's view, and start
+        decoding."""
+        nxt, _ = self._rt.finish(self.params, item.final_hidden)
+        tok = int(self._sync(nxt)[0])
+        view = self._caches[item.replica]
+        if self.paged:
+            T.merge_prefill_view(view, item.part_cache, item.local_slot)
+            self._pager.commit(item.slot)
+        else:
+            T.scatter_cache_slot(view, item.part_cache, item.local_slot)
+        self._reserved.discard(item.slot)
+        self._activate(item.req, item.slot, tok)
 
     def _activate(self, req: Request, slot: int, first_token: int):
         req.slot = slot
@@ -458,9 +589,10 @@ class ServingEngine:
         self._maybe_retire(slot, req.t_first)
 
     def _prepare_paged_writes(self):
-        """Before a decode step: make every active slot's target block
+        """Before a decode tick: make every active slot's target block
         writable -- allocate at page boundaries, copy-on-write shared or
-        registered blocks (the device page copy runs here)."""
+        registered blocks (the device page copy runs here, on the one
+        pool every replica fronts)."""
         for slot in range(self.slots):
             if self._slot_req[slot] is None:
                 continue
@@ -468,28 +600,65 @@ class ServingEngine:
             if cow is not None:
                 T.copy_cache_pages(self._cache, *cow)
 
+    def _decode_batches(self):
+        """(replica, first, last) of each decode batch this tick: all the
+        slots on a monolithic engine (replica None); in plan mode each
+        replica that has an active slot, over its slot range."""
+        if self.plan is None:
+            return [(None, 0, self.slots)]
+        out = []
+        for r in range(self.plan.n_replicas):
+            a, b = self.plan.replica_range(r)
+            if any(self._slot_req[s] is not None for s in range(a, b)):
+                out.append((r, a, b))
+        return out
+
+    def _step_inputs(self, tokens):
+        """(replica, first, last, tokens, positions, block_tables) of each
+        decode batch, every input already on the device: a host-to-device
+        copy from pageable memory waits for the stream, so none may sit
+        between two replicas' steps."""
+        dev = self.device
+        tables = (self._pager.table_matrix() if self._pager is not None
+                  else None)
+        return [(r, a, b, torch.from_numpy(tokens[a:b]).to(dev),
+                 torch.from_numpy(self._pos[a:b]).to(dev),
+                 None if tables is None
+                 else torch.from_numpy(tables[a:b]).to(dev))
+                for r, a, b in self._decode_batches()]
+
     def _decode_once(self):
-        """One batched decode step at per-slot positions.  Idle slots ride
-        along at fixed shape: on a paged cache their tables are all
-        sentinel, so their writes land in the sink page.  With
-        speculation on, a tick whose drafter finds something runs a
+        """One batched decode step at per-slot positions (in plan mode one
+        per replica, each walking the plan's stage slices).  Idle slots
+        ride along at fixed shape: on a paged cache their tables are all
+        sentinel, so their writes land in the sink page; on a dense one
+        their rows are rewritten whole when the slot is next admitted.
+        With speculation on, a tick whose drafter finds something runs a
         batched verify step instead."""
         act = self.active
         drafts = self._draft_all() if self._spec_k else None
         if drafts is not None:
             self._decode_verify(drafts)
         else:
-            bt = None
+            # every slot's target block is made writable first (a slot's
+            # table row changes only by its own preparation); then every
+            # replica's step is dispatched before any result is read back,
+            # so the device runs them back to back
             if self._pager is not None:
                 self._prepare_paged_writes()
-                bt = torch.from_numpy(self._pager.table_matrix()).to(
-                    self.device)
-            nxt, _, self._cache = self.serve_step(
-                self.params, self._cache,
-                torch.from_numpy(self._cur).to(self.device),
-                torch.from_numpy(self._pos).to(self.device), bt)
-            arr = self._sync(nxt)
-            self._collect_decoded(arr, time.perf_counter())
+            pending = []
+            for r, a, b, cur, pos, bt in self._step_inputs(self._cur):
+                if r is None:
+                    nxt, _, self._cache = self.serve_step(
+                        self.params, self._cache, cur, pos, bt)
+                else:
+                    nxt, _ = self._rt.decode_step(
+                        self.params, self._caches[r], cur, pos, bt)
+                pending.append((nxt, a, b))
+            arrs = [(self._sync(nxt), a, b) for nxt, a, b in pending]
+            now = time.perf_counter()
+            for arr, a, b in arrs:
+                self._collect_decoded(arr, a, b, now)
         self.decode_steps += 1
         self._decode_slot_steps += act
         self._occupied_step_sum += self.active
@@ -522,7 +691,7 @@ class ServingEngine:
         return drafts if any_draft else None
 
     def _prepare_verify_writes(self, sw: int):
-        """Before a verify step: make every window position's block
+        """Before a verify tick: make every window position's block
         writable for every active slot (boundary blocks allocate; a shared
         or registered block copies-on-write, which can happen only at the
         first window position -- the rest of the window grows fresh
@@ -549,29 +718,36 @@ class ServingEngine:
         for slot, d in drafts.items():
             if d:
                 window[slot, 1:1 + len(d)] = d
-        bt = None
         if self._pager is not None:
             self._prepare_verify_writes(sw)
-            bt = torch.from_numpy(self._pager.table_matrix()).to(self.device)
-        outs, self._cache = self._verify_step(
-            self.params, self._cache, torch.from_numpy(window).to(self.device),
-            torch.from_numpy(self._pos).to(self.device), bt)
-        arr = self._sync(outs)
-        self._collect_verified(window, arr, drafts, time.perf_counter())
+        pending = []
+        for r, a, b, win, pos, bt in self._step_inputs(window):
+            if r is None:
+                outs, self._cache = self._verify_step(
+                    self.params, self._cache, win, pos, bt)
+            else:
+                outs, _ = self._rt.verify_step(
+                    self.params, self._caches[r], win, pos, bt)
+            pending.append((outs, a, b))
+        arrs = [(self._sync(outs), a, b) for outs, a, b in pending]
+        now = time.perf_counter()
+        for arr, a, b in arrs:
+            self._collect_verified(window, arr, drafts, a, b, now)
         self.spec_steps += 1
 
-    def _collect_verified(self, window, outs, drafts, now: float):
+    def _collect_verified(self, window, outs, drafts, a: int, b: int,
+                          now: float):
         """Greedy acceptance per slot: position j's argmax is what a
         sequential decode would emit after consuming window[0..j], so the
         emitted prefix extends exactly while each argmax equals the next
         drafted token (and is not EOS)."""
-        for slot in range(self.slots):
+        for slot in range(a, b):
             req = self._slot_req[slot]
             if req is None:
                 continue
             d = drafts.get(slot, [])
             pos = int(self._pos[slot])
-            row = outs[slot]
+            row = outs[slot - a]
             emitted: List[int] = []
             j = 0
             while True:
@@ -599,8 +775,8 @@ class ServingEngine:
             self.spec_accepted += m - 1
             self._maybe_retire(slot, now)
 
-    def _collect_decoded(self, arr, now: float):
-        for slot in range(self.slots):
+    def _collect_decoded(self, arr, a: int, b: int, now: float):
+        for slot in range(a, b):
             req = self._slot_req[slot]
             if req is None:
                 continue
@@ -609,7 +785,7 @@ class ServingEngine:
                 self._pager.note_written(slot, int(self._cur[slot, 0]),
                                          int(self._pos[slot]))
             self._pos[slot] += 1
-            tok = int(arr[slot, 0])
+            tok = int(arr[slot - a, 0])
             req.out_tokens.append(tok)
             self._cur[slot, 0] = tok
             self.decode_tokens += 1

@@ -180,8 +180,7 @@ def test_stats_report_the_plain_kernel_path_and_phases(models):
 
 
 @pytest.mark.parametrize("feature", [
-    {"plan": object()}, {"overlap": True}, {"adapt": object()},
-    {"trace": True}])
+    {"overlap": True}, {"adapt": object()}, {"trace": True}])
 def test_unported_engine_features_raise(models, feature):
     _, _, tm, tp = models
     with pytest.raises(NotImplementedError):
