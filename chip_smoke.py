@@ -42,7 +42,10 @@ device it fails (it never runs on the CPU instead).  Phases, in order:
      bit-equal, with device times; the fused selective scan (mamba's
      prefill) at N=1, S=600 and N=4, S=100 with h0 (d_inner 16,384,
      d_state 16) within 1e-5 of its plain version, timed beside the
-     materialized route it replaces (``was_ms``); then
+     materialized route it replaces (``was_ms``); then the plans'
+     decode replicas at B=2 (a replica decodes its own slots): the fused
+     decode over fp and int8 pools (16 bf16 key splits) and the unfused
+     decode at Hkv=8 (8 splits), each against its plain version; then
      the kernel front door, ``repro_torch.kernels.ops``: the fused matmul
      (yi-6b's gate projection at 4 and 512 tokens, a 4096-wide projection
      with each epilogue, f32 and bf16, bf16 to f32) and the one-pass norm
@@ -73,7 +76,8 @@ device it fails (it never runs on the CPU instead).  Phases, in order:
      period) through a 1-stage plan with 2 decode replicas at chunk 16,
      paged, the gold's streams.  Each plan run zeroes the launch counters
      just before and reads them just after: every kernel of its path
-     must have launched;
+     must have launched (the dense run's flash launches are also sorted
+     by shape: chunk-0 passes and continuations);
   5. the main path at full size: yi-6b, all 32 layers, bf16, random
      weights from ``torch.Generator`` seed 0, served by the paged engine
      (4 slots, max_seq 1024, 8 requests of 100-600 prompt tokens, four
@@ -88,8 +92,9 @@ device it fails (it never runs on the CPU instead).  Phases, in order:
      and every logit finite.  serve-plan: serve-full's model, requests
      and engine under the launcher's ``--strategy hybrid:2 --replicas 2
      --chunk 128`` (the searched 2-stage plan, its ``describe()``
-     printed; both stages and replicas share the card), its numbers
-     beside serve-full's.  A short profiled decode window follows each
+     printed; both stages and replicas share the card; its paged
+     prefill launches sorted by chunk), its numbers beside
+     serve-full's.  A short profiled decode window follows each
      serve.
 
 It prints a ``{"kernels": [...]}`` JSON line, then as its last line
@@ -99,6 +104,8 @@ before that line.  Measurements are also written to
 """
 from __future__ import annotations
 
+import collections
+import contextlib
 import dataclasses
 import functools
 import gc
@@ -462,8 +469,10 @@ def kernel_phase(dev, flush):
         sdpa = functools.partial(F.scaled_dot_product_attention, q, kr, vr,
                                  attn_mask=mask)
         lib = bench(sdpa, flush)
+        # the function needs only the base + sq valid K/V rows (no query
+        # attends an unwritten ring row), and every row's k_pos / k_valid
         pairs = sq * base + sq * (sq + 1) // 2
-        nbytes = (2 * h * sq * d + 2 * hk * skv * d) * el \
+        nbytes = (2 * h * sq * d + 2 * hk * (base + sq) * d) * el \
             + 4 * (sq + 2 * skv)
         bnd, by = bound_ms(nbytes, 4 * pairs * h * d, dtype)
         results[("flash_attention_cont", dtype)] = dict(
@@ -971,6 +980,121 @@ def hybrid_kernel_phase(dev, flush, results):
     return results
 
 
+def replica_kernel_phase(dev, flush, results):
+    """Phase 3, the plans' decode replicas: a replica decodes only its own
+    slots, so the plan path's decodes run at B=2 (serve-plan's 2 replicas
+    of 2 slots: the fused decode, fp pools; the parity phase's int8 plan;
+    the hybrid plan's unfused decode), where the bf16 launch splits its
+    1024 keys 16 ways (fused, Hkv=4) or 8 ways (unfused, Hkv=8) against 4
+    at B=8 and B=4.  The fused decode over fp and int8 pools at positions
+    1000 and 300 (its written rows held to the plain version's, int8 rows
+    and scales bit-equal), the unfused decode over fp pools at lengths
+    1000 and 17, page 16, 64-entry tables, f32 and bf16; each timed beside
+    SDPA on the gathered (dequantized) K/V."""
+    from repro_torch.kernels import paged_attention as TP
+    from repro_torch.kernels import ref as TR
+    F = torch.nn.functional
+    b, d, page, nb, g = 2, 128, 16, 64, 8
+    n = b * nb + 1
+    gen = torch.Generator(device=dev).manual_seed(5)
+
+    def rnd(shape, dtype=torch.float32):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    names = ("fused_paged_decode_b2", "fused_paged_decode_int8_b2",
+             "paged_attention_b2")
+    for dtype in (torch.float32, torch.bfloat16):
+        el = torch.tensor([], dtype=dtype).element_size()
+        for name in names:
+            fused, int8 = name.startswith("fused"), "int8" in name
+            hk = 4 if fused else 8
+            h = hk * g
+            pos = torch.tensor([1000, 300] if fused else [1000, 17],
+                               dtype=torch.int32, device=dev)
+            # keys attended: 0..pos (fused, the fresh key included) or
+            # 0..length-1 (unfused)
+            lens = pos.long() + (1 if fused else 0)
+            bt = torch.randperm(b * nb, generator=gen, device=dev).reshape(
+                b, nb).to(torch.int32)
+            if int8:
+                kp, ks = TR.quantize_int8_rows(rnd((n, page, hk, d)))
+                vp, vs = TR.quantize_int8_rows(rnd((n, page, hk, d)))
+                pools, row_bytes = [kp, vp, ks, vs], d + 4
+                kg, vg = TR.dequantize_int8(kp, ks), TR.dequantize_int8(vp,
+                                                                         vs)
+            else:
+                pools = [rnd((n, page, hk, d), dtype),
+                         rnd((n, page, hk, d), dtype)]
+                row_bytes = d * el
+                kg, vg = pools[0].float(), pools[1].float()
+            q = rnd((b, hk, g, d), dtype)
+            fresh = (rnd((b, hk, d), dtype), rnd((b, hk, d), dtype))
+            kernel = TP.fused_paged_decode_grouped if fused else \
+                TP.paged_attention_grouped
+            plain_fn = TR.fused_paged_decode_ref if fused else \
+                TR.paged_attention_ref
+
+            def call(fn, p, q=q, fresh=fresh, bt=bt, pos=pos, fused=fused):
+                sc = dict(k_scales=p[2], v_scales=p[3]) if len(p) == 4 \
+                    else {}
+                if fused:
+                    return fn(q, *fresh, p[0], p[1], bt, pos, theta=5e6,
+                              **sc)[0]
+                return fn(q, p[0], p[1], bt, pos, **sc)
+            mine = [t.clone() for t in pools]
+            theirs = [t.clone() for t in pools]
+            out = call(kernel, mine)
+            ref = call(plain_fn, theirs)
+            torch.cuda.synchronize()
+            splits = kernel.last_split
+            err = assert_close(f"{name} (B={b}: {splits[0]} key splits of "
+                               f"{splits[1]})", out, ref, dtype)
+            for what, a, r in zip(("k_pages", "v_pages", "k_scales",
+                                   "v_scales"), mine, theirs):
+                if not fused:
+                    break
+                if int8:
+                    same = torch.equal(a, r)
+                    print(f"[kernels] {name} {str(dtype)[6:]} written {what} "
+                          f"bit-equal: {same}")
+                    check(same, f"{name} {what} differ from the plain "
+                                f"version's ({dtype})")
+                else:
+                    err = max(err, assert_close(f"{name} {what}", a, r,
+                                                dtype))
+            ms = bench(lambda: call(kernel, mine), flush)
+            pl = bench(lambda: call(plain_fn, theirs), flush)
+            kg = kg[bt.long()].reshape(b, nb * page, hk, d).transpose(1, 2)
+            vg = vg[bt.long()].reshape(b, nb * page, hk, d).transpose(1, 2)
+            kg = kg.repeat_interleave(g, 1).to(dtype).contiguous()
+            vg = vg.repeat_interleave(g, 1).to(dtype).contiguous()
+            mask = (torch.arange(nb * page, device=dev)[None, :]
+                    < lens[:, None])[:, None, None, :]
+            sdpa = functools.partial(F.scaled_dot_product_attention,
+                                     q.reshape(b, h, 1, d), kg, vg,
+                                     attn_mask=mask)
+            lib = bench(sdpa, flush)
+            # q in and out, the fresh k/v in (fused), every attended key
+            # row once (the fused decode writes its fresh row and reads
+            # the rest), the table entries walked and the positions
+            keys = int(lens.sum())
+            tables = int(((lens + page - 1) // page).sum())
+            nbytes = (2 * b * h * d + (2 * b * hk * d if fused else 0)) \
+                * el + 2 * keys * hk * row_bytes + 4 * (tables + b)
+            bnd, by = bound_ms(nbytes, 4 * keys * hk * g * d, dtype)
+            results[(name, dtype)] = dict(
+                max_abs_err=err, ms=ms, plain_ms=pl, library_ms=lib,
+                bound_ms=bnd, bound_by=by,
+                device_ms=device_ms(lambda: call(kernel, mine), flush),
+                library_device_ms=device_ms(sdpa, flush),
+                splits=splits[0], split_keys=splits[1],
+                shape=f"B={b} Hkv={hk} G={g} D={d} P={page} NB={nb} "
+                f"{'pos' if fused else 'lengths'} {pos.tolist()} "
+                f"{'int8' if int8 else 'fp'} pools")
+        print_rows(results, dtype, names)
+    return results
+
+
 MM_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}     # by output dtype
 NORM_TOL = {torch.float32: 1e-5, torch.bfloat16: 3e-2}
 # The JAX kernel tests' tolerances (tests/test_kernels.py).  matmul: f32
@@ -1303,35 +1427,41 @@ def watch_engine(eng, model, max_seq):
 
 
 def watch_plan_engine(eng):
-    """Wrap a plan engine's replica steps and prefill finish so that every
-    logit they produce is checked for finiteness (the same stage walk,
-    with the logits kept)."""
-    from repro_torch.plan.serving import stage_walk
-    rt, model, plan = eng._rt, eng.model, eng.plan.plan
+    """Wrap a plan engine's runtime steps (each replica's stage walk and
+    the prefill head) so that every logit they produce is checked for
+    finiteness."""
+    rt = eng._rt
     finite = []
 
-    def decode(params, cache, tokens, positions, block_tables=None):
-        logits = stage_walk(model, plan, params, cache, tokens, positions,
-                            block_tables)
-        finite.append(torch.isfinite(logits).all())
-        return logits[:, -1].argmax(-1).to(torch.int32)[:, None], cache
-
-    def verify(params, cache, tokens, positions, block_tables=None):
-        logits = stage_walk(model, plan, params, cache, tokens, positions,
-                            block_tables)
-        finite.append(torch.isfinite(logits).all())
-        return logits.argmax(-1).to(torch.int32), cache
-
-    finish = rt.finish
-
-    def checked_finish(params, hidden):
-        nxt, logits = finish(params, hidden)
-        finite.append(torch.isfinite(logits).all())
-        return nxt, logits
-
-    rt.decode_step, rt.verify_step, rt.finish = decode, verify, \
-        checked_finish
+    def watched(fn):
+        def call(*args, **kw):
+            logits = fn(*args, **kw)
+            finite.append(torch.isfinite(logits).all())
+            return logits
+        return call
+    rt.walk, rt.head = watched(rt.walk), watched(rt.head)
     return finite
+
+
+@contextlib.contextmanager
+def tally_calls(name, key):
+    """Tally the calls of the dispatch front door's ``name`` (which the
+    model looks up at every call, and which calls its kernel's wrapper
+    once) by ``key(*args)`` while the block runs.  The wrappers' launch
+    counts are untouched: this only sorts the launches they count by
+    shape."""
+    from repro_torch.backend import dispatch as module
+    tally = collections.Counter()
+    fn = getattr(module, name)
+
+    def call(*args, **kw):
+        tally[key(*args)] += 1
+        return fn(*args, **kw)
+    setattr(module, name, call)
+    try:
+        yield tally
+    finally:
+        setattr(module, name, fn)
 
 
 def run_plan_engine(label, model, params, sched, splan, path, max_seq,
@@ -1395,10 +1525,20 @@ def plan_parity_phase(dev, kernels):
                                       max_seq)
         gaps[uid] = [top2_gap(x) for x in lgs]
     launches = {}
-    _, got, launches["dense"] = run_plan_engine(
-        "dense fp", model, params, sched, splan,
-        {"flash_attention": kernels["flash_attention"]}, max_seq)
+    # (B, S, H, D) queries and keys
+    with tally_calls("dispatch_flash_attention",
+                     lambda q, k, *_: (q.shape[1], k.shape[1])) as tally:
+        _, got, launches["dense"] = run_plan_engine(
+            "dense fp", model, params, sched, splan,
+            {"flash_attention": kernels["flash_attention"]}, max_seq)
     compare_streams("plan dense fp vs one-shot gold", got, golds, gaps)
+    # a continuation attends the ring's rows beside its own keys
+    cont = sum(n for (sq, skv), n in tally.items() if skv > sq)
+    flash_shapes = {f"Sq={sq} Skv={skv}": n
+                    for (sq, skv), n in sorted(tally.items())}
+    print(f"[plan] dense fp: flash launches by shape "
+          f"{json.dumps(flash_shapes)}: {cont} continuation chunks, "
+          f"{launches['dense']['flash_attention'] - cont} chunk-0 passes")
     eng, got, launches["paged"] = run_plan_engine(
         "paged fp", model, params, sched, splan,
         {k: kernels[k] for k in ("fused_paged_decode", "paged_prefill")},
@@ -1439,7 +1579,8 @@ def plan_parity_phase(dev, kernels):
     check(spec["spec_steps"] > 0, "plan int8 speculate=4: nothing verified")
     del eng, params
     torch.cuda.empty_cache()
-    return dict(launches=launches, spec=spec)
+    return dict(launches=launches, spec=spec,
+                flash_shapes=flash_shapes, flash_continuations=cont)
 
 
 def would_draft(sched, streams, k=4):
@@ -1844,10 +1985,21 @@ def serve_phase(dev, kernels):
     from repro_torch.launch.serve import _build_serving_plan
     splan = _build_serving_plan(cfg, "hybrid:2", 4, 2, 128, 1024)
     print(f"[serve] plan hybrid:2:\n{splan.describe()}")
-    eng, pl = serve_run("plan hybrid:2 paged", model, params, prompts,
-                        {k: kernels[k] for k in ("fused_paged_decode",
-                                                 "paged_prefill")},
-                        plan=splan)
+    def chunk_kind(q, kp, vp, bt, offset, *_):     # q (B, S, H, D)
+        s = q.shape[1]
+        return (f"{'S=128' if s == 128 else 'S<128'} at "
+                f"{'offset 0' if int(offset) == 0 else 'offset > 0'}")
+    with tally_calls("dispatch_paged_prefill_attention",
+                     chunk_kind) as chunk_shapes:
+        eng, pl = serve_run("plan hybrid:2 paged", model, params, prompts,
+                            {k: kernels[k] for k in ("fused_paged_decode",
+                                                     "paged_prefill")},
+                            plan=splan)
+    pl["prefill_shapes"] = dict(chunk_shapes)
+    pl["prefill_continuations"] = sum(
+        n for k, n in chunk_shapes.items() if k.endswith("offset > 0"))
+    print(f"[serve] plan hybrid:2 paged: paged-prefill launches by chunk "
+          f"{json.dumps(dict(sorted(chunk_shapes.items())))}")
     pl["plan"] = splan.describe()
     pl["profile"] = profile_decode(eng, prompts[4:], Request)
     for key, unit in (("tok_s", ""), ("tick_s", " s"), ("peak_memory_gb",
@@ -2032,6 +2184,7 @@ def main():
         results = kernel_phase(dev, flush)
         int8_kernel_phase(dev, flush, results)
         hybrid_kernel_phase(dev, flush, results)
+        replica_kernel_phase(dev, flush, results)
         front_door_phase(dev, flush, results)
         repair = repair_phase(dev, flush)
         del flush
@@ -2087,6 +2240,10 @@ def main():
         "flash_attention_cont": ("src/repro_torch/csrc/flash_attention.cu",
                                  "src/repro/kernels/flash_attention.py:85"),
         "paged_prefill_s48": prefill,
+        "fused_paged_decode_b2": decode,
+        "fused_paged_decode_int8_b2": decode,
+        "paged_attention_b2": ("src/repro_torch/csrc/paged_attention.cu",
+                               "src/repro/kernels/paged_attention.py:394"),
         "paged_attention": ("src/repro_torch/csrc/paged_attention.cu",
                             "src/repro/kernels/paged_attention.py:394"),
         "linear_scan": ("src/repro_torch/csrc/linear_scan.cu",
@@ -2124,13 +2281,23 @@ def main():
                 # one wrapper and kernel for both pool kinds; only
                 # serve-int8-spec speculates (on int8 pools)
                 "paged_verify_fp": served["launches"]["paged_verify"],
-                # this slice's paths: the dense plan parity run (flash at
-                # every chunk, the continuations among them) and
-                # serve-plan (chunked paged prefill)
+                # the plan paths: the dense plan parity run's continuation
+                # chunks (its chunk-0 passes left out); serve-plan's
+                # paged-prefill chunks at offsets > 0 (S=128 and the
+                # remainders: the S=48 row stands for the CLI's
+                # --chunk 48, which no phase serves) and its replicas'
+                # fused decodes; the int8 plan's and the hybrid plan's
+                # replica decodes (f32 parity runs)
                 "flash_attention_cont":
-                    parity["plan"]["launches"]["dense"]["flash_attention"],
-                "paged_prefill_s48":
-                    served["plan"]["launches"]["paged_prefill"]}
+                    parity["plan"]["flash_continuations"],
+                "paged_prefill_s48": served["plan"]["prefill_continuations"],
+                "fused_paged_decode_b2":
+                    served["plan"]["launches"]["fused_paged_decode"],
+                "fused_paged_decode_int8_b2":
+                    parity["plan"]["launches"]["int8_spec"][
+                        "fused_paged_decode"],
+                "paged_attention_b2":
+                    parity["hybrid"]["plan_launches"]["paged_attention"]}
     line = []
     for name, (src, tpu) in meta.items():
         r = results.get((name, torch.bfloat16),

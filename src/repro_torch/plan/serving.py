@@ -10,8 +10,8 @@ plan gives the paper's two regimes under live traffic:
     prompt never stalls decode for its whole length;
   * **spatial decode replicas**: the plan's spatial width
     (``n_microbatches``) becomes N slot-partitioned decode replicas, each
-    running ``make_plan_decode_step``, a batched decode that walks the
-    stage slices in order.
+    running ``stage_walk``, a batched decode that walks the stage slices
+    in order.
 
 Numerical contract (held by ``tests/test_torch_plan_serving.py``): every
 stream through a ServingPlan equals the isolated one-shot decode and the
@@ -25,15 +25,15 @@ Chunking turns itself off where exactness cannot hold (``split_chunks``).
 On one card every stage and replica runs on ``model.device``,
 time-multiplexed, as the JAX package's do on one host device (its
 ``place_params`` is a pass-through there).  The functions here are plain
-functions of tensors: the JAX package's ``jax.jit``/donation wrappers have
-no counterpart, and every step writes the cache it is given in place and
-returns the same object.  Re-planning (the JAX pipeline's ``adopt`` and
+functions of tensors: the JAX package's ``jax.jit``/donation wrappers and
+its per-stage step factories have no counterpart, and every step writes
+the cache it is given in place.  Re-planning (the JAX pipeline's ``adopt`` and
 per-item runtimes) is not ported yet.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Any, Callable, List
+from typing import Any, List
 
 import numpy as np
 import torch
@@ -54,76 +54,42 @@ def _positions(positions, device):
 # building blocks
 # ---------------------------------------------------------------------------
 
-def make_chunk_embed(model) -> Callable:
-    """embed(params, tokens (1, L)) -> hidden (1, L, d), stage 0's input."""
+def prefill_stage(model, plan: ExecutionPlan, params, s: int, cont: bool,
+                  hidden, pos_base: int, part_cache, replica_cache=None,
+                  block_tables=None, write_tables=None):
+    """One prefill stage-step: stage ``s``'s group slice over a chunk's
+    hidden states, writing only that stage's group range of the caches
+    (in place).  Returns the hidden states leaving the stage.
 
-    def f(params, tokens):
-        return _embed(model, params, {"tokens": tokens})
-    return f
-
-
-def make_stage_prefill(model, plan: ExecutionPlan, s: int,
-                       cont: bool) -> Callable:
-    """One dense prefill stage-step: stage ``s``'s group slice over a
-    chunk's hidden states against the request's batch-1 cache, writing
-    only that stage's group range (in place).  Returns (hidden, cache).
-
-    cont=False is the chunk-0 pass (the one-shot prefill branch);
-    cont=True a continuation (the chunk also attends the ``pos_base``
-    tokens already in the cache)."""
-    cfg = model.cfg
+    cont=False is the chunk-0 pass (the one-shot prefill branch); cont=True
+    a continuation (the chunk also attends the ``pos_base`` tokens already
+    in the cache).  Dense: the request's batch-1 ``part_cache`` holds every
+    leaf.  Paged (``block_tables`` given): the chunk's K/V stream straight
+    into the replica's pool pages through ``write_tables`` (shared warm
+    blocks carry the sentinel, so their writes drop) and every query
+    attends the whole mapped prefix; ``part_cache`` holds only the dense
+    leaves (mamba state).  ``pos_base`` counts reused warm-prefix tokens
+    plus earlier chunks."""
+    view = part_cache if block_tables is None else \
+        T.combine_prefill_parts(replica_cache, part_cache)
     st = plan.stages[s]
-
-    def f(params, part_cache, hidden, pos_base):
-        y, _ = run_stage(
-            cfg, _stage_slice(params["stack"], plan, s), hidden,
-            cache=T.slice_cache_groups(part_cache, st.first_group,
-                                       st.n_groups),
-            cache_index=int(pos_base), attend_cache=cont)
-        return y, part_cache
-    return f
-
-
-def make_stage_prefill_paged(model, plan: ExecutionPlan, s: int,
-                             cont: bool) -> Callable:
-    """One *paged* prefill stage-step: the chunk's attention K/V stream
-    straight into the replica's pool pages through ``write_tables``
-    (shared warm blocks carry the sentinel, so their writes drop), and
-    every query attends the whole mapped prefix through ``block_tables``.
-    Only the dense leaves (mamba state) live in the request's batch-1
-    ``part_cache``.  ``pos_base`` counts reused warm-prefix tokens plus
-    earlier chunks.  Returns (hidden, replica_cache, part_cache), the
-    caches written in place."""
-    cfg = model.cfg
-    st = plan.stages[s]
-
-    def f(params, replica_cache, part_cache, hidden, pos_base,
-          block_tables, write_tables):
-        view = T.combine_prefill_parts(replica_cache, part_cache)
-        y, _ = run_stage(
-            cfg, _stage_slice(params["stack"], plan, s), hidden,
-            cache=T.slice_cache_groups(view, st.first_group, st.n_groups),
-            cache_index=int(pos_base), attend_cache=cont,
-            block_tables=block_tables, write_tables=write_tables)
-        return y, replica_cache, part_cache
-    return f
-
-
-def make_prefill_finish(model) -> Callable:
-    """finish(params, hidden (1, L, d)) -> (first_token (1,), logits):
-    final norm and head at the chunk's last (exact-length) position."""
-
-    def f(params, hidden):
-        logits = _finish(model, params, hidden[:, -1:])
-        return torch.argmax(logits[:, -1], dim=-1).to(torch.int32), logits
-    return f
+    y, _ = run_stage(
+        model.cfg, _stage_slice(params["stack"], plan, s), hidden,
+        cache=T.slice_cache_groups(view, st.first_group, st.n_groups),
+        cache_index=int(pos_base), attend_cache=cont,
+        block_tables=block_tables, write_tables=write_tables)
+    return y
 
 
 def stage_walk(model, plan: ExecutionPlan, params, cache, tokens,
-               positions, block_tables):
-    """Embed, every stage's slice in order against its group range of the
-    replica's cache (per-slot ``positions``), then the final norm + head.
-    Returns f32 logits (B, S, V)."""
+               positions, block_tables=None):
+    """One replica's decode or verify step: embed, every stage's slice in
+    order against its group range of the replica's cache (per-slot
+    ``positions``; ``block_tables`` (B, NB) when the cache is paged), then
+    the final norm + head.  The same ops in the same order as the
+    monolithic ``serve_step``: the group loop is only cut at stage
+    boundaries.  Returns f32 logits (B, S, V); the engine takes the argmax
+    at the last position (decode) or at every one (verify)."""
     dev = model.device
     x = _embed(model, params, {"tokens": tokens})
     positions = _positions(positions, dev)
@@ -135,37 +101,6 @@ def stage_walk(model, plan: ExecutionPlan, params, cache, tokens,
             cache=T.slice_cache_groups(cache, st.first_group, st.n_groups),
             cache_index=positions, block_tables=block_tables)
     return _finish(model, params, x)
-
-
-def make_plan_decode_step(model, plan: ExecutionPlan) -> Callable:
-    """decode(params, cache, tokens (B, 1), positions (B,),
-    block_tables=None) -> (next_tokens (B, 1), cache): one batched greedy
-    decode step for ONE replica, walking the plan's stage slices in order
-    (hidden states thread between stages, each stage writes its group
-    range of the replica's cache view).  The same ops in the same order
-    as the monolithic ``serve_step``: the group loop is only cut at stage
-    boundaries.  ``block_tables`` (B, NB) when the cache is paged."""
-
-    def step(params, cache, tokens, positions, block_tables=None):
-        logits = stage_walk(model, plan, params, cache, tokens, positions,
-                            block_tables)
-        nxt = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
-        return nxt[:, None], cache
-    return step
-
-
-def make_plan_verify_step(model, plan: ExecutionPlan) -> Callable:
-    """verify(params, cache, tokens (B, S), positions (B,),
-    block_tables=None) -> (argmax_tokens (B, S), cache): one speculative
-    verify step for ONE replica, the stage walk of
-    ``make_plan_decode_step`` over each slot's S-token window, scored at
-    every position."""
-
-    def step(params, cache, tokens, positions, block_tables=None):
-        logits = stage_walk(model, plan, params, cache, tokens, positions,
-                            block_tables)
-        return torch.argmax(logits, dim=-1).to(torch.int32), cache
-    return step
 
 
 # ---------------------------------------------------------------------------
@@ -200,8 +135,10 @@ class _PrefillItem:
 
 
 class PlanRuntime:
-    """The step functions and the chunking policy of one (model,
-    ServingPlan)."""
+    """The steps and the chunking policy of one (model, ServingPlan).
+    ``walk`` (a replica's decode or verify step, logits out) and ``head``
+    (the final norm and head at a prefill's last position) are the
+    engine's only calls into the model in plan mode."""
 
     def __init__(self, model, splan: ServingPlan, max_seq: int):
         cfg = model.cfg
@@ -214,16 +151,6 @@ class PlanRuntime:
             raise ValueError(
                 f"the plan cuts {plan.num_groups} groups but {cfg.name} "
                 f"has {cfg.num_groups}")
-        self.embed = make_chunk_embed(model)
-        self.finish = make_prefill_finish(model)
-        self.stage_fns = {
-            (s, cont): make_stage_prefill(model, plan, s, cont)
-            for s in range(plan.n_stages) for cont in (False, True)}
-        self.stage_fns_paged = {
-            (s, cont): make_stage_prefill_paged(model, plan, s, cont)
-            for s in range(plan.n_stages) for cont in (False, True)}
-        self.decode_step = make_plan_decode_step(model, plan)
-        self.verify_step = make_plan_verify_step(model, plan)
         # chunking exactness gates, as in JAX: MoE capacity is per call
         # (chunk-local routing would differ from the one-shot prefill),
         # and a prompt that wraps a sliding-window ring must wrap it in
@@ -233,6 +160,16 @@ class PlanRuntime:
             (min(max_seq, cfg.window_size)
              for b in cfg.block_pattern if b.mixer == "attn_local"),
             default=0)
+
+    def walk(self, params, cache, tokens, positions, block_tables=None):
+        """``stage_walk`` of this plan: f32 logits (B, S, V)."""
+        return stage_walk(self.model, self.splan.plan, params, cache,
+                          tokens, positions, block_tables)
+
+    def head(self, params, hidden):
+        """Final norm and head at the last (exact-length) position of a
+        prefill's hidden states (1, L, d): f32 logits (1, 1, V)."""
+        return _finish(self.model, params, hidden[:, -1:])
 
     def split_chunks(self, prompt: np.ndarray) -> List[np.ndarray]:
         """(1, L) chunks of exact lengths: ``chunk`` tokens each and the
@@ -302,14 +239,10 @@ class PrefillPipeline:
                    pos_base: int, caches):
         """Execute one stage for one chunk; paged items go through their
         replica's cache view."""
-        if it.bt is not None:
-            hidden, _, it.part_cache = self.rt.stage_fns_paged[(si, cont)](
-                self.params, caches[it.replica], it.part_cache, hidden,
-                pos_base, it.bt, it.wt)
-        else:
-            hidden, it.part_cache = self.rt.stage_fns[(si, cont)](
-                self.params, it.part_cache, hidden, pos_base)
-        return hidden
+        return prefill_stage(
+            self.rt.model, self.rt.splan.plan, self.params, si, cont, hidden,
+            pos_base, it.part_cache,
+            None if it.bt is None else caches[it.replica], it.bt, it.wt)
 
     def _chunk_exited(self, it: _PrefillItem, fl: _Flight, finished,
                       on_chunk):
@@ -362,7 +295,7 @@ class PrefillPipeline:
             tokens = it.chunks[it.next_chunk]
             pos_base = it.reused + sum(c.shape[1]
                                        for c in it.chunks[:it.next_chunk])
-            hidden = self.rt.embed(self.params, tokens)
+            hidden = _embed(self.rt.model, self.params, {"tokens": tokens})
             hidden = self._run_stage(
                 it, 0, it.next_chunk > 0 or it.reused > 0, hidden,
                 pos_base, caches)

@@ -568,8 +568,8 @@ class ServingEngine:
         cache; the mamba state on a paged one, whose K/V already sit in
         the pool) into its slot of the replica's view, and start
         decoding."""
-        nxt, _ = self._rt.finish(self.params, item.final_hidden)
-        tok = int(self._sync(nxt)[0])
+        logits = self._rt.head(self.params, item.final_hidden)
+        tok = int(self._sync(torch.argmax(logits[:, -1], dim=-1))[0])
         view = self._caches[item.replica]
         if self.paged:
             T.merge_prefill_view(view, item.part_cache, item.local_slot)
@@ -652,8 +652,9 @@ class ServingEngine:
                     nxt, _, self._cache = self.serve_step(
                         self.params, self._cache, cur, pos, bt)
                 else:
-                    nxt, _ = self._rt.decode_step(
-                        self.params, self._caches[r], cur, pos, bt)
+                    logits = self._rt.walk(self.params, self._caches[r],
+                                           cur, pos, bt)
+                    nxt = torch.argmax(logits[:, -1], dim=-1)[:, None]
                 pending.append((nxt, a, b))
             arrs = [(self._sync(nxt), a, b) for nxt, a, b in pending]
             now = time.perf_counter()
@@ -726,8 +727,8 @@ class ServingEngine:
                 outs, self._cache = self._verify_step(
                     self.params, self._cache, win, pos, bt)
             else:
-                outs, _ = self._rt.verify_step(
-                    self.params, self._caches[r], win, pos, bt)
+                outs = torch.argmax(self._rt.walk(
+                    self.params, self._caches[r], win, pos, bt), dim=-1)
             pending.append((outs, a, b))
         arrs = [(self._sync(outs), a, b) for outs, a, b in pending]
         now = time.perf_counter()

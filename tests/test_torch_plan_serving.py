@@ -11,12 +11,11 @@ engine's.  Layouts: a uniform 2-stage plan at 2 and 3 slots, the uneven
 searched plan ([3, 1]), paged replicas, int8 pools, warm-prefix
 suffix-only admissions at chunk 4 and 16, speculative replicas (dense and
 paged), and the jamba hybrid at 16 layers (2 groups) through a 2-stage
-plan, dense and paged.  A JAX engine compiles per stage and chunk length
-(~5 s a run on the CPU, ~13 s for the hybrid), so each JAX layout runs
-once and is memoized; its own harness holds its streams independent of
-the slot count and equal across its dense and paged caches, so the port's
-speculative and hybrid runs on both layouts are held to one JAX run on the
-dense cache.
+plan, dense and paged.  Every case is held to a JAX run of its own
+layout (the same plan, slots, chunk, cache kind and speculation).  A JAX
+engine compiles per stage and chunk length (~5-7 s a run on the CPU, ~13 s
+for the hybrid), so each JAX layout runs once and is memoized, and so are
+the golds.
 
 Beside parity: a replica's decode writes land in the engine's one cache
 (replica caches are views), decode never stalls while a long prompt
@@ -132,6 +131,12 @@ def golds(models):
 
 
 @pytest.fixture(scope="module")
+def hybrid_golds(hybrid_models):
+    _, _, tm, tp = hybrid_models
+    return [gold_decode(tm, tp, p, mn, 64) for p, mn, _ in STAGGERED]
+
+
+@pytest.fixture(scope="module")
 def spec_golds(models):
     _, _, tm, tp = models
     return [gold_decode(tm, tp, p, mn, 64) for p, mn, _ in SPEC_PROMPTS]
@@ -146,8 +151,8 @@ LAYOUTS = {"dense": {}, "paged": {"paged": True, "page_size": 4},
 def test_uniform_plan_streams_match_jax_plan_engine_and_gold(
         models, golds, layout, slots):
     jm, jp, tm, tp = models
-    jgot, jcounts, jst = jax_run(("uniform", layout), jm, jp,
-                                 uniform(JP, 4), slots=2, chunk=4,
+    jgot, jcounts, jst = jax_run(("uniform", layout, slots), jm, jp,
+                                 uniform(JP, 4), slots=slots, chunk=4,
                                  **LAYOUTS[layout])
     eng, got = port_run(tm, tp, uniform(TP, 4), slots=slots, chunk=4,
                         **LAYOUTS[layout])
@@ -221,7 +226,8 @@ def test_speculative_plan_replicas_match_jax_and_gold(models, spec_golds,
     """Each replica verifies its own (K+1)-token windows."""
     jm, jp, tm, tp = models
     kw = dict(slots=4, chunk=4, sched=SPEC_PROMPTS, speculate=3)
-    jgot, jcounts, jst = jax_run(("spec",), jm, jp, uniform(JP, 4), **kw)
+    jgot, jcounts, jst = jax_run(("spec", layout), jm, jp, uniform(JP, 4),
+                                 **kw, **LAYOUTS[layout])
     eng, got = port_run(tm, tp, uniform(TP, 4), **kw, **LAYOUTS[layout])
     assert got == jgot
     for uid, gold in enumerate(spec_golds):
@@ -235,20 +241,21 @@ def test_speculative_plan_replicas_match_jax_and_gold(models, spec_golds,
 
 
 @pytest.mark.parametrize("layout", ["dense", "paged"])
-def test_hybrid_two_stage_plan_matches_jax_and_gold(hybrid_models, layout):
+def test_hybrid_two_stage_plan_matches_jax_and_gold(hybrid_models,
+                                                    hybrid_golds, layout):
     """jamba dense-FFN at 16 layers (2 groups) through a 2-stage plan with
     2 replicas: mamba chunks after the first start from the state the
     previous chunk left, and the rope-free attention decodes per
     replica."""
     jm, jp, tm, tp = hybrid_models
     assert tm.cfg.num_groups == 2
-    jgot, jcounts, _ = jax_run(("hybrid",), jm, jp, uniform(JP, 2),
-                               slots=2, chunk=4)
+    jgot, jcounts, _ = jax_run(("hybrid", layout), jm, jp, uniform(JP, 2),
+                               slots=2, chunk=4, **LAYOUTS[layout])
     eng, got = port_run(tm, tp, uniform(TP, 2), slots=2, chunk=4,
                         **LAYOUTS[layout])
     assert got == jgot
-    for uid, (p, mn, _) in enumerate(STAGGERED):
-        assert got[uid] == gold_decode(tm, tp, p, mn, 64), uid
+    for uid, gold in enumerate(hybrid_golds):
+        assert got[uid] == gold, uid
     assert counts(eng) == jcounts
     assert eng.prefill_chunk_counts == [1, 3, 2, 1]
 
