@@ -74,7 +74,13 @@ device it fails (it never runs on the CPU instead).  Phases, in order:
      paged, must give the gold's streams, and paged int8 with
      ``speculate=4`` the monolithic int8 engine's; the f32 hybrid (one
      period) through a 1-stage plan with 2 decode replicas at chunk 16,
-     paged, the gold's streams.  Each plan run zeroes the launch counters
+     paged, the gold's streams.  Overlap: ``overlap=True`` for
+     f32 yi-6b, monolithic and through the 2-stage plan, dense and paged,
+     on the staggered schedule, and paged on a readmission schedule (5
+     requests through 2 slots, one retiring on EOS), and for the f32
+     hybrid (paged): every stream must equal the gold's; one traced
+     paged plan run must give the untraced run's streams and a Perfetto
+     object that validates.  Each run zeroes the launch counters
      just before and reads them just after: every kernel of its path
      must have launched (the dense run's flash launches are also sorted
      by shape: chunk-0 passes and continuations);
@@ -94,8 +100,17 @@ device it fails (it never runs on the CPU instead).  Phases, in order:
      --chunk 128`` (the searched 2-stage plan, its ``describe()``
      printed; both stages and replicas share the card; its paged
      prefill launches sorted by chunk), its numbers beside
-     serve-full's.  A short profiled decode window follows each
-     serve.
+     serve-full's.  serve-overlap and serve-plan-overlap: serve-full and
+     serve-plan with ``overlap=True``, their numbers printed beside the
+     sync runs' (tok/s, TTFT, prefill phase, host tick, the host_sync
+     bucket, the device's busy share) and their bf16 streams held to the
+     sync runs' with the same warm-prefix admissions.  A short profiled
+     decode window follows each serve; then, on each overlapped engine,
+     one ``_dispatch_decode`` under ``torch.cuda.set_sync_debug_mode(
+     "error")`` must not sync the host; the host syncs a decode tick of
+     every serve are counted (mode "warn", by source line) and printed;
+     and serve-overlap traces a short window into
+     ``chiprun_out/serve_overlap_trace.json``, which must validate.
 
 It prints a ``{"kernels": [...]}`` JSON line, then as its last line
 ``{"ok": true, "device": {...}}``.  Any failed check exits non-zero
@@ -114,6 +129,7 @@ import os
 import subprocess
 import sys
 import time
+import warnings
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(HERE, "src"))
@@ -1358,23 +1374,26 @@ def top2_gap(logits):
 
 
 def run_schedule(eng, sched, request_cls):
+    """Serve ``sched``, entries (prompt, max_new, submit_tick[, eos])."""
     pending = sorted(enumerate(sched), key=lambda x: x[1][2])
     tick, busy = 0, True
     while busy or pending:
         while pending and pending[0][1][2] <= tick:
-            uid, (prompt, max_new, _) = pending.pop(0)
-            eng.submit(request_cls(uid, prompt, max_new))
+            uid, (prompt, max_new, _, *eos) = pending.pop(0)
+            eng.submit(request_cls(uid, prompt, max_new,
+                                   eos_token=eos[0] if eos else None))
         busy = eng.tick()
         tick += 1
     return {r.uid: r for r in eng.done}
 
 
 def compare_streams(label, got, refs, gaps):
-    """Every stream of ``got`` ({uid: Request}) must equal ``refs``
-    ({uid: tokens}); on a difference the reference's top-2 logit gap at
-    that step is printed (``gaps[uid][step]``) and the check fails."""
+    """Every stream of ``got`` ({uid: Request or tokens}) must equal
+    ``refs`` ({uid: tokens}); on a difference the reference's top-2 logit
+    gap at that step is printed (``gaps[uid][step]``) and the check
+    fails."""
     for uid, ref in refs.items():
-        mine = got[uid].out_tokens
+        mine = getattr(got[uid], "out_tokens", got[uid])
         if mine != ref:
             i = next((j for j, (a, b) in enumerate(zip(mine, ref))
                       if a != b), min(len(mine), len(ref)))
@@ -1389,13 +1408,17 @@ def compare_streams(label, got, refs, gaps):
 
 def watch_engine(eng, model, max_seq):
     """Wrap a paged or dense engine's steps so that every logit they
-    produce is checked for finiteness and, for plain decode steps, each
-    slot's top-2 logit gap is recorded per (uid, token index)."""
+    produce is checked for finiteness and, for plain decode steps of a
+    sync engine, each slot's top-2 logit gap is recorded per (uid, token
+    index).  An overlapped engine records no gap: reading one back would
+    sync the host with every step."""
     finite, gaps = [], {}
+    record_gaps = not eng._overlap
 
     def serve_step(params, cache, tokens, cache_index, block_tables=None):
         live = [(s, r.uid, len(r.out_tokens))
-                for s, r in enumerate(eng._slot_req) if r is not None]
+                for s, r in enumerate(eng._slot_req)
+                if r is not None and record_gaps]
         logits, cache = model.decode_step(params, cache, tokens, cache_index,
                                           block_tables=block_tables)
         finite.append(torch.isfinite(logits).all())
@@ -1424,6 +1447,21 @@ def watch_engine(eng, model, max_seq):
     if eng.paged:
         eng._prefill_suffix_paged = prefill
     return finite, gaps
+
+
+def unwatch(eng):
+    """Give a watched engine its own steps back (the watch's gap records
+    sync the host, which the sync counts must not see)."""
+    from repro_torch.serving import engine as E
+    if eng.plan is not None:
+        del eng._rt.walk, eng._rt.head
+        return
+    eng.serve_step = E.make_serve_step(eng.model)
+    if eng._spec_k:
+        eng._verify_step = E.make_verify_step(eng.model)
+    if eng.paged:
+        eng._prefill_suffix_paged = E.make_prefill_suffix_paged_step(
+            eng.model, eng.max_seq)
 
 
 def watch_plan_engine(eng):
@@ -1464,26 +1502,31 @@ def tally_calls(name, key):
         setattr(module, name, fn)
 
 
-def run_plan_engine(label, model, params, sched, splan, path, max_seq,
-                    **kw):
-    """One plan-driven engine over ``sched``, the launch counters of the
-    kernels in ``path`` zeroed just before and read just after; each must
-    have launched, and every logit must be finite.  Returns (engine,
-    {uid: Request}, launches)."""
+def run_engine(label, model, params, sched, path, max_seq, slots, **kw):
+    """One engine (monolithic, or plan-driven with ``plan=``) over
+    ``sched``, the launch counters of the kernels in ``path`` zeroed just
+    before and read just after; each must have launched, every logit must
+    be finite, and an overlapped engine must end with nothing in flight.
+    Returns (engine, {uid: Request}, launches)."""
     from repro_torch.serving import Request, ServingEngine
-    eng = ServingEngine(model, params, slots=splan.slots, max_seq=max_seq,
-                        plan=splan, **kw)
-    finite = watch_plan_engine(eng)
+    eng = ServingEngine(model, params, slots=slots, max_seq=max_seq, **kw)
+    if eng.plan is not None:
+        finite = watch_plan_engine(eng)
+    else:
+        finite, _ = watch_engine(eng, model, max_seq)
     for fn in path.values():
         fn.launches = 0
     got = run_schedule(eng, sched, Request)
     torch.cuda.synchronize()
     launches = {name: fn.launches for name, fn in path.items()}
-    print(f"[plan] {label}: {len(got)} requests, chunks per admission "
+    tag = "[plan]" if eng.plan is not None else "[overlap]"
+    print(f"{tag} {label}: {len(got)} requests, chunks per admission "
           f"{eng.prefill_chunk_counts}, launches {json.dumps(launches)}")
     check(bool(torch.stack(finite).all()), f"{label}: non-finite logits")
     check(all(n > 0 for n in launches.values()),
           f"{label}: a kernel of the path never launched: {launches}")
+    check(eng._overlap == bool(kw.get("overlap")) and not eng._inflight,
+          f"{label}: the engine did not run the runtime it was given")
     return eng, got, launches
 
 
@@ -1528,9 +1571,10 @@ def plan_parity_phase(dev, kernels):
     # (B, S, H, D) queries and keys
     with tally_calls("dispatch_flash_attention",
                      lambda q, k, *_: (q.shape[1], k.shape[1])) as tally:
-        _, got, launches["dense"] = run_plan_engine(
-            "dense fp", model, params, sched, splan,
-            {"flash_attention": kernels["flash_attention"]}, max_seq)
+        _, got, launches["dense"] = run_engine(
+            "dense fp", model, params, sched,
+            {"flash_attention": kernels["flash_attention"]}, max_seq,
+            splan.slots, plan=splan)
     compare_streams("plan dense fp vs one-shot gold", got, golds, gaps)
     # a continuation attends the ring's rows beside its own keys
     cont = sum(n for (sq, skv), n in tally.items() if skv > sq)
@@ -1539,10 +1583,10 @@ def plan_parity_phase(dev, kernels):
     print(f"[plan] dense fp: flash launches by shape "
           f"{json.dumps(flash_shapes)}: {cont} continuation chunks, "
           f"{launches['dense']['flash_attention'] - cont} chunk-0 passes")
-    eng, got, launches["paged"] = run_plan_engine(
-        "paged fp", model, params, sched, splan,
+    eng, got, launches["paged"] = run_engine(
+        "paged fp", model, params, sched,
         {k: kernels[k] for k in ("fused_paged_decode", "paged_prefill")},
-        max_seq, paged=True, page_size=16)
+        max_seq, splan.slots, plan=splan, paged=True, page_size=16)
     compare_streams("plan paged fp vs one-shot gold", got, golds, gaps)
     st = eng.cache_stats()
     check(st["prefill_compute_hits"] >= 1
@@ -1564,12 +1608,13 @@ def plan_parity_phase(dev, kernels):
             break
     else:
         check(False, "no schedule variant makes the drafter propose")
-    eng, got, launches["int8_spec"] = run_plan_engine(
-        "paged int8 speculate=4", model, params, sched, splan,
+    eng, got, launches["int8_spec"] = run_engine(
+        "paged int8 speculate=4", model, params, sched,
         {"fused_paged_decode": kernels["fused_paged_decode"],
          "paged_prefill": kernels["paged_prefill"],
          "paged_verify": kernels["paged_verify"]},
-        max_seq, paged=True, page_size=16, kv_dtype="int8", speculate=4)
+        max_seq, splan.slots, plan=splan, paged=True, page_size=16,
+        kv_dtype="int8", speculate=4)
     compare_streams("plan paged int8 speculate=4 vs monolithic int8 "
                     "speculate=0", got, ref, {})
     spec = {k: eng.stats()[k] for k in ("spec_steps", "spec_proposed",
@@ -1581,6 +1626,109 @@ def plan_parity_phase(dev, kernels):
     torch.cuda.empty_cache()
     return dict(launches=launches, spec=spec,
                 flash_shapes=flash_shapes, flash_continuations=cont)
+
+
+def eos_schedule(golds, sched):
+    """``sched`` with one request retiring on EOS: the first request
+    whose gold stream has, from index 2 on and before its last token, a
+    token it has not emitted before; that token is its EOS.  Returns
+    (schedule, golds cut at that token, the request's uid)."""
+    for uid, g in golds.items():
+        j = next((i for i in range(2, len(g) - 1) if g[i] not in g[:i]),
+                 None)
+        if j is not None:
+            out = [(p, m, t, g[j] if u == uid else None)
+                   for u, (p, m, t) in enumerate(sched)]
+            return out, {**golds, uid: g[:j + 1]}, uid
+    check(False, "no gold stream has a fresh token to retire on")
+
+
+def overlap_parity_phase(dev, kernels):
+    """Phase 4, overlap: f32 yi-6b at full width, 2 layers, served with
+    ``overlap=True`` (decode step N+1 dispatched before step N drains):
+    monolithic dense and paged, and ``uniform_plan(2, 2,
+    n_microbatches=2)`` at chunk 16, dense and paged, on parity_phase's
+    staggered schedule (4 slots; a warm-prefix admission), and the paged
+    engines, monolithic and plan, on a readmission schedule (5 requests
+    through 2 slots, one retiring on EOS).  Every stream must equal the
+    one-shot gold, and each path's kernels must have launched.  Then one
+    traced paged plan run (sync, so that its steps are ``decode`` spans)
+    must give the untraced run's streams, and its Perfetto object must
+    validate."""
+    from repro_torch.configs import REGISTRY
+    from repro_torch.models import build_model
+    from repro_torch.obs import to_perfetto, validate_perfetto
+    from repro_torch.plan import lower_serving, uniform_plan
+    cfg = dataclasses.replace(REGISTRY["yi-6b"], num_layers=2,
+                              dtype="float32", param_dtype="float32")
+    model = build_model(cfg, device=dev)
+    params = model.init(torch.Generator(device=dev).manual_seed(1))
+    rng = np.random.default_rng(1)
+    v = cfg.vocab_size
+
+    def toks(n):
+        return rng.integers(1, v, n).astype(np.int32)
+
+    prefix = toks(64)             # parity_phase's schedule, drawn alike
+    sched = [(np.concatenate([prefix, toks(16)]), 4, 0),
+             (toks(50), 10, 0), (toks(120), 8, 0), (toks(33), 12, 1),
+             (np.concatenate([prefix, toks(30)]), 10, 3),   # warm prefix
+             (toks(70), 9, 5)]
+    readmit = [(toks(40), 6, 0), (toks(25), 10, 0), (toks(60), 5, 1),
+               (toks(18), 8, 2), (toks(33), 7, 3)]
+    max_seq = 256
+    golds, gaps = {}, {}
+    for name, sc in (("staggered", sched), ("readmit", readmit)):
+        golds[name], gaps[name] = {}, {}
+        for uid, (prompt, max_new, _) in enumerate(sc):
+            golds[name][uid], lgs = gold_decode(model, params, prompt,
+                                                max_new, max_seq)
+            gaps[name][uid] = [top2_gap(x) for x in lgs]
+    readmit, golds["readmit"], eos_uid = eos_schedule(golds["readmit"],
+                                                      readmit)
+    flash = {"flash_attention": kernels["flash_attention"]}
+    paged = {k: kernels[k] for k in ("fused_paged_decode", "paged_prefill")}
+    pkw = dict(paged=True, page_size=16)
+    plan4 = lower_serving(uniform_plan(cfg.num_groups, 2, n_microbatches=2),
+                          slots=4, chunk=16)
+    plan2 = lower_serving(uniform_plan(cfg.num_groups, 2, n_microbatches=2),
+                          slots=2, chunk=16)
+    runs = [("mono dense", "staggered", flash, 4, {}),
+            ("mono paged", "staggered", paged, 4, pkw),
+            ("plan dense", "staggered", flash, 4, {"plan": plan4}),
+            ("plan paged", "staggered", paged, 4, {"plan": plan4, **pkw}),
+            ("mono paged readmission + EOS", "readmit", paged, 2, pkw),
+            ("plan paged readmission + EOS", "readmit", paged, 2,
+             {"plan": plan2, **pkw})]
+    launches, streams = {}, {}
+    for label, name, path, slots, kw in runs:
+        sc = sched if name == "staggered" else readmit
+        eng, got, launches[label] = run_engine(
+            f"f32 {label} overlap", model, params, sc, path, max_seq, slots,
+            overlap=True, **kw)
+        compare_streams(f"f32 {label} overlap vs one-shot gold", got,
+                        golds[name], gaps[name])
+        streams[label] = {u: r.out_tokens for u, r in got.items()}
+    eos_len = len(streams["mono paged readmission + EOS"][eos_uid])
+    print(f"[overlap] the EOS request (uid {eos_uid}) retired after "
+          f"{eos_len} tokens of its {readmit[eos_uid][1]}")
+    check(eos_len < readmit[eos_uid][1], "the EOS request ran to its budget")
+
+    eng, got, _ = run_engine("f32 plan paged traced", model, params, sched,
+                             paged, max_seq, 4, plan=plan4, trace=True,
+                             **pkw)
+    compare_streams("f32 plan paged traced vs untraced", got,
+                    streams["plan paged"], gaps["staggered"])
+    obj = to_perfetto(eng._tr)
+    names = ("prefill_chunk", "decode", "admit", "retire", "submit")
+    problems = validate_perfetto(obj, require_names=names)
+    print(f"[overlap] traced plan run: {eng._tr.events} records, "
+          f"{len(obj['traceEvents'])} trace events, problems {problems}")
+    check(not problems, f"the traced plan run's Perfetto object: {problems}")
+    del eng, params
+    torch.cuda.empty_cache()
+    return dict(launches=launches, eos_tokens=eos_len,
+                trace_records=len(obj["traceEvents"]))
 
 
 def would_draft(sched, streams, k=4):
@@ -1729,7 +1877,8 @@ def hybrid_parity_phase(dev, kernels):
     fp run's first tokens.  Then the same schedule through a 1-stage plan
     with 2 decode replicas and chunk 16 on the paged engine (chunked mamba:
     the selective scan from the state the previous chunk left; the unfused
-    decode per replica) must give the gold's streams too."""
+    decode per replica) must give the gold's streams too, and so must the
+    paged engine with ``overlap=True``."""
     from repro_torch.configs import REGISTRY
     from repro_torch.models import build_model
     from repro_torch.plan import lower_serving, uniform_plan
@@ -1795,12 +1944,20 @@ def hybrid_parity_phase(dev, kernels):
     splan = lower_serving(uniform_plan(cfg.num_groups, 1, n_microbatches=2),
                           slots=4, chunk=16)
     print(f"[plan] hybrid: {splan.describe()}")
-    _, got, plan_launches = run_plan_engine(
-        "hybrid paged fp", model, params, sched, splan,
-        {k: kernels[k] for k in ("mamba_scan_fused", "linear_scan",
-                                 "paged_attention", "paged_prefill")},
-        max_seq, paged=True, page_size=16)
+    hybrid_path = {k: kernels[k] for k in ("mamba_scan_fused", "linear_scan",
+                                           "paged_attention",
+                                           "paged_prefill")}
+    _, got, plan_launches = run_engine(
+        "hybrid paged fp", model, params, sched, hybrid_path, max_seq,
+        splan.slots, plan=splan, paged=True, page_size=16)
     compare_streams("hybrid plan paged fp vs one-shot gold", got, golds,
+                    gaps)
+    # the overlapped runtime on the hybrid: unfused decode and linear scan
+    # dispatched a step ahead of the drain
+    _, got, overlap_launches = run_engine(
+        "hybrid paged fp overlap", model, params, sched, hybrid_path,
+        max_seq, 4, paged=True, page_size=16, overlap=True)
+    compare_streams("hybrid paged fp overlap vs one-shot gold", got, golds,
                     gaps)
 
     # paged prefill + unfused decode against the full forward
@@ -1836,7 +1993,8 @@ def hybrid_parity_phase(dev, kernels):
     return dict(logit_rel_err=worst,
                 int8_equal_fp_gold=sum(streams["paged int8"][u] == golds[u]
                                        for u in golds),
-                plan_launches=plan_launches)
+                plan_launches=plan_launches,
+                overlap_launches=overlap_launches)
 
 
 def serve_prompts(cfg, seed, repeat_segment):
@@ -1867,10 +2025,11 @@ def serve_run(label, model, params, prompts, kernels, new=64, **engine_kw):
     max_seq = 1024
     eng = ServingEngine(model, params, slots=4, max_seq=max_seq, paged=True,
                         page_size=16, **engine_kw)
+    gaps = {}
     if eng.plan is not None:
         finite = watch_plan_engine(eng)
     else:
-        finite, _ = watch_engine(eng, model, max_seq)
+        finite, gaps = watch_engine(eng, model, max_seq)
     draft_s = [0.0]                     # host time of prompt-lookup drafting
     if eng._spec_k:
         draft_all = eng._draft_all
@@ -1913,7 +2072,8 @@ def serve_run(label, model, params, prompts, kernels, new=64, **engine_kw):
           f"{st['tokens_per_step']:.4f}, kv {st['cache']['kv_dtype']} "
           f"kv_capacity_x {st['cache']['kv_capacity_x']:.4f}; drafting "
           f"{draft_s[0]:.4f} s of host time")
-    print(f"[serve] {label}: phase_time_s {json.dumps(st['phase_time_s'])}")
+    print(f"[serve] {label}: phase_time_s {json.dumps(st['phase_time_s'])}; "
+          f"runtime {'overlap' if eng._overlap else 'sync'}")
     print(f"[serve] {label}: prefill phase "
           f"{st['phase_time_s']['prefill']:.4f} s; first-wave TTFT "
           f"{json.dumps([round(t, 4) for t in wave])} s; peak device memory "
@@ -1935,7 +2095,122 @@ def serve_run(label, model, params, prompts, kernels, new=64, **engine_kw):
         spec={k: st[k] for k in ("spec_steps", "spec_proposed",
                                  "spec_accepted", "acceptance_rate",
                                  "tokens_per_step")},
-        first_tokens=[done[u].out_tokens[0] for u in sorted(done)])
+        utilization=st["utilization"],
+        first_tokens=[done[u].out_tokens[0] for u in sorted(done)],
+        streams={u: done[u].out_tokens for u in sorted(done)}, gaps=gaps)
+
+
+def dispatch_without_sync(label, eng, prompts, request_cls):
+    """One overlapped decode dispatch of a served engine under
+    ``torch.cuda.set_sync_debug_mode("error")``: a host sync anywhere in
+    it (a blocking copy, a read of a device value) raises, and the check
+    fails.  Four short requests give the step its slots."""
+    for uid, p in enumerate(prompts):
+        eng.submit(request_cls(300 + uid, p[:100], 8))
+    while not (eng.active and eng._inflight):
+        eng.tick()
+    torch.cuda.synchronize()
+    err = None
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        eng._dispatch_decode()
+    except RuntimeError as e:
+        err = str(e).splitlines()[0]
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    print(f"[syncs] {label}: one overlapped dispatch ({eng.active} active "
+          f"slots) under sync debug mode 'error': "
+          f"{'no host sync' if err is None else err}")
+    check(err is None, f"{label}: the overlapped dispatch synced the host")
+    eng.run()
+
+
+def syncs_per_tick(label, eng, prompts, request_cls):
+    """Host syncs a decode tick, counted by
+    ``torch.cuda.set_sync_debug_mode("warn")`` over a window of four
+    requests of 16 tokens (admitted before the window), with the Python
+    line that each sync came from.  Waits on a CUDA event (the overlapped
+    drain's) are not what the mode counts.  Printed, not checked."""
+    for uid, p in enumerate(prompts):
+        eng.submit(request_cls(200 + uid, p[:100], 16))
+    while eng.queue or (eng._pf is not None and eng._pf.busy):
+        eng.tick()
+    torch.cuda.synchronize()
+    ticks = 0
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            busy = True
+            while busy:
+                busy = eng.tick()
+                ticks += 1
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    sites = collections.Counter(
+        f"{os.path.relpath(w.filename, HERE)}:{w.lineno}" for w in caught
+        if "synchroniz" in str(w.message))
+    n = sum(sites.values())
+    print(f"[syncs] {label}: {n} host syncs in {ticks} decode ticks "
+          f"({n / ticks:.2f} a tick); by site "
+          f"{json.dumps(sites.most_common(8))}")
+    return dict(syncs=n, ticks=ticks, per_tick=n / ticks,
+                sites=dict(sites.most_common(8)))
+
+
+def trace_window(label, eng, prompts, request_cls):
+    """Trace a short served window of a served engine (tracing enabled
+    mid-serve) and write its Perfetto JSON to ``chiprun_out/``; the
+    object must validate with the window's spans present."""
+    from repro_torch.obs import to_perfetto, validate_perfetto
+    tr = eng.enable_trace()
+    for uid, p in enumerate(prompts):
+        eng.submit(request_cls(400 + uid, p[:100], 16))
+    eng.run()
+    out_dir = os.path.join(HERE, "chiprun_out")
+    os.makedirs(out_dir, exist_ok=True)
+    path = os.path.join(out_dir, f"{label}_trace.json")
+    eng.write_trace(path)
+    with open(path) as f:
+        obj = json.load(f)
+    names = ("prefill" if eng.plan is None else "prefill_chunk", "admit",
+             "retire", "submit",
+             *(("decode_dispatch", "drain") if eng._overlap else
+               ("decode",)))
+    problems = validate_perfetto(obj, require_names=names)
+    print(f"[trace] {label}: {tr.events} records ({tr.dropped} dropped) "
+          f"written to chiprun_out/{label}_trace.json; problems {problems}")
+    check(not problems and len(obj["traceEvents"])
+          == len(to_perfetto(tr)["traceEvents"]),
+          f"{label}: the trace file does not validate: {problems}")
+    return dict(records=tr.events, path=f"chiprun_out/{label}_trace.json")
+
+
+def print_overlap(name, ov, base):
+    """An overlapped serve's numbers beside its sync run's."""
+    def p50(t):
+        return t[len(t) // 2]
+    rows = [("tok/s", ov["tok_s"], base["tok_s"], ""),
+            ("TTFT p50", p50(ov["ttft_s"]), p50(base["ttft_s"]), " s"),
+            ("TTFT max", ov["ttft_s"][-1], base["ttft_s"][-1], " s"),
+            ("prefill phase", ov["phase_time_s"]["prefill"],
+             base["phase_time_s"]["prefill"], " s"),
+            ("host tick", ov["tick_s"] * 1e3, base["tick_s"] * 1e3, " ms"),
+            ("host_sync bucket", ov["phase_time_s"]["host_sync"],
+             base["phase_time_s"]["host_sync"], " s"),
+            ("device busy share", ov["profile"]["busy_share"],
+             base["profile"]["busy_share"], ""),
+            ("device ms per tick", sum(ov["profile"]["per_tick_ms"].values()),
+             sum(base["profile"]["per_tick_ms"].values()), " ms"),
+            ("peak device memory", ov["peak_memory_gb"],
+             base["peak_memory_gb"], " GB"),
+            ("warm admissions", ov["cache"]["prefill_compute_hits"],
+             base["cache"]["prefill_compute_hits"], ""),
+            ("reused prefix tokens", ov["cache"]["reused_prefill_tokens"],
+             base["cache"]["reused_prefill_tokens"], "")]
+    for key, a, b, unit in rows:
+        ratio = f" ({a / b:.3f}x)" if b else ""
+        print(f"[serve] {name}, {key}: {a:.4f} vs {b:.4f}{unit}{ratio}")
 
 
 def serve_phase(dev, kernels):
@@ -1976,6 +2251,25 @@ def serve_phase(dev, kernels):
           f"a kernel of the fp path never launched: {fp['launches']}")
     fp["forward_argmax_matches"] = same
     fp["profile"] = profile_decode(eng, prompts[4:], Request)
+    unwatch(eng)
+    syncs = {"serve-full": syncs_per_tick("serve-full", eng, prompts[4:],
+                                          Request)}
+    del eng
+    torch.cuda.empty_cache()
+
+    # serve-overlap: serve-full's model, requests and engine, overlapped
+    paged = {k: kernels[k] for k in ("fused_paged_decode", "paged_prefill")}
+    eng, ov = serve_run("fp paged overlap", model, params, prompts, paged,
+                        overlap=True)
+    ov["profile"] = profile_decode(eng, prompts[4:], Request)
+    unwatch(eng)
+    dispatch_without_sync("serve-overlap", eng, prompts[4:], Request)
+    syncs["serve-overlap"] = syncs_per_tick("serve-overlap", eng,
+                                            prompts[4:], Request)
+    ov["trace"] = trace_window("serve_overlap", eng, prompts[4:], Request)
+    print_overlap("serve-overlap vs serve-full", ov, fp)
+    compare_streams("serve-overlap vs serve-full (bf16)", ov["streams"],
+                    fp["streams"], fp["gaps"])
     del eng
     torch.cuda.empty_cache()
 
@@ -2002,6 +2296,9 @@ def serve_phase(dev, kernels):
           f"{json.dumps(dict(sorted(chunk_shapes.items())))}")
     pl["plan"] = splan.describe()
     pl["profile"] = profile_decode(eng, prompts[4:], Request)
+    unwatch(eng)
+    syncs["serve-plan"] = syncs_per_tick("serve-plan", eng, prompts[4:],
+                                         Request)
     for key, unit in (("tok_s", ""), ("tick_s", " s"), ("peak_memory_gb",
                                                          " GB")):
         print(f"[serve] serve-plan vs serve-full, {key}: {pl[key]:.4f} vs "
@@ -2019,6 +2316,20 @@ def serve_phase(dev, kernels):
     del eng
     torch.cuda.empty_cache()
 
+    # serve-plan-overlap: serve-plan, overlapped
+    eng, plo = serve_run("plan hybrid:2 paged overlap", model, params,
+                         prompts, paged, plan=splan, overlap=True)
+    plo["profile"] = profile_decode(eng, prompts[4:], Request)
+    unwatch(eng)
+    dispatch_without_sync("serve-plan-overlap", eng, prompts[4:], Request)
+    syncs["serve-plan-overlap"] = syncs_per_tick(
+        "serve-plan-overlap", eng, prompts[4:], Request)
+    print_overlap("serve-plan-overlap vs serve-plan", plo, pl)
+    compare_streams("serve-plan-overlap vs serve-plan (bf16)",
+                    plo["streams"], pl["streams"], {})
+    del eng
+    torch.cuda.empty_cache()
+
     int8_kernels = {"fused_paged_decode_int8": kernels["fused_paged_decode"],
                     "paged_prefill_int8": kernels["paged_prefill"],
                     "paged_verify": kernels["paged_verify"]}
@@ -2026,8 +2337,11 @@ def serve_phase(dev, kernels):
     eng, q8 = serve_run("int8 speculate=4", model, params, prompts,
                         int8_kernels, kv_dtype="int8", speculate=4)
     q8["profile"] = profile_decode(eng, prompts[4:], Request)
-    return dict(fp=fp, int8_spec=q8, plan=pl,
-                launches={**fp["launches"], **q8["launches"]})
+    unwatch(eng)
+    syncs["serve-int8-spec"] = syncs_per_tick("serve-int8-spec", eng,
+                                              prompts[4:], Request)
+    return dict(fp=fp, int8_spec=q8, plan=pl, overlap=ov, plan_overlap=plo,
+                syncs=syncs, launches={**fp["launches"], **q8["launches"]})
 
 
 def serve_hybrid_phase(dev, kernels):
@@ -2057,6 +2371,8 @@ def serve_hybrid_phase(dev, kernels):
           and eng._spec_k == 0, "the hybrid engine must prefill at the "
           "exact length, without compute reuse or speculation")
     hy["profile"] = profile_decode(eng, prompts[4:], Request)
+    unwatch(eng)
+    hy["syncs"] = syncs_per_tick("serve-hybrid", eng, prompts[4:], Request)
     return hy
 
 
@@ -2203,6 +2519,7 @@ def main():
         parity = parity_phase(dev)
         parity["plan"] = plan_parity_phase(dev, kernels)
         parity["hybrid"] = hybrid_parity_phase(dev, kernels)
+        parity["overlap"] = overlap_parity_phase(dev, kernels)
         print(f"[parity] phase {time.perf_counter() - t0:.1f} s")
         t0 = time.perf_counter()
         served = serve_phase(dev, kernels)

@@ -13,6 +13,8 @@ default.
         --strategy hybrid:2 --replicas 2 --chunk 128 --max-seq 1024
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \\
         --layers 4 --paged --strategy pipeline:2 --replicas 2 --chunk 4
+    PYTHONPATH=src python -m repro_torch.launch.serve --paged --overlap \\
+        --trace serve.json --metrics-out serve.prom
 
 The model is the registry config at its published width (yi-6b: d_model
 4096, 32 heads, 4 KV heads, head_dim 128; the jamba hybrid with dense
@@ -27,8 +29,14 @@ cache (flash attention at admission).  ``--prefix-cache`` /
 reuse.  ``--kv-dtype int8`` (paged only) stores the pools as int8 rows
 with per-row scales; ``--speculate K`` drafts up to K tokens per slot by
 prompt lookup and verifies them in one batched step (``--no-speculate``
-forces it off).  ``--device cpu`` runs the plain PyTorch versions instead
-of the CUDA kernels.
+forces it off).  ``--overlap`` dispatches decode step N+1 before step N's
+tokens are read back (the streams stay the same; an effective
+``--speculate`` runs sync, and the line says ``overlap=sync(spec)``).
+``--trace OUT.json`` records the engine's spans and writes them as
+Perfetto trace_event JSON; ``--metrics-out OUT.prom`` writes the
+Prometheus text metrics (TTFT/TPOT histograms, utilization gauges) after
+the run.  ``--device cpu`` runs the plain PyTorch versions instead of the
+CUDA kernels.
 
 Plan-driven serving, as the JAX launcher's: ``--strategy pipeline:S``
 serves a uniform S-stage cut, ``--strategy hybrid:N`` the SSR search's
@@ -51,6 +59,7 @@ import torch
 
 from repro_torch.configs import REGISTRY, ShapeConfig
 from repro_torch.models import build_model
+from repro_torch.obs import write_metrics
 from repro_torch.serving import Request, ServingEngine
 
 
@@ -133,9 +142,22 @@ def main(argv=None):
                          "to plain decode (0: disabled)")
     ap.add_argument("--no-speculate", action="store_const", const=0,
                     dest="speculate", help="force speculation off")
+    ap.add_argument("--overlap", action=argparse.BooleanOptionalAction,
+                    default=False,
+                    help="overlapped runtime: dispatch decode step N+1 "
+                         "before draining step N's tokens (same streams; "
+                         "an effective --speculate runs sync)")
     ap.add_argument("--kv-dtype", default="fp", choices=("fp", "int8"),
                     help="with --paged: K/V block-pool storage dtype; int8 "
                          "adds per-row scales for ~1.9x capacity in bf16")
+    ap.add_argument("--trace", default=None, metavar="OUT.json",
+                    help="record engine and request lifecycle spans and "
+                         "write them here as Chrome/Perfetto trace_event "
+                         "JSON")
+    ap.add_argument("--metrics-out", default=None, metavar="OUT.prom",
+                    help="write Prometheus text-format metrics (TTFT/TPOT "
+                         "histograms, utilization gauges) here after the "
+                         "run")
     ap.add_argument("--device", default="cuda",
                     help="cuda (hand-written kernels) or cpu (plain "
                          "PyTorch versions)")
@@ -173,7 +195,8 @@ def main(argv=None):
                         max_seq=args.max_seq, plan=splan, paged=args.paged,
                         page_size=args.page_size, num_blocks=args.num_blocks,
                         prefix_cache=prefix_cache, speculate=args.speculate,
-                        kv_dtype=args.kv_dtype)
+                        overlap=args.overlap, kv_dtype=args.kv_dtype,
+                        trace=bool(args.trace))
     eos = None if args.eos < 0 else args.eos
     rng = np.random.default_rng(0)
     t0 = time.perf_counter()
@@ -202,6 +225,8 @@ def main(argv=None):
         if c["kv_dtype"] != "fp":
             extra += (f", kv={c['kv_dtype']}"
                       f" capacity_x={c['kv_capacity_x']:.1f}")
+    if args.overlap:
+        extra += ", overlap=" + ("on" if eng._overlap else "sync(spec)")
     if st["spec_steps"]:
         extra += (f", spec k={args.speculate}: "
                   f"tok_per_step={st['tokens_per_step']:.2f}"
@@ -213,6 +238,13 @@ def main(argv=None):
           f"{st['gen_tokens'] / wall:.1f} tok/s, "
           f"occupancy={st['slot_occupancy']:.2f}, "
           f"kernels={st['kernel_path']}{extra}")
+    if args.trace:
+        eng.write_trace(args.trace)
+        print(f"[serve] trace: {args.trace} ({eng._tr.events} events"
+              f", {eng._tr.dropped} dropped)")
+    if args.metrics_out:
+        write_metrics(eng.export_metrics(), args.metrics_out)
+        print(f"[serve] metrics: {args.metrics_out}")
 
 
 if __name__ == "__main__":

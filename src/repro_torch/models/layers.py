@@ -319,7 +319,7 @@ def multi_head_attention(p, x, cfg: ModelConfig, *, kv_cache=None,
                 # ring is position-ordered, so the valid keys sum in the
                 # one-shot prefill's order
                 k_pos_old, k_valid_old = ring_k_positions(
-                    torch.tensor(offset - 1, device=dev), W)
+                    torch.full((), offset - 1, device=dev), W)
                 out = _attend(
                     q, torch.cat([kc.to(dt), k], dim=1),
                     torch.cat([vc.to(dt), v], dim=1), cfg, q_pos=q_pos,
@@ -355,7 +355,7 @@ def multi_head_attention(p, x, cfg: ModelConfig, *, kv_cache=None,
             kc[:, slots] = k.to(kc.dtype)
             vc[:, slots] = v.to(vc.dtype)
             k_pos, k_valid = ring_k_positions(
-                torch.tensor(offset + s - 1, device=dev), W)
+                torch.full((), offset + s - 1, device=dev), W)
             out = _attend(q, kc, vc, cfg, q_pos=q_pos, k_pos=k_pos,
                           k_valid=k_valid, causal=True, window=0, dt=dt)
 

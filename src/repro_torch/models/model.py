@@ -22,8 +22,12 @@ from repro_torch.models import transformer as T
 
 
 def _tokens(x, device):
+    """Token ids as an int64 tensor on ``device``; a host array reaches a
+    CUDA device through pinned memory without a host sync."""
     if isinstance(x, np.ndarray):
         x = torch.from_numpy(x.astype(np.int64))
+        if torch.device(device).type == "cuda":
+            return x.pin_memory().to(device, non_blocking=True)
     return torch.as_tensor(x, device=device).long()
 
 

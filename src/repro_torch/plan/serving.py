@@ -32,6 +32,7 @@ per-item runtimes) is not ported yet.
 """
 from __future__ import annotations
 
+import time
 from dataclasses import dataclass, field
 from typing import Any, List
 
@@ -198,12 +199,15 @@ class PrefillPipeline:
     (the stages stand for distinct accelerators), and the chunks of one
     request stay in order (a chunk never enters a stage before its
     predecessor has left it: its stage-range cache writes land first).
-    ``step`` returns the items that finished this tick."""
+    ``step`` returns the items that finished this tick.  With a
+    ``tracer`` (``repro_torch.obs.Tracer``) every stage-step of a chunk
+    records a ``prefill_chunk`` span on its stage's track."""
 
-    def __init__(self, runtime: PlanRuntime, params):
+    def __init__(self, runtime: PlanRuntime, params, tracer=None):
         self.rt = runtime
         self.params = params
         self.items: List[_PrefillItem] = []
+        self.tracer = tracer
         self.last_stages_run: frozenset = frozenset()  # stages that ran a
         #                                 chunk in the last step()
 
@@ -236,13 +240,21 @@ class PrefillPipeline:
             bt=bt, wt=wt))
 
     def _run_stage(self, it: _PrefillItem, si: int, cont: bool, hidden,
-                   pos_base: int, caches):
-        """Execute one stage for one chunk; paged items go through their
-        replica's cache view."""
-        return prefill_stage(
+                   pos_base: int, caches, ci: int):
+        """Execute one stage for chunk ``ci`` of an item; paged items go
+        through their replica's cache view."""
+        tr = self.tracer
+        t0 = time.perf_counter() if tr is not None else 0.0
+        out = prefill_stage(
             self.rt.model, self.rt.splan.plan, self.params, si, cont, hidden,
             pos_base, it.part_cache,
             None if it.bt is None else caches[it.replica], it.bt, it.wt)
+        if tr is not None:
+            tr.span(("stage", si), "prefill_chunk", t0, args={
+                "uid": int(getattr(it.req, "uid", -1)), "slot": it.slot,
+                "replica": it.replica, "chunk": ci,
+                "tokens": int(hidden.shape[1]), "cont": bool(cont)})
+        return out
 
     def _chunk_exited(self, it: _PrefillItem, fl: _Flight, finished,
                       on_chunk):
@@ -279,7 +291,7 @@ class PrefillPipeline:
             occupied.add(fl.si)
             fl.hidden = self._run_stage(
                 it, fl.si, fl.ci > 0 or it.reused > 0, fl.hidden,
-                fl.pos_base, caches)
+                fl.pos_base, caches, fl.ci)
             fl.si += 1
             if fl.si == n_stages:
                 it.flight.remove(fl)
@@ -298,7 +310,7 @@ class PrefillPipeline:
             hidden = _embed(self.rt.model, self.params, {"tokens": tokens})
             hidden = self._run_stage(
                 it, 0, it.next_chunk > 0 or it.reused > 0, hidden,
-                pos_base, caches)
+                pos_base, caches, it.next_chunk)
             fl = _Flight(ci=it.next_chunk, si=1, hidden=hidden,
                          pos_base=pos_base)
             it.next_chunk += 1

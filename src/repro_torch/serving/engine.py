@@ -1,6 +1,6 @@
-"""Serving engine of the port: per-slot continuous batching, synchronous,
-over a dense or a paged KV cache, with int8 paged pools, prompt-lookup
-speculative decoding, and plan-driven serving.
+"""Serving engine of the port: per-slot continuous batching over a dense or
+a paged KV cache, with int8 paged pools, prompt-lookup speculative
+decoding, plan-driven serving, an overlapped decode runtime and tracing.
 
 It serves the dense GQA decoders and the attention + mamba hybrid (jamba
 with dense FFNs): a hybrid's mamba state is dense per slot beside the
@@ -8,10 +8,10 @@ paged attention pools, its prompts prefill at their exact length, and a
 warm prefix shares its blocks' memory but is prefilled in full
 (speculation is off for it, as in JAX).
 
-The counterpart of the JAX package's ``serving/engine.py`` without the
-overlapped runtime, adaptive re-planning and tracing (the constructor
-raises NotImplementedError for ``overlap``, ``adapt`` and ``trace``).  The
-engine owns a slot-indexed cache for its whole lifetime.  Admission prefills one request
+The counterpart of the JAX package's ``serving/engine.py`` without
+adaptive re-planning (the constructor raises NotImplementedError for
+``adapt``).  The engine owns a slot-indexed cache for its whole lifetime.
+Admission prefills one request
 (batch 1) into a free slot: on a dense cache through ``prefill_into_slot``
 (flash attention, then a slot scatter), on a paged cache through
 ``prefill_suffix_paged`` (only the suffix a warm prefix leaves, written
@@ -38,10 +38,33 @@ the paged pools whole), and the pager is engine-wide, so every write of a
 replica's step lands in ``self._cache`` and blocks are shared across
 replicas.
 
+**Overlapped runtime** (``overlap=True``, monolithic or plan-driven):
+decode step N+1 is dispatched before step N's tokens are read back.  Its
+input tokens stay on the device (``_cur_dev``, a buffer every step copies
+its output into); positions and block tables go through fresh pinned host
+buffers with ``non_blocking=True`` copies (a copy from pageable memory
+would wait for step N); and each step's output tokens are copied into
+pinned host memory right after it, with a CUDA event recorded after the
+copies, on which the drain waits.  Every cache write stays on the one
+current stream, so stream order serializes them.  A slot retires one tick
+later than in sync mode; the token streams are the same.  Speculation
+needs its drafts on the host every tick, so an effective ``speculate``
+runs sync.
+
+**Observability**: always on, a ``MetricsRegistry`` (TTFT/TPOT
+histograms, request and token counters, observed at retirement) and the
+per-stage / per-replica utilization accumulators (``stats()
+["utilization"]``); with ``trace=TraceConfig()`` (or True) a
+ring-buffered ``Tracer`` records request-lifecycle and per-stage /
+per-replica spans (``write_trace`` exports Perfetto JSON).  With
+``trace=None`` no record is allocated.
+
 Guarantee (held by ``tests/test_torch_serving.py`` and, for plans,
-``tests/test_torch_plan_serving.py``): each request's token stream equals
+``tests/test_torch_plan_serving.py``, for overlap
+``tests/test_torch_overlap.py``): each request's token stream equals
 the JAX engine's stream for it and, on fp caches, an isolated one-shot
-greedy decode of that request, with or without speculation or a plan.  int8 pools change the numbers the decode sees, so their
+greedy decode of that request, with or without speculation, overlap or a
+plan.  int8 pools change the numbers the decode sees, so their
 streams are held to the JAX engine's int8 streams.
 
 The cache is updated in place: the steps return the same cache object.
@@ -59,6 +82,10 @@ from repro_torch.backend import dispatch
 from repro_torch.cache import ConcurrentPeakTracker, PagedCacheManager
 from repro_torch.models import transformer as T
 from repro_torch.models.model import Model
+from repro_torch.obs import (TPOT_BUCKETS, TTFT_BUCKETS, MetricsRegistry,
+                             TraceConfig, Tracer, TrafficSnapshot,
+                             fold_engine_metrics)
+from repro_torch.obs import write_trace as _write_trace
 from repro_torch.plan.serving import PlanRuntime, PrefillPipeline
 
 
@@ -150,6 +177,24 @@ class Request:
     slot: int = -1
 
 
+@dataclass(eq=False)
+class _Inflight:
+    """One dispatched-but-undrained decode step (overlap mode).
+
+    ``arrs`` holds each decode batch's output tokens as they land on the
+    host (pinned buffers filled by copies enqueued right after the step;
+    on a CPU engine the output tensors themselves), and ``event`` the CUDA
+    event recorded after those copies (None on the CPU).
+    ``in_toks[slot]`` is the token whose K/V the step wrote -- host-known
+    at dispatch only right after activation (the prefill's first token);
+    otherwise it is the PREVIOUS step's output and is filled in when that
+    step drains (always before this record's own drain)."""
+    arrs: List[Any]                   # [(host tokens, a, b)]
+    event: Any
+    entries: List[Any]                # [(slot, req, pos_written)]
+    in_toks: Dict[int, Optional[int]]
+
+
 @dataclass
 class ServingEngine:
     """Continuous batching over a persistent slot-indexed cache.
@@ -181,9 +226,16 @@ class ServingEngine:
     kv_dtype: "int8" stores the paged pools as int8 rows with per-row f32
     scales (needs ``paged=True``); "fp" at the model dtype.
 
-    ``overlap``, ``adapt`` and ``trace`` name the JAX engine's features
-    this port does not have yet: anything but their defaults raises
-    NotImplementedError.
+    overlap: dispatch decode step N+1 before reading step N's tokens back
+    (one-step-delayed drain; see the module docstring).  An effective
+    ``speculate`` forces sync.
+
+    trace: a ``repro_torch.obs.TraceConfig`` (or True for defaults):
+    record spans into a ring-buffered Tracer (``write_trace``).  None: no
+    record is allocated.
+
+    adapt: the JAX engine's live re-planning, not ported yet: anything
+    but None raises NotImplementedError.
     """
     model: Model
     params: Any
@@ -202,14 +254,10 @@ class ServingEngine:
     trace: Optional[Any] = None
 
     def __post_init__(self):
-        for name, off in (("overlap", not self.overlap),
-                          ("adapt", self.adapt is None),
-                          ("trace", not self.trace)):
-            if not off:
-                raise NotImplementedError(
-                    f"ServingEngine({name}=...) is not ported yet: the port "
-                    f"serves the synchronous engine, monolithic or "
-                    f"plan-driven")
+        if self.adapt is not None:
+            raise NotImplementedError(
+                "ServingEngine(adapt=...) is not ported yet: the port serves "
+                "a fixed binding, monolithic or plan-driven")
         self.cfg = self.model.cfg
         self.device = torch.device(self.model.device)
         self.kernel_path = dispatch.kernel_path(self.device)
@@ -280,12 +328,39 @@ class ServingEngine:
         self._reserved = set()           # slots mid-(chunked)-prefill
         self._pos = np.zeros((self.slots,), np.int32)    # tokens in cache
         self._cur = np.zeros((self.slots, 1), np.int32)  # next input token
+        # overlap runtime state (an effective speculate forces sync)
+        self._overlap = bool(self.overlap) and self._spec_k == 0
+        self._inflight: List[_Inflight] = []   # dispatched, undrained steps
+        self._cur_dev = None             # device-side token chain: every
+        #                                  step copies its output here, so
+        #                                  step N+1's inputs never
+        #                                  round-trip through the host
+        self._cur_known = np.ones((self.slots,), bool)  # _cur[s] current?
         self._slot_req: List[Optional[Request]] = [None] * self.slots
         self.queue: List[Request] = []
         self.done: List[Request] = []
+        self._arrival_log = []           # (t_submit, prompt_len, max_new)
         self._peak_tracker = ConcurrentPeakTracker()
         if self._pager is not None:
             self._peak_tracker.attach(self._pager.pool)
+        # always on: the request metrics (observed at retirement) and the
+        # utilization accumulators (integer adds per decode dispatch and
+        # pipeline step).  The Tracer is opt-in: every emission site is
+        # guarded on self._tr, so trace=None allocates no record.
+        self.metrics = MetricsRegistry()
+        self._h_ttft = self.metrics.histogram(
+            "repro_ttft_seconds", TTFT_BUCKETS,
+            help="time to first token per retired request")
+        self._h_tpot = self.metrics.histogram(
+            "repro_tpot_seconds", TPOT_BUCKETS,
+            help="time per output token per retired request")
+        self._c_requests = self.metrics.counter(
+            "repro_requests_total", help="requests retired")
+        self._c_gen = self.metrics.counter(
+            "repro_tokens_generated_total", help="tokens generated")
+        self._tr = None
+        if self.trace:
+            self.enable_trace(self.trace)
         self.reset_stats()
 
     # -- public API --------------------------------------------------------
@@ -296,6 +371,25 @@ class ServingEngine:
                 f"max_seq={self.max_seq} slot cache")
         req.t_submit = time.perf_counter()
         self.queue.append(req)
+        self._arrival_log.append((req.t_submit, len(req.prompt),
+                                  req.max_new_tokens))
+        if len(self._arrival_log) > 4 * self.slots + 256:
+            del self._arrival_log[:len(self._arrival_log) // 2]
+        if self._tr is not None:
+            self._tr.instant("requests", "submit", t=req.t_submit, args={
+                "uid": req.uid, "prompt_tokens": len(req.prompt),
+                "max_new": req.max_new_tokens})
+
+    def enable_trace(self, cfg: Any = True):
+        """Attach a fresh ring-buffered ``Tracer`` to the engine and its
+        prefill pipeline.  ``cfg`` is a ``TraceConfig`` (or True for
+        defaults).  May be called mid-serve.  Returns the tracer."""
+        if cfg is True or cfg is None:
+            cfg = TraceConfig()
+        self._tr = Tracer(cfg.capacity)
+        if self._pf is not None:
+            self._pf.tracer = self._tr
+        return self._tr
 
     @property
     def active(self) -> int:
@@ -307,30 +401,58 @@ class ServingEngine:
         replica in plan mode).  Returns True while there is work in
         flight.  Host wall-clock per phase accrues in ``phase_time``
         (prefill compute launched inside admission, and the pipeline's
-        stage-steps, are credited to "prefill")."""
+        stage-steps, are credited to "prefill").
+
+        Overlap mode reorders the decode phase: this tick's step is
+        dispatched first (its input tokens are the previous step's
+        output, still on the device), and only then is the previous
+        step's result read back, so the device computes step N while the
+        host drains step N-1 and runs the next tick's bookkeeping."""
         t_enter = time.perf_counter()
         if self._t_tick_end is not None:
             self.phase_time["idle"] += t_enter - self._t_tick_end
+        tr = self._tr
+        if tr is not None:
+            tr.counter("tick", "engine", {"queue": len(self.queue),
+                                          "active": self.active}, t=t_enter)
         t0 = time.perf_counter()
         self._prefill_window = 0.0
+        q0 = len(self.queue)
         self._admit()
         t1 = time.perf_counter()
         self.phase_time["admission"] += (t1 - t0) - self._prefill_window
         self.phase_time["prefill"] += self._prefill_window
+        if tr is not None and q0:
+            tr.span("tick", "admission", t0, t1, args={
+                "queued": q0, "admitted": q0 - len(self.queue),
+                "plan": self.plan.label if self.plan is not None else "mono"})
         if self._pf is not None and self._pf.busy:
             finished = self._pf.step(caches=self._caches,
                                      on_chunk=self._chunk_committed)
+            self._pipeline_ticks += 1
+            for s in self._pf.last_stages_run:
+                self._stage_busy[s] = self._stage_busy.get(s, 0) + 1
             for item in finished:
                 self._finish_prefill(item)
+            self.phase_time["prefill"] += time.perf_counter() - t1
+        if self.active or self._inflight:
             t2 = time.perf_counter()
-            self.phase_time["prefill"] += t2 - t1
-            t1 = t2
-        if self.active:
-            self._decode_once()
-            self.phase_time["decode"] += time.perf_counter() - t1
+            dispatched = False
+            if self.active:
+                if self._overlap:
+                    self._dispatch_decode()
+                    dispatched = True
+                else:
+                    self._decode_once()
+            # one-step-delayed drain: the newest dispatch stays in flight
+            # while its predecessor's tokens come back; once nothing new
+            # dispatches, drain everything so the last slots retire
+            while len(self._inflight) > (1 if dispatched else 0):
+                self._drain_one()
+            self.phase_time["decode"] += time.perf_counter() - t2
         self.ticks += 1
         self._t_tick_end = time.perf_counter()
-        return bool(self.active or self.queue
+        return bool(self.active or self.queue or self._inflight
                     or (self._pf is not None and self._pf.busy))
 
     def run(self, max_steps: int = 10_000):
@@ -355,8 +477,16 @@ class ServingEngine:
         self.spec_steps = 0               # decode ticks that ran a verify
         self.spec_proposed = 0            # drafted tokens offered to verify
         self.spec_accepted = 0            # drafted tokens accepted
+        # host wall-clock per phase; "host_sync" overlays the others: the
+        # time the host spent blocked on device readback (what overlap
+        # shrinks)
         self.phase_time = {"admission": 0.0, "prefill": 0.0, "decode": 0.0,
                            "idle": 0.0, "host_sync": 0.0}
+        self._stage_busy = {}             # stage -> pipeline steps it ran
+        self._pipeline_ticks = 0          # ticks the prefill pipeline ran
+        self._replica_busy = {}           # replica -> occupied slot-steps
+        self._replica_cap = {}            # replica -> dispatched capacity
+        self.metrics.reset()
         self._prefill_window = 0.0
         self._t_window = time.perf_counter()
         self._t_tick_end = None
@@ -396,6 +526,101 @@ class ServingEngine:
             out.update(agg)
         return out
 
+    def utilization_stats(self) -> Dict[str, Any]:
+        """Windowed pipeline and replica utilization from the always-on
+        accumulators (a pure read):
+
+          * ``stage_bubble_frac[s]``: the share of busy-pipeline ticks on
+            which prefill stage ``s`` ran no chunk;
+          * ``replica_occupancy[r]``: occupied slot-steps over dispatched
+            slot-step capacity of decode replica ``r`` (monolithic:
+            replica 0 over all slots);
+          * ``replica_load_spread``: the max-min occupancy gap;
+          * the speculation acceptance and prefix compute-hit rates."""
+        pt = self._pipeline_ticks
+        n_stages = self.plan.n_stages if self.plan is not None else 0
+        if self._stage_busy:
+            n_stages = max(n_stages, max(self._stage_busy) + 1)
+        bubbles = ({s: 1.0 - self._stage_busy.get(s, 0) / pt
+                    for s in range(n_stages)} if pt else {})
+        occ = {r: self._replica_busy.get(r, 0) / c
+               for r, c in sorted(self._replica_cap.items()) if c}
+        spread = (max(occ.values()) - min(occ.values())) if occ else 0.0
+        hits = queries = 0
+        if self._pager is not None:
+            ps = self._pager.stats()
+            hits, queries = ps["prefill_compute_hits"], \
+                ps["prefill_admissions"]
+        return {
+            "pipeline_ticks": pt,
+            "stage_busy_ticks": dict(sorted(self._stage_busy.items())),
+            "stage_bubble_frac": bubbles,
+            "replica_occupancy": occ,
+            "replica_load_spread": spread,
+            "spec_acceptance_rate": (self.spec_accepted
+                                     / max(self.spec_proposed, 1)),
+            "prefix_hit_rate": hits / max(queries, 1),
+        }
+
+    def traffic_snapshot(self, window_s: float = 2.0, *,
+                         slo_ttft_s: float = 0.0, slo_tpot_s: float = 0.0,
+                         horizon_s: float = 0.0):
+        """One typed observation of live traffic (``TrafficSnapshot``), or
+        None when the engine is idle: arrivals over the last ``window_s``,
+        the queue, the active slots' remaining depth, and whether recent
+        requests broke the TTFT/TPOT targets."""
+        now = time.perf_counter()
+        w = max(window_s, 1e-6)
+        recent = [(t, pl, mn) for t, pl, mn in self._arrival_log
+                  if t >= now - w]
+        lam = len(recent) / w
+        avg_prompt = (float(np.mean([pl for _, pl, _ in recent]))
+                      if recent else 0.0)
+        avg_new = (float(np.mean([mn for _, _, mn in recent]))
+                   if recent else 0.0)
+        queued_tok = float(sum(len(r.prompt) for r in self.queue))
+        rem = [r.max_new_tokens - len(r.out_tokens)
+               for r in self._slot_req if r is not None]
+        depth = float(np.mean(rem)) if rem else 0.0
+        # forecast decode depth for work that has not prefilled yet
+        incoming = len(self.queue) + lam * horizon_s
+        if incoming > 0 and avg_new > 0:
+            depth = max(depth, avg_new)
+        if not rem and not self.queue and not recent:
+            return None
+        violated = False
+        if slo_ttft_s > 0:
+            if any(r.t_first - r.t_submit > slo_ttft_s
+                   for r in self.done[-8:]):
+                violated = True
+            if self.queue and now - self.queue[0].t_submit > slo_ttft_s:
+                violated = True
+        if slo_tpot_s > 0:
+            for r in self.done[-8:]:
+                n = max(len(r.out_tokens) - 1, 1)
+                if (r.t_done - r.t_first) / n > slo_tpot_s:
+                    violated = True
+        return TrafficSnapshot(
+            lam=lam, avg_prompt=avg_prompt, avg_new=avg_new,
+            queued_tok=queued_tok, depth=depth, queue_len=len(self.queue),
+            active=self.active, violated=violated, window_s=w)
+
+    def export_metrics(self):
+        """Fold the current ``stats()`` into the ``MetricsRegistry`` as
+        gauges (idempotent: gauges are set, never accrued) and return the
+        registry, for ``to_prometheus()`` or ``obs.write_metrics``."""
+        fold_engine_metrics(self.metrics, self.stats())
+        return self.metrics
+
+    def write_trace(self, path: str):
+        """Write the tracer's retained records as Perfetto trace_event
+        JSON.  Requires tracing on."""
+        if self._tr is None:
+            raise ValueError(
+                "tracing is off: pass trace=TraceConfig() at construction "
+                "or call enable_trace() first")
+        _write_trace(self._tr, path)
+
     def stats(self) -> Dict[str, Any]:
         """Serving-side latency/throughput numbers."""
         reqs = self.done
@@ -430,6 +655,7 @@ class ServingEngine:
             "ticks": self.ticks,
             "phase_time_s": dict(self.phase_time),
             "cache": self.cache_stats(),
+            "utilization": self.utilization_stats(),
             "plan_label": (self.plan.label if self.plan is not None
                            else "mono"),
             **({"plan_stages": self.plan.n_stages,
@@ -446,6 +672,30 @@ class ServingEngine:
         arr = x.cpu().numpy()
         self.phase_time["host_sync"] += time.perf_counter() - t0
         return arr
+
+    def _to_device(self, arr: np.ndarray):
+        """A host array as a tensor on the engine's device, without a
+        host sync: on CUDA through a fresh pinned buffer copied with
+        ``non_blocking=True`` (a copy from pageable memory waits for the
+        stream, so it would serialize an overlapped dispatch behind the
+        step in flight; a fresh buffer is safe because the caching host
+        allocator reuses it only after the copy's event).  On a CPU
+        engine, a copy of the array."""
+        t = torch.from_numpy(np.ascontiguousarray(arr))
+        if self.device.type == "cuda":
+            return t.pin_memory().to(self.device, non_blocking=True)
+        return t.clone()
+
+    def _readback(self, x):
+        """Enqueue the copy of a step's output tokens to the host, right
+        after the step: on CUDA into a fresh pinned buffer with
+        ``non_blocking=True`` (valid only once the event recorded after
+        it completes); on a CPU engine the tensor itself."""
+        if self.device.type != "cuda":
+            return x
+        host = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
+        host.copy_(x, non_blocking=True)
+        return host
 
     def _padded_len(self, n: int) -> int:
         b = max(self.prefill_bucket, 1)
@@ -513,16 +763,19 @@ class ServingEngine:
                 ap.block_table[None], ap.write_table[None])
             self._pager.commit(slot)      # pages landed: publish for reuse
             tok = int(self._sync(nxt)[0])
-            self._prefill_window += time.perf_counter() - t0
         else:
-            slen = plen
+            reused, slen = 0, plen
             toks = np.zeros((1, self._padded_len(plen)), np.int32)
             toks[0, :plen] = req.prompt
             t0 = time.perf_counter()
             nxt, self._cache = self._prefill_slot(
                 self.params, self._cache, toks, slot, plen)
             tok = int(self._sync(nxt)[0])
-            self._prefill_window += time.perf_counter() - t0
+        self._prefill_window += time.perf_counter() - t0
+        if self._tr is not None:
+            self._tr.span(("stage", 0), "prefill", t0, args={
+                "uid": req.uid, "slot": slot, "tokens": slen,
+                "reused": reused, "plan": "mono"})
         self.prefill_batch_sizes.append(1)
         self.prefill_token_counts.append(slen)
         self.prefill_chunk_counts.append(1)
@@ -561,6 +814,9 @@ class ServingEngine:
         before the whole admission finishes."""
         if self._pager is not None:
             self._pager.commit_chunk(slot, tokens_done)
+            if self._tr is not None:
+                self._tr.instant("requests", "commit", args={
+                    "slot": slot, "tokens_done": tokens_done})
 
     def _finish_prefill(self, item):
         """The last chunk left the last stage: take the first token,
@@ -582,10 +838,24 @@ class ServingEngine:
     def _activate(self, req: Request, slot: int, first_token: int):
         req.slot = slot
         req.t_first = time.perf_counter()
+        if self._tr is not None:
+            # zero-width admit marker where the request's flow starts (it
+            # lands on the retire marker)
+            self._tr.span("requests", "admit", req.t_first, req.t_first,
+                          args={"uid": req.uid, "slot": slot,
+                                "queued_s": req.t_first - req.t_submit},
+                          flow_out=req.uid)
         req.out_tokens.append(first_token)
         self._slot_req[slot] = req
         self._pos[slot] = len(req.prompt)
         self._cur[slot, 0] = first_token
+        self._cur_known[slot] = True
+        if self._overlap and self._cur_dev is not None:
+            # patch the fresh slot's input into the device-side token
+            # chain, in place: stream order puts this fill after every
+            # enqueued step's read of the buffer and copy into it (the
+            # other slots' entries are undrained outputs and stay)
+            self._cur_dev[slot, 0] = first_token
         self._maybe_retire(slot, req.t_first)
 
     def _prepare_paged_writes(self):
@@ -613,19 +883,53 @@ class ServingEngine:
                 out.append((r, a, b))
         return out
 
+    def _note_decode_util(self):
+        """Occupied and dispatched slot-steps per replica at a decode
+        dispatch (always on; a monolithic engine is replica 0 over all
+        slots).  Returns {replica: occupied slots} for the trace spans."""
+        if self.plan is None:
+            act = self.active
+            self._replica_busy[0] = self._replica_busy.get(0, 0) + act
+            self._replica_cap[0] = self._replica_cap.get(0, 0) + self.slots
+            return {0: act}
+        out = {}
+        for r in range(self.plan.n_replicas):
+            a, b = self.plan.replica_range(r)
+            act_r = sum(self._slot_req[s] is not None for s in range(a, b))
+            self._replica_busy[r] = self._replica_busy.get(r, 0) + act_r
+            self._replica_cap[r] = self._replica_cap.get(r, 0) + (b - a)
+            out[r] = act_r
+        return out
+
     def _step_inputs(self, tokens):
         """(replica, first, last, tokens, positions, block_tables) of each
-        decode batch, every input already on the device: a host-to-device
-        copy from pageable memory waits for the stream, so none may sit
-        between two replicas' steps."""
-        dev = self.device
+        decode batch, every input on the device before any step runs
+        (``_to_device``).  ``tokens`` is a host array (sync mode) or the
+        device-side token chain (overlap), sliced per batch."""
         tables = (self._pager.table_matrix() if self._pager is not None
                   else None)
-        return [(r, a, b, torch.from_numpy(tokens[a:b]).to(dev),
-                 torch.from_numpy(self._pos[a:b]).to(dev),
-                 None if tables is None
-                 else torch.from_numpy(tables[a:b]).to(dev))
+        return [(r, a, b,
+                 tokens[a:b] if torch.is_tensor(tokens)
+                 else self._to_device(tokens[a:b]),
+                 self._to_device(self._pos[a:b]),
+                 None if tables is None else self._to_device(tables[a:b]))
                 for r, a, b in self._decode_batches()]
+
+    def _decode_step(self, r, cur, pos, bt):
+        """One batch's greedy decode step: the monolithic ``serve_step``
+        (replica None) or replica ``r``'s stage walk.  Returns the next
+        tokens (B, 1) int32 on the device."""
+        if r is None:
+            nxt, _, self._cache = self.serve_step(self.params, self._cache,
+                                                  cur, pos, bt)
+            return nxt
+        logits = self._rt.walk(self.params, self._caches[r], cur, pos, bt)
+        return torch.argmax(logits[:, -1], dim=-1).to(torch.int32)[:, None]
+
+    def _span_args(self, r, a, b, racts):
+        return {"active": racts.get(0 if r is None else r, 0),
+                "slots": b - a,
+                "plan": self.plan.label if self.plan is not None else "mono"}
 
     def _decode_once(self):
         """One batched decode step at per-slot positions (in plan mode one
@@ -636,6 +940,7 @@ class ServingEngine:
         With speculation on, a tick whose drafter finds something runs a
         batched verify step instead."""
         act = self.active
+        racts = self._note_decode_util()
         drafts = self._draft_all() if self._spec_k else None
         if drafts is not None:
             self._decode_verify(drafts)
@@ -646,23 +951,134 @@ class ServingEngine:
             # so the device runs them back to back
             if self._pager is not None:
                 self._prepare_paged_writes()
+            tr = self._tr
             pending = []
             for r, a, b, cur, pos, bt in self._step_inputs(self._cur):
-                if r is None:
-                    nxt, _, self._cache = self.serve_step(
-                        self.params, self._cache, cur, pos, bt)
-                else:
-                    logits = self._rt.walk(self.params, self._caches[r],
-                                           cur, pos, bt)
-                    nxt = torch.argmax(logits[:, -1], dim=-1)[:, None]
-                pending.append((nxt, a, b))
-            arrs = [(self._sync(nxt), a, b) for nxt, a, b in pending]
+                td = time.perf_counter() if tr is not None else 0.0
+                pending.append((self._decode_step(r, cur, pos, bt), a, b,
+                                r, td))
+            arrs = []
+            for nxt, a, b, r, td in pending:
+                arrs.append((self._sync(nxt), a, b))
+                if tr is not None:
+                    tr.span(("replica", 0 if r is None else r), "decode", td,
+                            args=self._span_args(r, a, b, racts))
             now = time.perf_counter()
             for arr, a, b in arrs:
                 self._collect_decoded(arr, a, b, now)
         self.decode_steps += 1
         self._decode_slot_steps += act
         self._occupied_step_sum += self.active
+
+    # -- overlapped decode -------------------------------------------------
+    def _dispatch_decode(self):
+        """Overlap mode: dispatch one batched decode step (per replica in
+        plan mode) WITHOUT reading its result back.  Its input tokens come
+        from ``_cur_dev``, the previous step's output, still on the
+        device; positions and page bookkeeping advance at dispatch, and
+        the output tokens' copy to pinned host memory is enqueued right
+        after each step, an event after the last.  No host sync: the
+        inputs go through ``_to_device``.
+
+        A slot the pending drain is about to retire (EOS or budget, known
+        only once step N is read back) rides along one extra step.  That
+        garbage write is safe: ``prepare_decode`` made its target block
+        exclusively owned, a retired slot's blocks free only after this
+        dispatch, and every later cache write is serialized behind this
+        step on the one stream -- a reused page is rewritten by its new
+        owner's prefill or masked until its new owner's frontier reaches
+        it.  The record's entry is skipped as stale at drain."""
+        act = self.active
+        racts = self._note_decode_util()
+        tr = self._tr
+        if self._cur_dev is None:
+            self._cur_dev = self._to_device(self._cur)
+        if self._pager is not None:
+            self._prepare_paged_writes()
+        arrs, rng = [], []
+        for r, a, b, cur, pos, bt in self._step_inputs(self._cur_dev):
+            td = time.perf_counter() if tr is not None else 0.0
+            nxt = self._decode_step(r, cur, pos, bt)
+            self._cur_dev[a:b].copy_(nxt)
+            arrs.append((self._readback(nxt), a, b))
+            rng.append((a, b))
+            if tr is not None:
+                tr.span(("replica", 0 if r is None else r),
+                        "decode_dispatch", td,
+                        args=self._span_args(r, a, b, racts))
+        event = None
+        if self.device.type == "cuda":
+            event = torch.cuda.Event()
+            event.record(torch.cuda.current_stream(self.device))
+        entries = []
+        in_toks: Dict[int, Optional[int]] = {}
+        for a, b in rng:
+            for slot in range(a, b):
+                req = self._slot_req[slot]
+                if req is None:
+                    continue
+                entries.append((slot, req, int(self._pos[slot])))
+                # the step's input token: host-known right after
+                # activation, else the undrained previous step's output,
+                # filled in at that step's drain
+                in_toks[slot] = (int(self._cur[slot, 0])
+                                 if self._cur_known[slot] else None)
+                self._cur_known[slot] = False
+                self._pos[slot] += 1
+        self._inflight.append(_Inflight(arrs=arrs, event=event,
+                                        entries=entries, in_toks=in_toks))
+        self.decode_steps += 1
+        self._decode_slot_steps += act
+
+    def _drain_one(self):
+        """Read back the OLDEST in-flight step and do what the sync path
+        does after a step: extend the block chains with the step's input
+        tokens, append the output tokens, retire EOS/budget slots (one
+        tick later than sync mode; the streams are the same), and hand
+        each drained token to the next in-flight record, whose input it
+        is."""
+        td = time.perf_counter() if self._tr is not None else 0.0
+        rec = self._inflight.pop(0)
+        if rec.event is not None:
+            t0 = time.perf_counter()
+            rec.event.synchronize()
+            self.phase_time["host_sync"] += time.perf_counter() - t0
+            arrs = [(h.numpy(), a, b) for h, a, b in rec.arrs]
+        else:
+            arrs = [(self._sync(h), a, b) for h, a, b in rec.arrs]
+        now = time.perf_counter()
+        nxt_rec = self._inflight[0] if self._inflight else None
+        nxt_req = ({s: r for s, r, _ in nxt_rec.entries}
+                   if nxt_rec is not None else {})
+        for arr, a, b in arrs:
+            for slot, req, pos_snap in rec.entries:
+                if not (a <= slot < b) or self._slot_req[slot] is not req:
+                    continue      # another batch's, or retired mid-flight
+                if self._pager is not None:
+                    tok_in = rec.in_toks[slot]
+                    assert tok_in is not None, slot
+                    self._pager.note_written(slot, tok_in, pos_snap)
+                tok = int(arr[slot - a, 0])
+                req.out_tokens.append(tok)
+                self._cur[slot, 0] = tok
+                self._cur_known[slot] = True
+                if nxt_req.get(slot) is req:
+                    nxt_rec.in_toks[slot] = tok
+                self.decode_tokens += 1
+                self._maybe_retire(slot, now, pos=pos_snap + 1)
+        self._occupied_step_sum += self.active
+        if self._tr is not None:
+            self._tr.span("tick", "drain", td, args={
+                "slots_drained": len(rec.entries),
+                "inflight": len(self._inflight)})
+
+    def _drain_inflight(self):
+        """Land every undrained step (overlap mode) and drop the
+        device-side token chain: afterwards the host state is what sync
+        mode would hold, and the next dispatch starts from ``_cur``."""
+        while self._inflight:
+            self._drain_one()
+        self._cur_dev = None
 
     # -- speculative decode ------------------------------------------------
     def _draft_all(self):
@@ -721,16 +1137,26 @@ class ServingEngine:
                 window[slot, 1:1 + len(d)] = d
         if self._pager is not None:
             self._prepare_verify_writes(sw)
+        tr = self._tr
         pending = []
         for r, a, b, win, pos, bt in self._step_inputs(window):
+            td = time.perf_counter() if tr is not None else 0.0
             if r is None:
                 outs, self._cache = self._verify_step(
                     self.params, self._cache, win, pos, bt)
             else:
                 outs = torch.argmax(self._rt.walk(
                     self.params, self._caches[r], win, pos, bt), dim=-1)
-            pending.append((outs, a, b))
-        arrs = [(self._sync(outs), a, b) for outs, a, b in pending]
+            pending.append((outs, a, b, r, td))
+        arrs = []
+        for outs, a, b, r, td in pending:
+            arrs.append((self._sync(outs), a, b))
+            if tr is not None:
+                tr.span(("replica", 0 if r is None else r), "verify", td,
+                        args={"window": sw,
+                              "drafted": sum(map(len, drafts.values())),
+                              "plan": (self.plan.label if self.plan
+                                       is not None else "mono")})
         now = time.perf_counter()
         for arr, a, b in arrs:
             self._collect_verified(window, arr, drafts, a, b, now)
@@ -792,17 +1218,33 @@ class ServingEngine:
             self.decode_tokens += 1
             self._maybe_retire(slot, now)
 
-    def _maybe_retire(self, slot: int, now: float):
+    def _maybe_retire(self, slot: int, now: float,
+                      pos: Optional[int] = None):
         """Slot-level retirement: EOS, token budget, or a full slot cache.
         Paged engines release the slot's blocks (registered ones park in
-        the pool's LRU for prefix reuse)."""
+        the pool's LRU for prefix reuse).  ``pos``: the slot's written
+        tokens as of the step being accounted; an overlap drain passes it
+        because ``_pos`` has already advanced for the step in flight."""
+        if pos is None:
+            pos = int(self._pos[slot])
         req = self._slot_req[slot]
         if (len(req.out_tokens) >= req.max_new_tokens
                 or (req.eos_token is not None
                     and req.out_tokens[-1] == req.eos_token)
-                or int(self._pos[slot]) >= self.max_seq - 1):
+                or pos >= self.max_seq - 1):
             req.t_done = now
             self.done.append(req)
             self._slot_req[slot] = None
             if self._pager is not None:
                 self._pager.release_slot(slot)
+            self._h_ttft.observe(req.t_first - req.t_submit)
+            n = max(len(req.out_tokens) - 1, 1)
+            self._h_tpot.observe((req.t_done - req.t_first) / n)
+            self._c_requests.inc()
+            self._c_gen.inc(len(req.out_tokens))
+            if self._tr is not None:
+                self._tr.span("requests", "retire", now, now, args={
+                    "uid": req.uid, "slot": slot,
+                    "tokens": len(req.out_tokens),
+                    "latency_s": req.t_done - req.t_submit},
+                    flow_in=req.uid)

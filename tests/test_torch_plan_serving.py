@@ -20,8 +20,9 @@ the golds.
 Beside parity: a replica's decode writes land in the engine's one cache
 (replica caches are views), decode never stalls while a long prompt
 streams through the stages, a reserved slot riding its replica's decode
-cannot touch a shared block, and ``overlap``/``adapt``/``trace`` still
-raise.
+cannot touch a shared block, and ``adapt`` still raises (``overlap``
+and ``trace`` construct; ``tests/test_torch_overlap.py`` and
+``tests/test_torch_obs.py`` hold them).
 """
 import numpy as np
 import pytest
@@ -349,11 +350,12 @@ def test_plan_engine_contract(models):
     splan = TP.lower_serving(uniform(TP, 4), slots=2, chunk=4)
     with pytest.raises(ValueError, match="lowered for 2 slots"):
         ServingEngine(tm, tp, slots=3, max_seq=32, plan=splan)
-    for feature in ({"overlap": True}, {"adapt": object()},
-                    {"trace": True}):
-        with pytest.raises(NotImplementedError):
-            ServingEngine(tm, tp, slots=2, max_seq=32, plan=splan,
-                          **feature)
+    with pytest.raises(NotImplementedError):
+        ServingEngine(tm, tp, slots=2, max_seq=32, plan=splan,
+                      adapt=object())
+    eng = ServingEngine(tm, tp, slots=2, max_seq=32, plan=splan,
+                        overlap=True, trace=True)
+    assert eng._overlap and eng._pf.tracer is eng._tr
     eng = ServingEngine(tm, tp, slots=2, max_seq=32, plan=splan)
     assert eng.prefill_bucket == 1 and len(eng._caches) == 2
     assert eng.stats()["plan_label"] == splan.label

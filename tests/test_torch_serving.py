@@ -179,8 +179,7 @@ def test_stats_report_the_plain_kernel_path_and_phases(models):
     assert st["cache"]["layout"] == "paged"
 
 
-@pytest.mark.parametrize("feature", [
-    {"overlap": True}, {"adapt": object()}, {"trace": True}])
+@pytest.mark.parametrize("feature", [{"adapt": object()}])
 def test_unported_engine_features_raise(models, feature):
     _, _, tm, tp = models
     with pytest.raises(NotImplementedError):
