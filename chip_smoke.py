@@ -80,7 +80,18 @@ device it fails (it never runs on the CPU instead).  Phases, in order:
      requests through 2 slots, one retiring on EOS), and for the f32
      hybrid (paged): every stream must equal the gold's; one traced
      paged plan run must give the untraced run's streams and a Perfetto
-     object that validates.  Each run zeroes the launch counters
+     object that validates.  Re-planning (``ServingEngine.replan``):
+     f32 yi-6b (2 layers) with swaps mono -> ``uniform_plan(2, 2,
+     n_microbatches=1)`` -> ``uniform_plan(2, 2, n_microbatches=4)`` ->
+     mono forced mid-traffic at chunk 16, dense, paged and paged
+     overlapped: the gold's streams, no row copied on the paged swaps
+     and one a migration on the dense ones; a rebalance onto a 2-replica
+     plan with both active slots on replica 0 (one block-table handoff,
+     the pool's counters unchanged); swaps in the middle of a chunked
+     prefill to mono and to a wider plan; ``measure_plan``'s round-trip
+     error below 1e-4 for a 1-stage and 2-stage plans at M = 1, 2, 4; and
+     on the f32 hybrid the same rebalance, whose migration copies one
+     mamba-state row.  Each run zeroes the launch counters
      just before and reads them just after: every kernel of its path
      must have launched (the dense run's flash launches are also sorted
      by shape: chunk-0 passes and continuations);
@@ -111,6 +122,16 @@ device it fails (it never runs on the CPU instead).  Phases, in order:
      every serve are counted (mode "warn", by source line) and printed;
      and serve-overlap traces a short window into
      ``chiprun_out/serve_overlap_trace.json``, which must validate.
+     Measured design points: ``measured_design_points`` on serve-full's
+     weights for a 1-stage and 2-stage plans at M = 1, 2, 4 (a batch of
+     4 x 128 tokens), each beside ``predict_plan(hw=H100)``, and the
+     width ``lower(n_microbatches="auto", measure_with=...)`` picks.
+     serve-adapt: serve-full's engine with the launcher's adaptive ladder
+     (measured profiles, ``warm_replans`` then ``reset_stats``), the 8
+     prompts as a burst and then a trickling tail of 8 short requests:
+     its profiles, decisions and numbers print beside serve-full's and
+     serve-plan's; every request must finish, the controller must score,
+     and no swap may copy a row.
 
 It prints a ``{"kernels": [...]}`` JSON line, then as its last line
 ``{"ok": true, "device": {...}}``.  Any failed check exits non-zero
@@ -1373,15 +1394,20 @@ def top2_gap(logits):
     return float(top[0] - top[1])
 
 
-def run_schedule(eng, sched, request_cls):
-    """Serve ``sched``, entries (prompt, max_new, submit_tick[, eos])."""
+def run_schedule(eng, sched, request_cls, swaps=()):
+    """Serve ``sched``, entries (prompt, max_new, submit_tick[, eos]),
+    forcing ``eng.replan(plan)`` at the ticks of ``swaps``, entries
+    (tick, ServingPlan or None)."""
     pending = sorted(enumerate(sched), key=lambda x: x[1][2])
+    swaps = sorted(swaps, key=lambda x: x[0])
     tick, busy = 0, True
-    while busy or pending:
+    while busy or pending or swaps:
         while pending and pending[0][1][2] <= tick:
             uid, (prompt, max_new, _, *eos) = pending.pop(0)
             eng.submit(request_cls(uid, prompt, max_new,
                                    eos_token=eos[0] if eos else None))
+        while swaps and swaps[0][0] <= tick:
+            eng.replan(swaps.pop(0)[1])
         busy = eng.tick()
         tick += 1
     return {r.uid: r for r in eng.done}
@@ -1468,17 +1494,42 @@ def watch_plan_engine(eng):
     """Wrap a plan engine's runtime steps (each replica's stage walk and
     the prefill head) so that every logit they produce is checked for
     finiteness."""
-    rt = eng._rt
     finite = []
-
-    def watched(fn):
-        def call(*args, **kw):
-            logits = fn(*args, **kw)
-            finite.append(torch.isfinite(logits).all())
-            return logits
-        return call
-    rt.walk, rt.head = watched(rt.walk), watched(rt.head)
+    watch_runtimes(eng, finite)
     return finite
+
+
+def watch_all(eng, model, max_seq):
+    """``watch_engine`` and ``watch_runtimes`` together, for an engine
+    that re-plans between the monolithic point and plans."""
+    finite, _ = watch_engine(eng, model, max_seq)
+    watch_runtimes(eng, finite)
+    return finite
+
+
+def watch_runtimes(eng, finite):
+    """Wrap the stage walk and the prefill head of every plan runtime the
+    engine holds or builds later (a re-plan builds them on demand), so
+    that every logit they produce is checked for finiteness."""
+    def watch(rt):
+        def watched(fn):
+            def call(*args, **kw):
+                logits = fn(*args, **kw)
+                finite.append(torch.isfinite(logits).all())
+                return logits
+            return call
+        rt.walk, rt.head = watched(rt.walk), watched(rt.head)
+    for rt in eng._rt_cache.values():
+        watch(rt)
+    runtime_for = eng._runtime_for
+
+    def watched_runtime_for(splan):
+        new = splan not in eng._rt_cache
+        rt = runtime_for(splan)
+        if new:
+            watch(rt)
+        return rt
+    eng._runtime_for = watched_runtime_for
 
 
 @contextlib.contextmanager
@@ -1502,26 +1553,41 @@ def tally_calls(name, key):
         setattr(module, name, fn)
 
 
-def run_engine(label, model, params, sched, path, max_seq, slots, **kw):
+def run_engine(label, model, params, sched, path, max_seq, slots, swaps=(),
+               **kw):
     """One engine (monolithic, or plan-driven with ``plan=``) over
     ``sched``, the launch counters of the kernels in ``path`` zeroed just
     before and read just after; each must have launched, every logit must
     be finite, and an overlapped engine must end with nothing in flight.
-    Returns (engine, {uid: Request}, launches)."""
+    With ``swaps`` ((tick, plan) entries) the engine is re-planned at
+    those ticks, and each swap must have happened.  Returns (engine,
+    {uid: Request}, launches)."""
     from repro_torch.serving import Request, ServingEngine
     eng = ServingEngine(model, params, slots=slots, max_seq=max_seq, **kw)
-    if eng.plan is not None:
+    if swaps:
+        finite = watch_all(eng, model, max_seq)
+    elif eng.plan is not None:
         finite = watch_plan_engine(eng)
     else:
         finite, _ = watch_engine(eng, model, max_seq)
     for fn in path.values():
         fn.launches = 0
-    got = run_schedule(eng, sched, Request)
+    got = run_schedule(eng, sched, Request, swaps)
     torch.cuda.synchronize()
     launches = {name: fn.launches for name, fn in path.items()}
-    tag = "[plan]" if eng.plan is not None else "[overlap]"
-    print(f"{tag} {label}: {len(got)} requests, chunks per admission "
-          f"{eng.prefill_chunk_counts}, launches {json.dumps(launches)}")
+    if swaps:
+        st = eng.stats()
+        print(f"[replan] {label}: {len(got)} requests, replans "
+              f"{st['replans']}, migrations {st['migrations']} (copies "
+              f"{st['migration_copies']}), ends on {st['plan_label']}; "
+              f"chunks per admission {eng.prefill_chunk_counts}, launches "
+              f"{json.dumps(launches)}")
+        check(st["replans"] == len(swaps),
+              f"{label}: {st['replans']} re-plans for {len(swaps)} swaps")
+    else:
+        tag = "[plan]" if eng.plan is not None else "[overlap]"
+        print(f"{tag} {label}: {len(got)} requests, chunks per admission "
+              f"{eng.prefill_chunk_counts}, launches {json.dumps(launches)}")
     check(bool(torch.stack(finite).all()), f"{label}: non-finite logits")
     check(all(n > 0 for n in launches.values()),
           f"{label}: a kernel of the path never launched: {launches}")
@@ -1729,6 +1795,188 @@ def overlap_parity_phase(dev, kernels):
     torch.cuda.empty_cache()
     return dict(launches=launches, eos_tokens=eos_len,
                 trace_records=len(obj["traceEvents"]))
+
+
+def rebalance_run(label, model, params, reqs, plan, path, max_seq, golds,
+                  gaps):
+    """Two requests ((prompt, max_new, uid) in ``reqs``) decode on slots 0
+    and 1 of a 4-slot paged monolithic engine; then ``replan(plan)``, a
+    plan whose replica 0 is slots [0, 1]: the load 2|0 forces one slot to
+    move.  The pool's blocks in use, copy-on-writes and evictions must be
+    unchanged by the swap, and the streams equal ``golds``.  Returns the
+    engine's re-plan counters and the launches of ``path``."""
+    from repro_torch.serving import Request, ServingEngine
+    t0 = time.perf_counter()
+    eng = ServingEngine(model, params, slots=4, max_seq=max_seq, paged=True,
+                        page_size=16)
+    finite = watch_all(eng, model, max_seq)
+    for fn in path.values():
+        fn.launches = 0
+    for prompt, max_new, uid in reqs:
+        eng.submit(Request(uid, prompt, max_new))
+    while eng.queue:
+        eng.tick()
+    active = [s for s in range(4) if eng._slot_req[s] is not None]
+    check(active == [0, 1], f"{label}: active slots {active}, not [0, 1]")
+    pool = eng._pager.pool
+
+    def counters():
+        return (pool.blocks_in_use, pool.cow_copies, pool.evictions)
+    before = counters()
+    eng.replan(plan)
+    after = counters()
+    moved = [s for s in range(4) if eng._slot_req[s] is not None]
+    got = {r.uid: r for r in eng.run()}
+    torch.cuda.synchronize()
+    launches = {name: fn.launches for name, fn in path.items()}
+    st = eng.stats()
+    out = {k: st[k] for k in ("migrations", "migration_copies")}
+    print(f"[replan] {label}: slots {active} -> {moved} on {plan.label}; "
+          f"migrations {out['migrations']} (copies "
+          f"{out['migration_copies']}); pool (blocks in use, cow copies, "
+          f"evictions) {before} -> {after}; launches {json.dumps(launches)};"
+          f" {time.perf_counter() - t0:.1f} s")
+    check(bool(torch.stack(finite).all()), f"{label}: non-finite logits")
+    check(all(n > 0 for n in launches.values()),
+          f"{label}: a kernel of the path never launched: {launches}")
+    check(after == before, f"{label}: the swap moved pool blocks")
+    check(moved[1] >= 2 and out["migrations"] >= 1,
+          f"{label}: no slot moved to replica 1")
+    compare_streams(f"{label} vs one-shot gold", got,
+                    {u: golds[u] for _, _, u in reqs}, gaps)
+    return dict(**out, launches=launches)
+
+
+def replan_parity_phase(dev, kernels):
+    """Phase 4, live re-planning: f32 yi-6b at full width, 2 layers, on
+    parity_phase's weights and staggered schedule (4 slots), with the
+    ladder mono, ``uniform_plan(2, 2, n_microbatches=1)`` (narrow) and
+    ``uniform_plan(2, 2, n_microbatches=4)`` (wide) at chunk 16.  Forced
+    swaps mono -> narrow -> wide -> mono mid-traffic, dense, paged and
+    paged overlapped, must give the one-shot gold's streams; paged swaps
+    copy nothing, dense ones one row a migration.  A rebalance onto a
+    2-replica plan with both active slots on replica 0 must move one slot
+    by a block-table handoff (pool counters unchanged).  Swaps in the
+    middle of a chunked prefill, narrow -> mono and narrow -> wide, must
+    give the gold's streams (the old pipeline dropped when dry after
+    mono).  Then each plan's ``measure_plan`` round-trip error at batch
+    4 x 128 must stay below 1e-4."""
+    from repro_torch.configs import REGISTRY
+    from repro_torch.models import build_model
+    from repro_torch.plan import lower_serving, uniform_plan
+    from repro_torch.plan.validate import measure_plan
+    from repro_torch.serving import Request, ServingEngine
+    cfg = dataclasses.replace(REGISTRY["yi-6b"], num_layers=2,
+                              dtype="float32", param_dtype="float32")
+    model = build_model(cfg, device=dev)
+    params = model.init(torch.Generator(device=dev).manual_seed(1))
+    rng = np.random.default_rng(1)
+    v = cfg.vocab_size
+
+    def toks(n):
+        return rng.integers(1, v, n).astype(np.int32)
+
+    prefix = toks(64)             # parity_phase's schedule, drawn alike
+    sched = [(np.concatenate([prefix, toks(16)]), 4, 0),
+             (toks(50), 10, 0), (toks(120), 8, 0), (toks(33), 12, 1),
+             (np.concatenate([prefix, toks(30)]), 10, 3),   # warm prefix
+             (toks(70), 9, 5)]
+    max_seq = 256
+    golds, gaps = {}, {}
+    for uid, (prompt, max_new, _) in enumerate(sched):
+        golds[uid], lgs = gold_decode(model, params, prompt, max_new,
+                                      max_seq)
+        gaps[uid] = [top2_gap(x) for x in lgs]
+    G = cfg.num_groups
+    narrow = lower_serving(uniform_plan(G, 2, n_microbatches=1), slots=4,
+                           chunk=16)
+    wide = lower_serving(uniform_plan(G, 2, n_microbatches=4), slots=4,
+                         chunk=16)
+    swaps = [(2, narrow), (6, wide), (12, None)]
+    flash = {"flash_attention": kernels["flash_attention"]}
+    paged = {k: kernels[k] for k in ("fused_paged_decode", "paged_prefill")}
+    pkw = dict(paged=True, page_size=16)
+    out = {}
+    for label, path, kw in (("dense", flash, {}), ("paged", paged, pkw),
+                            ("paged overlap", paged,
+                             dict(overlap=True, **pkw))):
+        eng, got, launches = run_engine(
+            f"f32 {label} mono -> narrow -> wide -> mono", model, params,
+            sched, path, max_seq, 4, swaps=swaps, **kw)
+        compare_streams(f"f32 {label} re-planned vs one-shot gold", got,
+                        golds, gaps)
+        st = eng.stats()
+        out[label] = dict(launches=launches, **{
+            k: st[k] for k in ("replans", "migrations", "migration_copies")})
+        if kw:
+            check(st["migration_copies"] == 0,
+                  f"{label}: a paged swap copied {st['migration_copies']} "
+                  f"rows")
+        else:
+            check(st["migration_copies"] == st["migrations"],
+                  "dense: a migration did not move its row")
+
+    out["rebalance"] = rebalance_run(
+        "f32 paged rebalance", model, params,
+        [(sched[1][0], sched[1][1], 1), (sched[3][0], sched[3][1], 3)],
+        lower_serving(uniform_plan(G, 2, n_microbatches=2), slots=4,
+                      chunk=16), paged, max_seq, golds, gaps)
+    check(out["rebalance"]["migrations"] == 1
+          and out["rebalance"]["migration_copies"] == 0,
+          "paged rebalance: not one zero-copy migration")
+
+    for to, target in (("mono", None), ("wide", wide)):
+        label = f"f32 paged mid-prefill narrow -> {to}"
+        eng = ServingEngine(model, params, slots=4, max_seq=max_seq,
+                            plan=narrow, **pkw)
+        finite = watch_all(eng, model, max_seq)
+        for fn in paged.values():
+            fn.launches = 0
+        eng.submit(Request(1, sched[1][0], sched[1][1]))
+        while eng._slot_req[0] is None:
+            eng.tick()
+        eng.submit(Request(2, sched[2][0], sched[2][1]))
+        eng.tick()
+        item = eng._pf.items[0] if eng._pf.items else None
+        check(item is not None and item.next_chunk < len(item.chunks),
+              f"{label}: the long prompt is not mid-prefill")
+        at = item.next_chunk
+        eng.replan(target)
+        draining = eng._pf is not None and eng._pf.busy
+        got = {r.uid: r for r in eng.run()}
+        torch.cuda.synchronize()
+        launches = {name: fn.launches for name, fn in paged.items()}
+        print(f"[replan] {label}: swapped with {at} of "
+              f"{len(item.chunks)} chunks injected; item runtime kept "
+              f"{item.rt is not eng._rt}; old pipeline draining "
+              f"{draining}, dropped when dry {eng._pf is None}; launches "
+              f"{json.dumps(launches)}")
+        check(bool(torch.stack(finite).all()), f"{label}: non-finite logits")
+        check(all(n > 0 for n in launches.values()),
+              f"{label}: a kernel of the path never launched: {launches}")
+        check(to != "mono" or (draining and eng._pf is None),
+              f"{label}: the old pipeline did not drain and drop")
+        compare_streams(f"{label} vs one-shot gold", got,
+                        {u: golds[u] for u in (1, 2)}, gaps)
+        out[f"mid_prefill_{to}"] = launches
+
+    # the measured side: each plan's stage round trip in f32
+    batch = {"tokens": torch.as_tensor(
+        np.random.default_rng(4).integers(1, v, (4, 128)), device=dev)}
+    errs = {}
+    for st_n, m in ((1, 1), (2, 1), (2, 2), (2, 4)):
+        plan = uniform_plan(G, st_n, n_microbatches=m)
+        meas = measure_plan(model, params, batch, plan, repeat=1)
+        errs[f"{st_n}s x M{m}"] = meas["max_abs_err"]
+        check(meas["max_abs_err"] < 1e-4,
+              f"measure_plan {st_n} stages, M={m}: round-trip error "
+              f"{meas['max_abs_err']:.3g}")
+    print(f"[replan] f32 measure_plan round-trip max |logit error| at "
+          f"4 x 128 (tolerance 1e-4): {json.dumps(errs)}")
+    out["measure_plan_err"] = errs
+    del eng, params
+    torch.cuda.empty_cache()
+    return out
 
 
 def would_draft(sched, streams, k=4):
@@ -1960,6 +2208,18 @@ def hybrid_parity_phase(dev, kernels):
     compare_streams("hybrid paged fp overlap vs one-shot gold", got, golds,
                     gaps)
 
+    # a live re-plan: mono -> the 1-stage, 2-replica plan while both
+    # active slots sit on replica 0 moves one slot, and its mamba state
+    # (conv and SSM) is a dense row that is copied
+    replan = rebalance_run(
+        "hybrid f32 paged rebalance", model, params,
+        [(sched[1][0], sched[1][1], 1), (sched[3][0], sched[3][1], 3)],
+        splan, {k: hybrid_path[k] for k in ("paged_attention", "linear_scan",
+                                            "mamba_scan_fused")},
+        max_seq, golds, gaps)
+    check(replan["migration_copies"] == replan["migrations"] >= 1,
+          "hybrid rebalance: the migration did not copy its mamba row")
+
     # paged prefill + unfused decode against the full forward
     prompt, new = sched[2][0], 4
     nb = max_seq // 16
@@ -1994,7 +2254,7 @@ def hybrid_parity_phase(dev, kernels):
                 int8_equal_fp_gold=sum(streams["paged int8"][u] == golds[u]
                                        for u in golds),
                 plan_launches=plan_launches,
-                overlap_launches=overlap_launches)
+                overlap_launches=overlap_launches, replan=replan)
 
 
 def serve_prompts(cfg, seed, repeat_segment):
@@ -2213,6 +2473,190 @@ def print_overlap(name, ov, base):
         print(f"[serve] {name}, {key}: {a:.4f} vs {b:.4f}{unit}{ratio}")
 
 
+def design_points_phase(dev, model, params, cfg):
+    """Phase 5, measured design points: full-size yi-6b (bf16) on one
+    batch of 4 x 128 tokens.  ``measured_design_points`` for a 1-stage
+    plan and 2-stage uniform plans at M = 1, 2, 4 (host wall seconds to
+    the device's completion), each beside ``predict_plan(hw=H100)``; then
+    the spatial width that ``lower(n_microbatches="auto", measure_with=
+    ...)`` picks for the 2-stage ``ssr_dse`` cut."""
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.core import build_graph, ssr_dse
+    from repro_torch.core.assignment import contiguous_assignment
+    from repro_torch.core.hw import H100
+    from repro_torch.plan import lower, uniform_plan
+    from repro_torch.plan.validate import measured_design_points, \
+        predict_plan
+    t0 = time.perf_counter()
+    G = cfg.num_groups
+    graph = build_graph(cfg, ShapeConfig("measure", 128, 4, "prefill"))
+    batch = {"tokens": torch.as_tensor(
+        np.random.default_rng(5).integers(1, cfg.vocab_size, (4, 128)),
+        device=dev)}
+    plans = [uniform_plan(G, 1, n_microbatches=1)] + [
+        uniform_plan(G, 2, n_microbatches=m) for m in (1, 2, 4)]
+    pts = measured_design_points(model, params, batch, graph, plans)
+    rows = []
+    for plan, pt in zip(plans, pts):
+        pred = predict_plan(plan, graph, hw=H100)
+        rows.append(dict(
+            plan=f"{plan.n_stages} stages x M{plan.total_microbatches}",
+            strategy=pt.strategy, measured_latency_s=pt.latency,
+            measured_tflops=pt.throughput_tops, detail=pt.detail,
+            predicted_latency_s=pred["latency_s"],
+            predicted_makespan_s=pred["makespan_s"],
+            predicted_tflops=pred["throughput_tops"]))
+        print(f"[points] {rows[-1]['plan']} ({pt.strategy}): measured "
+              f"makespan {pt.latency:.6f} s, {pt.throughput_tops:.3f} "
+              f"TFLOP/s ({pt.detail}); predict_plan(hw=H100) makespan "
+              f"{pred['makespan_s']:.6f} s, latency {pred['latency_s']:.6f}"
+              f" s, {pred['throughput_tops']:.3f} TFLOP/s")
+        check(pt.source == "measured" and pt.latency > 0
+              and np.isfinite(pt.throughput_tops),
+              f"design point {rows[-1]['plan']}: {pt}")
+    _, _, assign = ssr_dse(graph, contiguous_assignment(graph, 2, 8).acc_of,
+                           8, n_batches=2)
+    auto = lower(assign, graph, mesh_devices=8, n_microbatches="auto",
+                 measure_with=(model, params, batch))
+    print(f"[points] lower(n_microbatches='auto', measure_with=...) on the "
+          f"{auto.n_stages}-stage ssr_dse cut (groups "
+          f"{[(st.first_group, st.n_groups) for st in auto.stages]}): "
+          f"M={auto.n_microbatches}")
+    check(4 % auto.n_microbatches == 0, f"auto width {auto.n_microbatches}")
+    secs = time.perf_counter() - t0
+    print(f"[points] phase {secs:.1f} s")
+    return dict(rows=rows, auto_m=auto.n_microbatches, seconds=secs)
+
+
+def serve_adapt_run(dev, model, params, cfg, prompts, kernels, fp, pl):
+    """Phase 5, serve-adapt: serve-full's model, weights, engine and
+    prompts with ``adapt=AdaptiveConfig(plans=_adaptive_ladder(cfg, None,
+    4, 128))`` (measured profiles).  ``warm_replans()`` then
+    ``reset_stats()``; the 8 prompts as one burst, and when they are
+    drained a tail of 8 requests of 16 prompt and 16 new tokens, one every
+    ``interval_ticks`` ticks.  Every request must retire with its budget,
+    every logit be finite, the controller score at least once, no swap
+    copy a row, and the path's kernels launch.  Its numbers print beside
+    serve-full's and serve-plan's."""
+    from repro_torch.launch.serve import _adaptive_ladder
+    from repro_torch.serving import AdaptiveConfig, Request, ServingEngine
+    t_phase = time.perf_counter()
+    adapt = AdaptiveConfig(plans=_adaptive_ladder(cfg, None, 4, 128))
+    eng = ServingEngine(model, params, slots=4, max_seq=1024, paged=True,
+                        page_size=16, adapt=adapt)
+    finite = watch_all(eng, model, 1024)
+    ctl = eng._ctl
+    scored = [0]
+    observe = ctl.observe
+
+    def counted(e):
+        decision = observe(e)
+        scored[0] += ctl.last_scores is not None
+        return decision
+    ctl.observe = counted
+    t0 = time.perf_counter()
+    eng.warm_replans()
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    eng.reset_stats()
+    profiles = {(c.label if c is not None else "mono"): dataclasses.asdict(
+        ctl._profiles[c]) for c in ctl.cfg.plans}
+    for label, prof in profiles.items():
+        print(f"[adapt] profile {label}: prefill_tok_s "
+              f"{prof['prefill_tok_s']:.6f}, first_latency_s "
+              f"{prof['first_latency_s']:.6f}, decode_tick_s "
+              f"{prof['decode_tick_s']:.6f}, interfere_s "
+              f"{prof['interfere_s']:.6f} (measured {prof['measured']})")
+    print(f"[adapt] warm_replans {warm_s:.2f} s (probes and one request "
+          f"per candidate)")
+    for fn in kernels.values():
+        fn.launches = 0
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for uid, p in enumerate(prompts):
+        eng.submit(Request(uid, p, 64))
+    eng.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    burst = eng.stats()
+    n_dec = len(ctl.decisions)
+    # the tail: short requests trickling in after the burst
+    rng = np.random.default_rng(6)
+    tail = [rng.integers(1, cfg.vocab_size, 16).astype(np.int32)
+            for _ in range(8)]
+    t1 = time.perf_counter()
+    tick, i, busy = 0, 0, True
+    while i < len(tail) or busy:
+        if i < len(tail) and tick % adapt.interval_ticks == 0:
+            eng.submit(Request(100 + i, tail[i], 16))
+            i += 1
+        busy = eng.tick()
+        tick += 1
+    torch.cuda.synchronize()
+    tail_wall = time.perf_counter() - t1
+    st = eng.stats()
+    launches = {name: fn.launches for name, fn in kernels.items()}
+    done = {r.uid: r for r in eng.done}
+    ttft = sorted(burst["ttft_s"])
+    tail_ttft = sorted(done[100 + j].t_first - done[100 + j].t_submit
+                       for j in range(len(tail)))
+    tick_s = burst["phase_time_s"]["decode"] / max(burst["decode_steps"], 1)
+    tail_gen = st["gen_tokens"] - burst["gen_tokens"]
+    res = dict(
+        profiles=profiles, warm_s=warm_s, decisions=list(ctl.decisions),
+        burst_decisions=n_dec, scored_ticks=scored[0],
+        replans=st["replans"], migrations=st["migrations"],
+        migration_copies=st["migration_copies"],
+        tok_s=burst["gen_tokens"] / wall, wall_s=wall, ttft_s=ttft,
+        tick_s=tick_s, phase_time_s=burst["phase_time_s"],
+        tail_tok_s=tail_gen / tail_wall, tail_ttft_s=tail_ttft,
+        tail_ticks=tick, final_plan=st["plan_label"], launches=launches)
+    print(f"[adapt] decisions (tick, from, to): {ctl.decisions} "
+          f"({n_dec} in the burst); scored ticks {scored[0]}; replans "
+          f"{st['replans']}, migrations {st['migrations']} (copies "
+          f"{st['migration_copies']}); ends on {st['plan_label']}")
+    print(f"[adapt] burst: {burst['requests']} requests, "
+          f"{burst['gen_tokens']} tokens in {wall:.3f} s; "
+          f"phase_time_s {json.dumps(burst['phase_time_s'])}")
+    print(f"[adapt] tail: {len(tail)} requests of 16 + 16 tokens, one "
+          f"every {adapt.interval_ticks} ticks: {tail_gen} tokens in "
+          f"{tail_wall:.3f} s ({tick} ticks), {tail_gen / tail_wall:.2f} "
+          f"tok/s; TTFT p50 {tail_ttft[len(tail_ttft) // 2]:.4f} s, max "
+          f"{tail_ttft[-1]:.4f} s")
+    print(f"[adapt] launches on the path: {json.dumps(launches)}")
+
+    def p50(t):
+        return t[len(t) // 2]
+    for key, a, b, c, unit in (
+            ("tok/s", res["tok_s"], fp["tok_s"], pl["tok_s"], ""),
+            ("TTFT p50", p50(ttft), p50(fp["ttft_s"]), p50(pl["ttft_s"]),
+             " s"),
+            ("TTFT max", ttft[-1], fp["ttft_s"][-1], pl["ttft_s"][-1], " s"),
+            ("decode tick, host", tick_s * 1e3, fp["tick_s"] * 1e3,
+             pl["tick_s"] * 1e3, " ms")):
+        print(f"[serve] serve-adapt vs serve-full vs serve-plan, {key}: "
+              f"{a:.4f} vs {b:.4f} vs {c:.4f}{unit}")
+    check(len(done) == len(prompts) + len(tail)
+          and all(len(done[u].out_tokens) == 64 for u in range(len(prompts)))
+          and all(len(done[100 + j].out_tokens) == 16
+                  for j in range(len(tail))),
+          "serve-adapt: not every request finished its budget")
+    check(bool(torch.stack(finite).all()), "serve-adapt: non-finite logits")
+    check(scored[0] >= 1, "serve-adapt: the controller never scored")
+    check(st["migration_copies"] == 0,
+          f"serve-adapt: {st['migration_copies']} rows copied on paged "
+          f"yi-6b")
+    check(all(n > 0 for n in launches.values()),
+          f"serve-adapt: a kernel of the path never launched: {launches}")
+    res["seconds"] = time.perf_counter() - t_phase
+    print(f"[adapt] serve-adapt {res['seconds']:.1f} s")
+    del eng
+    torch.cuda.empty_cache()
+    return res
+
+
 def serve_phase(dev, kernels):
     """Phase 5: full-size yi-6b bf16 served twice on the same weights --
     the fp paged engine (serve-full, then one full-size forward
@@ -2330,6 +2774,9 @@ def serve_phase(dev, kernels):
     del eng
     torch.cuda.empty_cache()
 
+    points = design_points_phase(dev, model, params, cfg)
+    adapt = serve_adapt_run(dev, model, params, cfg, prompts, paged, fp, pl)
+
     int8_kernels = {"fused_paged_decode_int8": kernels["fused_paged_decode"],
                     "paged_prefill_int8": kernels["paged_prefill"],
                     "paged_verify": kernels["paged_verify"]}
@@ -2341,7 +2788,8 @@ def serve_phase(dev, kernels):
     syncs["serve-int8-spec"] = syncs_per_tick("serve-int8-spec", eng,
                                               prompts[4:], Request)
     return dict(fp=fp, int8_spec=q8, plan=pl, overlap=ov, plan_overlap=plo,
-                syncs=syncs, launches={**fp["launches"], **q8["launches"]})
+                points=points, adapt=adapt, syncs=syncs,
+                launches={**fp["launches"], **q8["launches"]})
 
 
 def serve_hybrid_phase(dev, kernels):
@@ -2520,6 +2968,9 @@ def main():
         parity["plan"] = plan_parity_phase(dev, kernels)
         parity["hybrid"] = hybrid_parity_phase(dev, kernels)
         parity["overlap"] = overlap_parity_phase(dev, kernels)
+        t1 = time.perf_counter()
+        parity["replan"] = replan_parity_phase(dev, kernels)
+        print(f"[replan] phase {time.perf_counter() - t1:.1f} s")
         print(f"[parity] phase {time.perf_counter() - t0:.1f} s")
         t0 = time.perf_counter()
         served = serve_phase(dev, kernels)

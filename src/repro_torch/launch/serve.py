@@ -15,6 +15,8 @@ default.
         --layers 4 --paged --strategy pipeline:2 --replicas 2 --chunk 4
     PYTHONPATH=src python -m repro_torch.launch.serve --paged --overlap \\
         --trace serve.json --metrics-out serve.prom
+    PYTHONPATH=src python -m repro_torch.launch.serve --paged --adapt \\
+        --slo-ttft 0.5 --max-seq 1024 --chunk 128
 
 The model is the registry config at its published width (yi-6b: d_model
 4096, 32 heads, 4 KV heads, head_dim 128; the jamba hybrid with dense
@@ -46,7 +48,12 @@ seed as the JAX launcher, so both lower the same plan for the same
 config).  The plan's stages then run the chunked prefill (``--chunk``
 tokens a chunk, one stage-step a tick) and ``--replicas`` slot-partitioned
 decode replicas walk them; on one card every stage and replica shares the
-device.  ``--adapt`` (live re-planning) is not ported yet and raises.
+device.  ``--adapt`` re-plans the engine live between the monolithic
+point, the requested plan (a 2-stage cut when serving starts monolithic)
+and its re-replicated variants (``_adaptive_ladder``) as the traffic
+shifts; ``--slo-ttft S`` / ``--slo-tpot S`` give the controller its SLO
+targets.  The candidates are measured and exercised before the clock
+(``warm_replans``), and the run prints the controller's decisions.
 """
 from __future__ import annotations
 
@@ -60,7 +67,7 @@ import torch
 from repro_torch.configs import REGISTRY, ShapeConfig
 from repro_torch.models import build_model
 from repro_torch.obs import write_metrics
-from repro_torch.serving import Request, ServingEngine
+from repro_torch.serving import AdaptiveConfig, Request, ServingEngine
 
 
 def _parse_strategy(strategy: str):
@@ -103,6 +110,29 @@ def _build_serving_plan(cfg, strategy: str, slots: int, replicas: int,
     return lower_serving(plan, slots=slots, chunk=chunk)
 
 
+def _adaptive_ladder(cfg, splan, slots: int, chunk: int):
+    """Candidate design points for the re-plan controller, as the JAX
+    launcher's: mono, the requested plan (or a 2-stage cut when serving
+    started monolithic) and its re-replicated spatial-width variants --
+    one searched stage cut, several Pareto points."""
+    from repro_torch.plan import (lower_serving, rereplicate_serving,
+                                  uniform_plan)
+    if splan is None:
+        n_stages = 2 if cfg.num_groups % 2 == 0 else 1
+        base = lower_serving(
+            uniform_plan(cfg.num_groups, n_stages,
+                         n_microbatches=min(2, slots)),
+            slots=slots, chunk=chunk)
+    else:
+        base = splan
+    cands = [None, base]
+    for r in sorted({1, min(2, slots), slots}):
+        cand = rereplicate_serving(base, r)
+        if all(cand != c for c in cands):
+            cands.append(cand)
+    return cands
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="yi-6b", choices=sorted(REGISTRY))
@@ -123,7 +153,18 @@ def main(argv=None):
                     help="prefill chunk length for plan-driven serving")
     ap.add_argument("--adapt", action=argparse.BooleanOptionalAction,
                     default=False,
-                    help="live re-planning: not ported yet (raises)")
+                    help="online Pareto navigation: re-plan the engine "
+                         "between mono / the requested plan / its "
+                         "re-replicated variants as traffic shifts "
+                         "(zero-copy slot migration on --paged)")
+    ap.add_argument("--slo-ttft", type=float, default=0.0, metavar="S",
+                    help="with --adapt: target time-to-first-token in "
+                         "seconds the controller penalizes against "
+                         "(0: no TTFT SLO)")
+    ap.add_argument("--slo-tpot", type=float, default=0.0, metavar="S",
+                    help="with --adapt: target time-per-output-token in "
+                         "seconds the controller penalizes against "
+                         "(0: no TPOT SLO)")
     ap.add_argument("--paged", action="store_true",
                     help="pool-backed slot caches with prefix sharing")
     ap.add_argument("--page-size", type=int, default=16,
@@ -169,9 +210,13 @@ def main(argv=None):
     if args.prefix_cache and not args.paged:
         raise SystemExit("--prefix-cache requires --paged: prefix blocks "
                          "live in the paged block pool")
-    if args.adapt:
-        raise NotImplementedError(
-            "--adapt (live re-planning) is not ported yet")
+    if (args.slo_ttft or args.slo_tpot) and not args.adapt:
+        raise SystemExit("--slo-ttft/--slo-tpot set SLO targets for the "
+                         "adaptive re-plan controller: pass --adapt (a "
+                         "static engine has no controller to penalize)")
+    if args.slo_ttft < 0 or args.slo_tpot < 0:
+        raise SystemExit("--slo-ttft/--slo-tpot are seconds and must be "
+                         ">= 0 (0 disables that SLO term)")
     if args.device.startswith("cuda") and not torch.cuda.is_available():
         raise SystemExit("no CUDA device: pass --device cpu to run the "
                          "plain PyTorch versions")
@@ -191,12 +236,20 @@ def main(argv=None):
     model = build_model(cfg, device=args.device)
     gen = torch.Generator(device=args.device).manual_seed(0)
     params = model.init(gen)
+    adapt = None
+    if args.adapt:
+        adapt = AdaptiveConfig(
+            plans=_adaptive_ladder(cfg, splan, args.slots, args.chunk),
+            slo_ttft_s=args.slo_ttft, slo_tpot_s=args.slo_tpot)
     eng = ServingEngine(model, params, slots=args.slots,
                         max_seq=args.max_seq, plan=splan, paged=args.paged,
                         page_size=args.page_size, num_blocks=args.num_blocks,
                         prefix_cache=prefix_cache, speculate=args.speculate,
                         overlap=args.overlap, kv_dtype=args.kv_dtype,
-                        trace=bool(args.trace))
+                        adapt=adapt, trace=bool(args.trace))
+    if args.adapt:
+        eng.warm_replans()                # candidates exercised off the clock
+        eng.reset_stats()
     eos = None if args.eos < 0 else args.eos
     rng = np.random.default_rng(0)
     t0 = time.perf_counter()
@@ -234,10 +287,18 @@ def main(argv=None):
     elif args.speculate:
         extra += (", spec: no drafts" if eng._spec_k else
                   ", spec: gated off (family not verify-decomposable)")
+    if args.adapt:
+        extra += (f", adapt: replans={st['replans']}"
+                  f" migrations={st['migrations']}"
+                  f" (copies={st['migration_copies']})"
+                  f" final={st['plan_label']}")
     print(f"[serve] {len(done)} requests, {st['gen_tokens']} tokens, "
           f"{st['gen_tokens'] / wall:.1f} tok/s, "
           f"occupancy={st['slot_occupancy']:.2f}, "
           f"kernels={st['kernel_path']}{extra}")
+    if args.adapt:
+        print(f"[serve] adapt decisions (tick, from, to): "
+              f"{eng._ctl.decisions}")
     if args.trace:
         eng.write_trace(args.trace)
         print(f"[serve] trace: {args.trace} ({eng._tr.events} events"

@@ -289,6 +289,24 @@ def slice_cache_slots(cache, first: int, n: int):
             for bk, sub in cache.items()}
 
 
+def extract_dense_slot(cache, slot: int):
+    """Batch row ``slot`` of the cache's dense leaves only, as a part cache
+    (views), or ``{}`` for an all-global-attention paged model.  This is
+    the slot-migration read: a slot's paged state moves by block-table
+    handoff, only its dense row (a hybrid's mamba state; every leaf of a
+    dense cache) moves on the device, written into the destination row by
+    ``scatter_cache_slot`` in place.
+
+    The replicas' caches are views of the engine's one cache, so a
+    migration between replicas or plans is that one row copy: the JAX
+    package's ``concat_cache_slots`` (re-joining replica partitions),
+    ``scatter_prefill_part`` and engine ``_share_pool`` (re-aliasing
+    donated pools) have no counterpart here."""
+    return {bk: {key: {n: t[:, slot:slot + 1] for n, t in leaf.items()}
+                 for key, leaf in sub.items()}
+            for bk, sub in cache.items() if not _block_is_paged(sub)}
+
+
 def copy_cache_pages(full_cache, src: int, dst: int):
     """Copy physical page ``src`` onto ``dst`` in every paged leaf, in
     place (the device half of copy-on-write)."""

@@ -27,8 +27,10 @@ time-multiplexed, as the JAX package's do on one host device (its
 ``place_params`` is a pass-through there).  The functions here are plain
 functions of tensors: the JAX package's ``jax.jit``/donation wrappers and
 its per-stage step factories have no counterpart, and every step writes
-the cache it is given in place.  Re-planning (the JAX pipeline's ``adopt`` and
-per-item runtimes) is not ported yet.
+the cache it is given in place.  A live re-plan (``ServingEngine.replan``)
+drains and rebinds the pipeline: each item keeps the ``PlanRuntime`` it
+was admitted under (``_PrefillItem.rt``), so its remaining chunks walk
+the stage slices they started on, and a new pipeline ``adopt``s it.
 """
 from __future__ import annotations
 
@@ -133,6 +135,11 @@ class _PrefillItem:
     #                                 skipped (the chunks cover the suffix)
     bt: Any = None                  # (1, max_blocks) gather table (paged)
     wt: Any = None                  # (1, max_blocks) fresh-write table
+    rt: Any = None                  # the PlanRuntime this item was admitted
+    #                                 under: after a re-plan its remaining
+    #                                 chunks finish on it, while new
+    #                                 admissions and decode bind the new
+    #                                 plan
 
 
 class PlanRuntime:
@@ -237,16 +244,24 @@ class PrefillPipeline:
         self.items.append(_PrefillItem(
             req=req, slot=slot, replica=replica, local_slot=local_slot,
             chunks=chunks, part_cache=part_cache, reused=reused,
-            bt=bt, wt=wt))
+            bt=bt, wt=wt, rt=self.rt))
+
+    def adopt(self, items: List[_PrefillItem]):
+        """Take over the items in flight of an earlier pipeline (a
+        re-plan's drain-and-rebind).  Each keeps its own ``rt``; the
+        engine remaps its ``replica`` and ``local_slot`` first."""
+        self.items.extend(items)
 
     def _run_stage(self, it: _PrefillItem, si: int, cont: bool, hidden,
                    pos_base: int, caches, ci: int):
-        """Execute one stage for chunk ``ci`` of an item; paged items go
+        """Execute one stage for chunk ``ci`` of an item, on the stage
+        slices of the runtime it was admitted under; paged items go
         through their replica's cache view."""
+        rt = it.rt or self.rt
         tr = self.tracer
         t0 = time.perf_counter() if tr is not None else 0.0
         out = prefill_stage(
-            self.rt.model, self.rt.splan.plan, self.params, si, cont, hidden,
+            rt.model, rt.splan.plan, self.params, si, cont, hidden,
             pos_base, it.part_cache,
             None if it.bt is None else caches[it.replica], it.bt, it.wt)
         if tr is not None:
@@ -277,7 +292,11 @@ class PrefillPipeline:
         caches: the engine's per-replica cache views, REQUIRED when paged
         items are in flight; on_chunk(slot, tokens_done) fires each time a
         paged chunk clears the last stage."""
-        n_stages = self.rt.splan.n_stages
+        # per item: after a re-plan, an item still walks the stages it
+        # was admitted under
+        def n_stages(it):
+            return (it.rt or self.rt).splan.n_stages
+
         occupied = set()
         finished: List[_PrefillItem] = []
 
@@ -293,7 +312,7 @@ class PrefillPipeline:
                 it, fl.si, fl.ci > 0 or it.reused > 0, fl.hidden,
                 fl.pos_base, caches, fl.ci)
             fl.si += 1
-            if fl.si == n_stages:
+            if fl.si == n_stages(it):
                 it.flight.remove(fl)
                 self._chunk_exited(it, fl, finished, on_chunk)
 
@@ -314,7 +333,7 @@ class PrefillPipeline:
             fl = _Flight(ci=it.next_chunk, si=1, hidden=hidden,
                          pos_base=pos_base)
             it.next_chunk += 1
-            if fl.si == n_stages:
+            if fl.si == n_stages(it):
                 self._chunk_exited(it, fl, finished, on_chunk)
             else:
                 it.flight.append(fl)

@@ -8,14 +8,12 @@ paged attention pools, its prompts prefill at their exact length, and a
 warm prefix shares its blocks' memory but is prefilled in full
 (speculation is off for it, as in JAX).
 
-The counterpart of the JAX package's ``serving/engine.py`` without
-adaptive re-planning (the constructor raises NotImplementedError for
-``adapt``).  The engine owns a slot-indexed cache for its whole lifetime.
-Admission prefills one request
-(batch 1) into a free slot: on a dense cache through ``prefill_into_slot``
-(flash attention, then a slot scatter), on a paged cache through
-``prefill_suffix_paged`` (only the suffix a warm prefix leaves, written
-straight into the pool).  Every tick then runs one batched greedy decode
+The counterpart of the JAX package's ``serving/engine.py``.  The engine
+owns a slot-indexed cache for its whole lifetime.  Admission prefills one
+request (batch 1) into a free slot: on a dense cache through
+``prefill_into_slot`` (flash attention, then a slot scatter), on a paged
+cache through ``prefill_suffix_paged`` (only the suffix a warm prefix
+leaves, written straight into the pool).  Every tick then runs one batched greedy decode
 step over all slots at per-slot positions; on a paged cache that step is
 the fused RoPE + page-write + attention kernel.  With ``speculate=K`` a
 tick whose drafter finds something runs one batched VERIFY step instead:
@@ -51,6 +49,16 @@ later than in sync mode; the token streams are the same.  Speculation
 needs its drafts on the host every tick, so an effective ``speculate``
 runs sync.
 
+**Adaptive mode** (``adapt=AdaptiveConfig(...)``,
+``repro_torch.serving.adaptive``): a re-plan controller watches the
+rolling-window arrival rate, queue depth and TTFT/TPOT against SLO targets
+and calls ``replan()`` when another design point (the monolithic engine or
+a ``ServingPlan``) prices lower, without dropping a request.  The replica
+caches are views of the one cache and the pager is engine-wide, so a swap
+re-slices views: on a paged all-global-attention model it moves no K/V (a
+slot's state is its block-table row), and only dense rows (a hybrid's
+mamba state, every leaf of a dense cache) are copied when a slot moves.
+
 **Observability**: always on, a ``MetricsRegistry`` (TTFT/TPOT
 histograms, request and token counters, observed at retirement) and the
 per-stage / per-replica utilization accumulators (``stats()
@@ -64,8 +72,9 @@ Guarantee (held by ``tests/test_torch_serving.py`` and, for plans,
 ``tests/test_torch_overlap.py``): each request's token stream equals
 the JAX engine's stream for it and, on fp caches, an isolated one-shot
 greedy decode of that request, with or without speculation, overlap or a
-plan.  int8 pools change the numbers the decode sees, so their
-streams are held to the JAX engine's int8 streams.
+plan, and across any sequence of live re-plans
+(``tests/test_torch_adaptive.py``).  int8 pools change the numbers the
+decode sees, so their streams are held to the JAX engine's int8 streams.
 
 The cache is updated in place: the steps return the same cache object.
 """
@@ -87,6 +96,7 @@ from repro_torch.obs import (TPOT_BUCKETS, TTFT_BUCKETS, MetricsRegistry,
                              fold_engine_metrics)
 from repro_torch.obs import write_trace as _write_trace
 from repro_torch.plan.serving import PlanRuntime, PrefillPipeline
+from repro_torch.serving.adaptive import ReplanController
 
 
 def make_serve_step(model: Model):
@@ -234,8 +244,8 @@ class ServingEngine:
     record spans into a ring-buffered Tracer (``write_trace``).  None: no
     record is allocated.
 
-    adapt: the JAX engine's live re-planning, not ported yet: anything
-    but None raises NotImplementedError.
+    adapt: a ``repro_torch.serving.AdaptiveConfig``: traffic-adaptive
+    re-planning between its candidate design points (``replan``).
     """
     model: Model
     params: Any
@@ -254,10 +264,6 @@ class ServingEngine:
     trace: Optional[Any] = None
 
     def __post_init__(self):
-        if self.adapt is not None:
-            raise NotImplementedError(
-                "ServingEngine(adapt=...) is not ported yet: the port serves "
-                "a fixed binding, monolithic or plan-driven")
         self.cfg = self.model.cfg
         self.device = torch.device(self.model.device)
         self.kernel_path = dispatch.kernel_path(self.device)
@@ -313,13 +319,16 @@ class ServingEngine:
         else:
             self._cache = self.model.init_cache(self.slots, self.max_seq)
         self._rt = self._pf = self._caches = None
+        self._rt_cache = {}              # ServingPlan -> PlanRuntime: a
+        #                                  re-plan back to a seen point
+        #                                  reuses its runtime
         if self.plan is not None:
             if self.plan.slots != self.slots:
                 raise ValueError(
                     f"ServingPlan was lowered for {self.plan.slots} slots "
                     f"but the engine has {self.slots}; re-lower via "
                     f"lower_serving(plan, slots={self.slots})")
-            self._rt = PlanRuntime(self.model, self.plan, self.max_seq)
+            self._rt = self._runtime_for(self.plan)
             self._pf = PrefillPipeline(self._rt, self.params)
             # one cache VIEW per decode replica over self._cache (its
             # slot range; the paged pools whole)
@@ -362,6 +371,10 @@ class ServingEngine:
         if self.trace:
             self.enable_trace(self.trace)
         self.reset_stats()
+        self._ctl = None
+        if self.adapt is not None:
+            self._ctl = ReplanController(self.adapt)
+            self._ctl.validate(self)
 
     # -- public API --------------------------------------------------------
     def submit(self, req: Request):
@@ -407,7 +420,10 @@ class ServingEngine:
         dispatched first (its input tokens are the previous step's
         output, still on the device), and only then is the previous
         step's result read back, so the device computes step N while the
-        host drains step N-1 and runs the next tick's bookkeeping."""
+        host drains step N-1 and runs the next tick's bookkeeping.
+
+        With ``adapt`` the re-plan controller is consulted first, its time
+        (and any swap's) charged to ``phase_time["replan"]``."""
         t_enter = time.perf_counter()
         if self._t_tick_end is not None:
             self.phase_time["idle"] += t_enter - self._t_tick_end
@@ -415,6 +431,18 @@ class ServingEngine:
         if tr is not None:
             tr.counter("tick", "engine", {"queue": len(self.queue),
                                           "active": self.active}, t=t_enter)
+        if self._ctl is not None and not self._ctl.paused:
+            tc = time.perf_counter()
+            decision = self._ctl.observe(self)  # None: keep; (plan,): swap
+            self.phase_time["replan"] += time.perf_counter() - tc
+            if tr is not None and self._ctl.last_scores is not None:
+                tr.instant("tick", "replan_decision", args={
+                    "scores": self._ctl.last_scores,
+                    "decision": ("keep" if decision is None else
+                                 (decision[0].label
+                                  if decision[0] is not None else "mono"))})
+            if decision is not None:
+                self.replan(decision[0])
         t0 = time.perf_counter()
         self._prefill_window = 0.0
         q0 = len(self.queue)
@@ -427,7 +455,13 @@ class ServingEngine:
                 "queued": q0, "admitted": q0 - len(self.queue),
                 "plan": self.plan.label if self.plan is not None else "mono"})
         if self._pf is not None and self._pf.busy:
-            finished = self._pf.step(caches=self._caches,
+            # after a re-plan to monolithic the drained items' paged
+            # stage-steps go through the whole cache (item.replica is 0)
+            if self.plan is not None:
+                clist = self._caches
+            else:
+                clist = [self._cache] if self.paged else None
+            finished = self._pf.step(caches=clist,
                                      on_chunk=self._chunk_committed)
             self._pipeline_ticks += 1
             for s in self._pf.last_stages_run:
@@ -435,6 +469,8 @@ class ServingEngine:
             for item in finished:
                 self._finish_prefill(item)
             self.phase_time["prefill"] += time.perf_counter() - t1
+        if self._pf is not None and self.plan is None and not self._pf.busy:
+            self._pf = None       # the old pipeline drained after a re-plan
         if self.active or self._inflight:
             t2 = time.perf_counter()
             dispatched = False
@@ -462,6 +498,158 @@ class ServingEngine:
             steps += 1
         return self.done
 
+    def replan(self, plan, *, rebalance: bool = True):
+        """Swap the engine onto another ``ServingPlan`` (None: monolithic)
+        without dropping a request -- the online Pareto move.
+
+          * paged K/V never moves: every replica's view fronts the one
+            pool and the pager's rows are global slot ids, so re-binding
+            decode to a new replica partition re-slices views;
+            ``migration_copies`` stays 0 on an all-global-attention model;
+          * dense slot rows (a hybrid's mamba state, every leaf of a dense
+            cache) are copied only when ``_rebalance_slots`` moves a slot;
+          * chunked prefills in flight drain and rebind: their remaining
+            chunks finish on the runtime they were admitted under, only
+            their replica routing is remapped; decode binds the new plan
+            at once;
+          * overlap mode: the undrained steps land first.
+
+        The stats window continues across the swap; its wall time accrues
+        in ``phase_time["replan"]``.  ``replan(self.plan)`` is pure
+        cross-replica work stealing (``rebalance=False`` suppresses it)."""
+        t0 = time.perf_counter()
+        old_label = self.plan.label if self.plan is not None else "mono"
+        if plan is not None and plan.slots != self.slots:
+            raise ValueError(
+                f"ServingPlan was lowered for {plan.slots} slots "
+                f"but the engine has {self.slots}; re-lower via "
+                f"lower_serving(plan, slots={self.slots})")
+        if plan == self.plan:
+            if rebalance and self.plan is not None:
+                self._drain_inflight()
+                self._rebalance_slots()
+                if self._tr is not None:
+                    self._tr.span("tick", "rebalance", t0, args={
+                        "plan": old_label, "migrations": self.migrations})
+            self.phase_time["replan"] += time.perf_counter() - t0
+            return
+        # 1. land everything in flight on the old binding
+        self._drain_inflight()
+        # 2. drain and rebind the prefill pipeline: the items in flight
+        #    keep their admission runtime (item.rt), only their replica
+        #    routing is remapped to where their slot lives now
+        items = list(self._pf.items) if self._pf is not None else []
+        if plan is not None:
+            self._rt = self._runtime_for(plan)
+            pf = PrefillPipeline(self._rt, self.params, tracer=self._tr)
+            pf.adopt(items)
+            self._pf = pf
+        else:
+            self._rt = None
+            if not items:
+                self._pf = None
+            # else: the old pipeline lives on only to drain its items
+        for it in items:
+            it.replica, it.local_slot = ((0, it.slot) if plan is None
+                                         else plan.replica_of_slot(it.slot))
+        # 3. re-bind decode: views of the one cache for the new partition
+        self.plan = plan
+        self._caches = (self._replica_views(plan, self._cache)
+                        if plan is not None else None)
+        # 4. the pool and its manager survive as they are: re-attach the
+        #    pool to the engine-lifetime peak tracker (idempotent)
+        if self._pager is not None:
+            self._peak_tracker.attach(self._pager.pool)
+        # 5. spread the surviving decode slots over the new replicas
+        if rebalance and plan is not None:
+            self._rebalance_slots()
+        self.replans += 1
+        self.phase_time["replan"] += time.perf_counter() - t0
+        if self._tr is not None:
+            self._tr.span("tick", "replan", t0, args={
+                "from": old_label,
+                "to": plan.label if plan is not None else "mono",
+                "migrations": self.migrations,
+                "migration_copies": self.migration_copies})
+
+    def warm_replans(self):
+        """Exercise every adaptive candidate once (its measured profile,
+        its runtime and a short request through it), then restore the
+        initial binding.  Call before ``reset_stats()`` in a benchmark."""
+        if self._ctl is None:
+            return
+        initial = self.plan
+        self._ctl.paused = True
+        try:
+            self._ctl.warm(self)
+            uid = -1
+            for cand in self._ctl.cfg.plans:
+                self.replan(cand, rebalance=False)
+                chunk = cand.chunk if cand is not None else 4
+                prompt = np.ones((max(2 * chunk, 4),), np.int32)
+                self.submit(Request(uid=uid, prompt=prompt,
+                                    max_new_tokens=3))
+                uid -= 1
+                self.run()
+            self.replan(initial, rebalance=False)
+        finally:
+            self._ctl.paused = False
+
+    def _rebalance_slots(self):
+        """Cross-replica work stealing: move active decode slots from
+        overloaded replicas onto free slots of underloaded ones until no
+        replica holds 2 or more slots above another.  Slots mid-prefill
+        (reserved) stay put."""
+        plan = self.plan
+        R = plan.n_replicas
+        while True:
+            load = [0] * R
+            for s in range(self.slots):
+                if self._slot_req[s] is not None or s in self._reserved:
+                    load[plan.replica_of_slot(s)[0]] += 1
+            hi = max(range(R), key=lambda r: load[r])
+            lo = min(range(R), key=lambda r: load[r])
+            if load[hi] - load[lo] <= 1:
+                return
+            a, b = plan.replica_range(hi)
+            movable = [s for s in range(a, b)
+                       if self._slot_req[s] is not None
+                       and s not in self._reserved]
+            la, lb = plan.replica_range(lo)
+            dsts = [s for s in range(la, lb)
+                    if self._slot_req[s] is None
+                    and s not in self._reserved]
+            if not movable or not dsts:
+                return        # the surplus is all mid-prefill
+            self._migrate_slot(movable[-1], dsts[0])
+
+    def _migrate_slot(self, src: int, dst: int):
+        """Move one active decode request between slots (and so
+        replicas).  Paged: ``PagedCacheManager.migrate_slot`` hands the
+        block-table row over and no K/V moves.  Dense rows (a hybrid's
+        mamba state; every leaf of a dense cache) are copied in place
+        within the one cache; ``migration_copies`` counts those moves."""
+        assert self._slot_req[dst] is None and dst not in self._reserved
+        assert src not in self._reserved
+        req = self._slot_req[src]
+        if self._pager is not None:
+            self._pager.migrate_slot(src, dst)
+        rs, ls = self.plan.replica_of_slot(src)
+        rd, ld = self.plan.replica_of_slot(dst)
+        part = T.extract_dense_slot(self._caches[rs], ls)
+        if part:
+            T.scatter_cache_slot(self._caches[rd], part, ld)
+            self.migration_copies += 1
+        self._slot_req[dst] = req
+        self._slot_req[src] = None
+        req.slot = dst
+        self._pos[dst] = self._pos[src]
+        self._pos[src] = 0
+        self._cur[dst] = self._cur[src]
+        self._cur_known[dst] = self._cur_known[src]
+        self._cur_known[src] = True
+        self.migrations += 1
+
     def reset_stats(self):
         """Zero the counters so stats() covers only the window after this
         call (active slots and their blocks are untouched)."""
@@ -477,11 +665,16 @@ class ServingEngine:
         self.spec_steps = 0               # decode ticks that ran a verify
         self.spec_proposed = 0            # drafted tokens offered to verify
         self.spec_accepted = 0            # drafted tokens accepted
-        # host wall-clock per phase; "host_sync" overlays the others: the
-        # time the host spent blocked on device readback (what overlap
-        # shrinks)
+        self.replans = 0                  # live plan swaps this window
+        self.migrations = 0               # slots moved (work stealing)
+        self.migration_copies = 0         # dense row moves those cost (0
+        #                                   on a paged all-global-attention
+        #                                   model: the zero-copy claim)
+        # host wall-clock per phase; "replan" charges controller decisions
+        # and swaps; "host_sync" overlays the others: the time the host
+        # spent blocked on device readback (what overlap shrinks)
         self.phase_time = {"admission": 0.0, "prefill": 0.0, "decode": 0.0,
-                           "idle": 0.0, "host_sync": 0.0}
+                           "replan": 0.0, "idle": 0.0, "host_sync": 0.0}
         self._stage_busy = {}             # stage -> pipeline steps it ran
         self._pipeline_ticks = 0          # ticks the prefill pipeline ran
         self._replica_busy = {}           # replica -> occupied slot-steps
@@ -498,6 +691,7 @@ class ServingEngine:
             p.peak_in_use = p.blocks_in_use
             p.prefill_admissions = p.prefill_compute_hits = 0
             p.reused_prefill_tokens = p.suffix_prefill_tokens = 0
+            self._pager.migrations = 0
 
     def cache_stats(self) -> Dict[str, Any]:
         """Live vs reserved tokens and, on a paged engine, the block pool:
@@ -646,9 +840,10 @@ class ServingEngine:
             "spec_accepted": self.spec_accepted,
             "acceptance_rate": (self.spec_accepted
                                 / max(self.spec_proposed, 1)),
-            "spec_acceptance_rate": (self.spec_accepted
-                                     / max(self.spec_proposed, 1)),
             "slot_occupancy": self._occupied_step_sum / cap,
+            "replans": self.replans,
+            "migrations": self.migrations,
+            "migration_copies": self.migration_copies,
             "throughput_tok_s": gen / wall if wall > 0 else 0.0,
             "ttft_s": [r.t_first - r.t_submit for r in reqs],
             "latency_s": [r.t_done - r.t_submit for r in reqs],
@@ -711,6 +906,15 @@ class ServingEngine:
         return [T.slice_cache_slots(full, a, b - a)
                 for a, b in (plan.replica_range(r)
                              for r in range(plan.n_replicas))]
+
+    def _runtime_for(self, splan):
+        """The (cached) PlanRuntime of a ServingPlan: a re-plan back to a
+        design point seen before reuses its runtime."""
+        rt = self._rt_cache.get(splan)
+        if rt is None:
+            rt = PlanRuntime(self.model, splan, self.max_seq)
+            self._rt_cache[splan] = rt
+        return rt
 
     def _pick_slot(self, free):
         """Admission slot choice: the first free slot, or in plan mode a
@@ -819,19 +1023,25 @@ class ServingEngine:
                     "slot": slot, "tokens_done": tokens_done})
 
     def _finish_prefill(self, item):
-        """The last chunk left the last stage: take the first token,
-        scatter the request's batch-1 dense leaves (all of them on a dense
-        cache; the mamba state on a paged one, whose K/V already sit in
-        the pool) into its slot of the replica's view, and start
-        decoding."""
-        logits = self._rt.head(self.params, item.final_hidden)
+        """The last chunk left the last stage: take the first token (the
+        head of the runtime the item was admitted under), scatter the
+        request's batch-1 dense leaves (all of them on a dense cache; the
+        mamba state on a paged one, whose K/V already sit in the pool)
+        into its slot, and start decoding.  The slot lands in the CURRENT
+        binding: after a re-plan, the view of the replica that holds it
+        now, or the whole cache on the monolithic point."""
+        logits = (item.rt or self._rt).head(self.params, item.final_hidden)
         tok = int(self._sync(torch.argmax(logits[:, -1], dim=-1))[0])
-        view = self._caches[item.replica]
+        if self.plan is not None:
+            replica, local = self.plan.replica_of_slot(item.slot)
+            view = self._caches[replica]
+        else:
+            view, local = self._cache, item.slot
         if self.paged:
-            T.merge_prefill_view(view, item.part_cache, item.local_slot)
+            T.merge_prefill_view(view, item.part_cache, local)
             self._pager.commit(item.slot)
         else:
-            T.scatter_cache_slot(view, item.part_cache, item.local_slot)
+            T.scatter_cache_slot(view, item.part_cache, local)
         self._reserved.discard(item.slot)
         self._activate(item.req, item.slot, tok)
 

@@ -322,7 +322,8 @@ def test_export_metrics_and_write_paths(setup, tmp_path):
 def test_launcher_overlap_trace_and_metrics(monkeypatch, capsys, tmp_path,
                                             plan_args):
     """The launcher's CPU run with ``--overlap --trace --metrics-out`` at
-    a reduced width (the registry entry swapped for ``reduced``)."""
+    a reduced width (the registry entry swapped for ``reduced``), then
+    with ``--adapt``, which raised before re-planning was ported."""
     monkeypatch.setitem(REGISTRY, "yi-6b", reduced(REGISTRY["yi-6b"]))
     tj, tp = tmp_path / "serve.json", tmp_path / "serve.prom"
     launcher.main(["--device", "cpu", "--layers", "2", "--paged",
@@ -340,5 +341,9 @@ def test_launcher_overlap_trace_and_metrics(monkeypatch, capsys, tmp_path,
                    "--overlap", "--speculate", "4", "--requests", "1",
                    "--new-tokens", "2", "--max-seq", "64", *plan_args])
     assert "overlap=sync(spec)" in capsys.readouterr().out
-    with pytest.raises(NotImplementedError):
-        launcher.main(["--device", "cpu", "--layers", "2", "--adapt"])
+    launcher.main(["--device", "cpu", "--layers", "2", "--paged", "--adapt",
+                   "--requests", "2", "--new-tokens", "3", "--max-seq", "64",
+                   "--chunk", "4", *plan_args])
+    out = capsys.readouterr().out
+    assert "[serve] 2 requests, 6 tokens" in out
+    assert ", adapt: replans=" in out and "adapt decisions" in out

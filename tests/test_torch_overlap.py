@@ -236,10 +236,11 @@ def test_overlap_keeps_stats_coherent(models):
     # a retiring slot rides one garbage step along, which emits nothing
     assert st["decode_tokens"] == 15 and 0.5 < st["tokens_per_step"] < 1.0
     pt = st["phase_time_s"]
-    assert set(pt) == {"admission", "prefill", "decode", "idle",
+    assert set(pt) == {"admission", "prefill", "decode", "replan", "idle",
                        "host_sync"}
     assert pt["host_sync"] > 0.0
     assert pt["host_sync"] <= pt["admission"] + pt["prefill"] + pt["decode"]
+    assert pt["replan"] == 0.0           # no controller, no swap
     for r in done:
         assert r.t_submit <= r.t_first <= r.t_done
     snap = eng.export_metrics().snapshot()

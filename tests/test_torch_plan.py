@@ -11,7 +11,9 @@ package's.
 * Validation: ``check_roundtrip`` (the chained stage slices against
   ``Model.forward``) within 1e-5 in f32 for uniform and uneven plans;
   ``predict_plan`` equal to JAX's on the default chip, and finite and
-  different on the H100.
+  different on the H100; ``auto_spatial_width``'s measured branch picks a
+  divisor of the batch (``tests/test_torch_validate.py`` holds the
+  measured side against JAX's).
 * The stage walk: the port's chained stage slices give JAX's
   ``stage_forward`` chain's logits on bridged weights at 1e-5 (f32), on
   yi-6b and the jamba hybrid.
@@ -167,12 +169,20 @@ def test_uniform_plans_equal():
             == asdict(TP.uniform_plan(groups, stages, n_microbatches=m))
 
 
-def test_auto_spatial_width_measured_branch_is_not_ported():
+def test_auto_spatial_width_measured_branch_is_not_ported(yi_models):
+    """The measured branch, which raised before ``measure_plan`` was
+    ported: each candidate width is timed on the model's device and the
+    pick is a divisor of the batch."""
+    _, _, tm, tp = yi_models
     _, tg = both_graphs()
-    with pytest.raises(NotImplementedError, match="measure_plan"):
-        TV.auto_spatial_width(
-            lambda m: TP.uniform_plan(4, 2, n_microbatches=m), tg,
-            measure_with=(None, None, None))
+    widths = []
+
+    def build(m):
+        widths.append(m)
+        return TP.uniform_plan(4, 2, n_microbatches=m)
+    batch = {"tokens": np.ones((8, 16), np.int32)}
+    M = TV.auto_spatial_width(build, tg, measure_with=(tm, tp, batch))
+    assert widths == [1, 2, 4, 8] and M in widths
 
 
 @pytest.mark.parametrize("strategy", ["pipeline:2", "hybrid:2"])

@@ -20,9 +20,10 @@ the golds.
 Beside parity: a replica's decode writes land in the engine's one cache
 (replica caches are views), decode never stalls while a long prompt
 streams through the stages, a reserved slot riding its replica's decode
-cannot touch a shared block, and ``adapt`` still raises (``overlap``
-and ``trace`` construct; ``tests/test_torch_overlap.py`` and
-``tests/test_torch_obs.py`` hold them).
+cannot touch a shared block, and ``adapt``, ``overlap`` and ``trace``
+construct on a plan engine (``tests/test_torch_adaptive.py``,
+``tests/test_torch_overlap.py`` and ``tests/test_torch_obs.py`` hold
+them).
 """
 import numpy as np
 import pytest
@@ -350,9 +351,10 @@ def test_plan_engine_contract(models):
     splan = TP.lower_serving(uniform(TP, 4), slots=2, chunk=4)
     with pytest.raises(ValueError, match="lowered for 2 slots"):
         ServingEngine(tm, tp, slots=3, max_seq=32, plan=splan)
-    with pytest.raises(NotImplementedError):
-        ServingEngine(tm, tp, slots=2, max_seq=32, plan=splan,
-                      adapt=object())
+    from repro_torch.serving import AdaptiveConfig
+    eng = ServingEngine(tm, tp, slots=2, max_seq=32, plan=splan,
+                        adapt=AdaptiveConfig(plans=[None], measure=False))
+    assert eng._ctl.cfg.plans == [splan, None]
     eng = ServingEngine(tm, tp, slots=2, max_seq=32, plan=splan,
                         overlap=True, trace=True)
     assert eng._overlap and eng._pf.tracer is eng._tr

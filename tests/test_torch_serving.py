@@ -38,6 +38,8 @@ from repro_torch.cache import PagedCacheManager as TPager  # noqa: E402
 from repro_torch.configs import REGISTRY as T_REGISTRY  # noqa: E402
 from repro_torch.configs import reduced as t_reduced  # noqa: E402
 from repro_torch.models import build_model as t_build  # noqa: E402
+from repro_torch.plan import lower_serving, uniform_plan  # noqa: E402
+from repro_torch.serving import AdaptiveConfig, ReplanController  # noqa: E402
 from repro_torch.serving import Request, ServingEngine  # noqa: E402
 from repro_torch.serving import make_serve_step  # noqa: E402
 from repro_torch.serving import ngram_draft  # noqa: E402
@@ -175,15 +177,25 @@ def test_stats_report_the_plain_kernel_path_and_phases(models):
     assert st["requests"] == len(STAGGERED)
     assert st["gen_tokens"] == sum(mn for _, mn, _ in STAGGERED)
     assert set(st["phase_time_s"]) == {"admission", "prefill", "decode",
-                                       "idle", "host_sync"}
+                                       "replan", "idle", "host_sync"}
     assert st["cache"]["layout"] == "paged"
 
 
-@pytest.mark.parametrize("feature", [{"adapt": object()}])
+ADAPT_PLAN = lower_serving(uniform_plan(1, 1, n_microbatches=2), slots=2,
+                           chunk=4)
+
+
+@pytest.mark.parametrize("feature", [{"adapt": AdaptiveConfig(
+    plans=[ADAPT_PLAN], measure=False)}])
 def test_unported_engine_features_raise(models, feature):
+    """``adapt``, which raised before re-planning was ported, constructs
+    a controller and validates its ladder: the engine's initial (mono)
+    binding joins the candidates."""
     _, _, tm, tp = models
-    with pytest.raises(NotImplementedError):
-        ServingEngine(tm, tp, slots=2, max_seq=32, **feature)
+    eng = ServingEngine(tm, tp, slots=2, max_seq=32, **feature)
+    assert isinstance(eng._ctl, ReplanController)
+    assert eng._ctl.cfg.plans == [None, ADAPT_PLAN]
+    assert eng.stats()["replans"] == 0
 
 
 # ---------------------------------------------------------------------------
@@ -253,7 +265,7 @@ def test_speculative_streams_match_jax_engine_and_gold(
                 "acceptance_rate", "tokens_per_step", "decode_steps",
                 "decode_tokens"):
         assert st_[key] == jst[key], key
-    assert st_["spec_acceptance_rate"] == \
+    assert st_["utilization"]["spec_acceptance_rate"] == \
         jst["utilization"]["spec_acceptance_rate"]
     if paged:
         assert teng._pager.pool.blocks_in_use == 0    # rollbacks released
