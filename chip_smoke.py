@@ -46,6 +46,14 @@ device it fails (it never runs on the CPU instead).  Phases, in order:
      decode replicas at B=2 (a replica decodes its own slots): the fused
      decode over fp and int8 pools (16 bf16 key splits) and the unfused
      decode at Hkv=8 (8 splits), each against its plain version; then
+     the new families' GQA groups (nemotron's G=6 and yi-34b's G=7,
+     which the split walk pads to 8 rows, qwen2-moe's G=1 at Hkv=16,
+     granite-moe's G=2 at D=64): the fused decode at each (B=4,
+     positions up to 1000) on fp pools in f32 and bf16 and on int8
+     pools, the unfused decode and the paged prefill (S=256) at G=6,
+     each timed
+     beside its bound, plain version and SDPA; flash and the paged
+     prefill at G=1 (qwen2-moe) and flash at G=6, checked; then
      the kernel front door, ``repro_torch.kernels.ops``: the fused matmul
      (yi-6b's gate projection at 4 and 512 tokens, a 4096-wide projection
      with each epilogue, f32 and bf16, bf16 to f32) and the one-pass norm
@@ -91,7 +99,17 @@ device it fails (it never runs on the CPU instead).  Phases, in order:
      prefill to mono and to a wider plan; ``measure_plan``'s round-trip
      error below 1e-4 for a 1-stage and 2-stage plans at M = 1, 2, 4; and
      on the f32 hybrid the same rebalance, whose migration copies one
-     mamba-state row.  Each run zeroes the launch counters
+     mamba-state row.  The MoE and non-llama dense families, f32 at
+     published width: qwen2-moe-a2.7b, nemotron-4-15b and yi-34b at 2
+     layers and granite-moe-1b-a400m at its full 24: the staggered
+     schedule through the paged engine must give the gold's streams and
+     a paged prefill + decode ``Model.forward``'s logits (MoE at a
+     drop-free capacity); MoE engines must prefill at the exact length
+     with no compute reuse or speculation, and through a 2-stage plan at
+     chunk 16 in one chunk a prompt, with the gold's streams; on int8
+     pools nemotron and yi-34b must give the fp gold's first tokens, and
+     the MoE models whole, finite streams (int8 K/V flips routing).
+     Each run zeroes the launch counters
      just before and reads them just after: every kernel of its path
      must have launched (the dense run's flash launches are also sorted
      by shape: chunk-0 passes and continuations);
@@ -131,7 +149,12 @@ device it fails (it never runs on the CPU instead).  Phases, in order:
      prompts as a burst and then a trickling tail of 8 short requests:
      its profiles, decisions and numbers print beside serve-full's and
      serve-plan's; every request must finish, the controller must score,
-     and no swap may copy a row.
+     and no swap may copy a row.  serve-moe and serve-nemotron:
+     qwen2-moe-a2.7b (28.6 GB) and nemotron-4-15b (31.3 GB) at published
+     width and depth, bf16, with serve-full's engine and requests, each
+     with its profiled decode window (the MoE expert products' device
+     time a tick from the profile's bmm ops) and host syncs a tick; each
+     model is freed before the next.
 
 It prints a ``{"kernels": [...]}`` JSON line, then as its last line
 ``{"ok": true, "device": {...}}``.  Any failed check exits non-zero
@@ -1130,6 +1153,205 @@ def replica_kernel_phase(dev, flush, results):
                 f"{'int8' if int8 else 'fp'} pools")
         print_rows(results, dtype, names)
     return results
+
+
+# the fused decode's layouts held to the plain version beside the split
+# walk's padded G: (row suffix, Hkv, D, groups)
+GROUP_LAYOUTS = (("", 8, 128, (6, 7)),      # nemotron-4-15b, yi-34b
+                 ("", 16, 128, (1,)),       # qwen2-moe-a2.7b
+                 ("_d64", 8, 64, (2,)))     # granite-moe-1b-a400m
+
+
+def group_kernel_phase(dev, flush, results):
+    """Phase 3, the new families' GQA groups: nemotron's 48/8 = 6 query
+    heads per kv head and yi-34b's 56/8 = 7, which the split walk pads to
+    8 rows, qwen2-moe's 16/16 = 1 and granite-moe's 16/8 = 2 at head_dim
+    64.  The fused decode at each (B=4, page 16, 64-entry tables,
+    positions up to 1000; Hkv=8, D=128 at G = 6 and 7, Hkv=16, D=128 at
+    G=1, Hkv=8, D=64 at G=2) on fp pools in f32 and bf16 and on int8
+    pools (written rows held to the plain version's, int8 rows and scales
+    bit-equal); the unfused decode at G = 6 (lengths up to 1000) on fp
+    pools; the paged prefill at G = 6, S = 256 (offsets 0 and 256,
+    1024-key table); each timed beside its bound, its plain version and
+    SDPA on the K/V gathered (and dequantized) beforehand.  Then, checked
+    only: flash (S = 256, causal) and the paged prefill at G = 1
+    (qwen2-moe's 16 heads on 16 kv heads) and flash at G = 6."""
+    from repro_torch.kernels import flash_attention as TF
+    from repro_torch.kernels import paged_attention as TP
+    from repro_torch.kernels import ref as TR
+    F = torch.nn.functional
+    page, b, nb = 16, 4, 64
+    n = b * nb + 1
+    gen = torch.Generator(device=dev).manual_seed(6)
+
+    def rnd(shape, dtype=torch.float32):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    pos = torch.tensor([999, 17, 512, 1000], dtype=torch.int32, device=dev)
+    bt = torch.randperm(b * nb, generator=gen, device=dev).reshape(
+        b, nb).to(torch.int32)
+    pools_of = {}
+    for _, hk, d, _ in GROUP_LAYOUTS:
+        if (hk, d) not in pools_of:
+            kq, ks = TR.quantize_int8_rows(rnd((n, page, hk, d)))
+            vq, vs = TR.quantize_int8_rows(rnd((n, page, hk, d)))
+            pools_of[hk, d] = (kq, ks, vq, vs, TR.dequantize_int8(kq, ks),
+                               TR.dequantize_int8(vq, vs))
+    keys = int((pos.long() + 1).sum())
+    tables = int(((pos.long() + page) // page).sum())
+    mask = (torch.arange(nb * page, device=dev)[None, :]
+            <= pos[:, None].long())[:, None, None, :]
+
+    def sdpa_on(q, table, kpool, vpool, g, dtype, qmask):
+        """SDPA over the K/V rows of ``table``, gathered in logical
+        order."""
+        bb, nbb = table.shape
+        hk, d = kpool.shape[2:]
+        kg = kpool[table.long()].reshape(bb, nbb * page, hk, d).transpose(
+            1, 2)
+        vg = vpool[table.long()].reshape(bb, nbb * page, hk, d).transpose(
+            1, 2)
+        kg = kg.repeat_interleave(g, 1).to(dtype).contiguous()
+        vg = vg.repeat_interleave(g, 1).to(dtype).contiguous()
+        return functools.partial(F.scaled_dot_product_attention, q, kg, vg,
+                                 attn_mask=qmask)
+
+    def row(name, dtype, launch, plain, sdpa, err, nbytes, ops, split,
+            shape):
+        bnd, by = bound_ms(nbytes, ops, dtype)
+        results[(name, dtype)] = dict(
+            max_abs_err=err, ms=bench(launch, flush),
+            plain_ms=bench(plain, flush), library_ms=bench(sdpa, flush),
+            bound_ms=bnd, bound_by=by, device_ms=device_ms(launch, flush),
+            library_device_ms=device_ms(sdpa, flush), splits=split,
+            shape=shape)
+
+    for dtype in (torch.float32, torch.bfloat16):
+        el = torch.tensor([], dtype=dtype).element_size()
+        names = []
+        for suffix, hk, d, groups in GROUP_LAYOUTS:
+            kq, ks, vq, vs, kf, vf = pools_of[hk, d]
+            for g in groups:
+                h = hk * g
+                q, kn, vn = rnd((b, hk, g, d), dtype), \
+                    rnd((b, hk, d), dtype), rnd((b, hk, d), dtype)
+                for pool in ("fp", "int8"):
+                    if pool == "int8":
+                        pools, row_bytes = [kq, vq, ks, vs], d + 4
+                    else:
+                        pools, row_bytes = [kf.to(dtype), vf.to(dtype), None,
+                                            None], d * el
+                    mine = [None if t is None else t.clone() for t in pools]
+                    ref_pools = [None if t is None else t.clone()
+                                 for t in pools]
+                    name = ("fused_paged_decode" + ("_int8" if pool == "int8"
+                                                    else "")
+                            + f"_g{g}{suffix}")
+
+                    def launch(p=mine, q=q, kn=kn, vn=vn):
+                        return TP.fused_paged_decode_grouped(
+                            q, kn, vn, p[0], p[1], bt, pos, theta=1e4,
+                            k_scales=p[2], v_scales=p[3])
+
+                    def plain(p=ref_pools, q=q, kn=kn, vn=vn):
+                        return TR.fused_paged_decode_ref(
+                            q, kn, vn, p[0], p[1], bt, pos, theta=1e4,
+                            k_scales=p[2], v_scales=p[3])
+                    out, ref = launch()[0], plain()[0]
+                    torch.cuda.synchronize()
+                    err = assert_close(f"{name} out", out, ref, dtype)
+                    for what, a, r in zip(("k_pages", "v_pages", "k_scales",
+                                           "v_scales"), mine, ref_pools):
+                        if a is None:
+                            continue
+                        if pool == "int8":
+                            same = torch.equal(a, r)
+                            print(f"[kernels] {name} {str(dtype)[6:]} "
+                                  f"written {what} bit-equal: {same}")
+                            check(same, f"{name} {what} differ from the "
+                                        f"plain version's ({dtype})")
+                        else:
+                            assert_close(f"{name} {what}", a, r, dtype)
+                    split = TP.fused_paged_decode_grouped.last_split[0]
+                    # q read and out written, the fresh K/V rows read (in
+                    # the activation dtype) and written (in the pool's),
+                    # the cached rows read once, the tables and positions
+                    nbytes = 2 * b * h * d * el + 2 * b * hk * d * el \
+                        + 2 * b * hk * row_bytes \
+                        + 2 * keys * hk * row_bytes + 4 * (b + tables)
+                    row(name, dtype, launch, plain,
+                        sdpa_on(q.reshape(b, h, 1, d), bt, kf, vf, g, dtype,
+                                mask), err, nbytes, 4 * keys * hk * g * d,
+                        split, f"B={b} Hkv={hk} G={g} D={d} P={page} "
+                        f"NB={nb} pos<=1000 {pool} pools")
+                    names.append(name)
+        kf, vf = pools_of[8, 128][4:]
+        hk, d = 8, 128
+
+        # -- the unfused decode at G=6, fp pools, lengths pos + 1 --------
+        g, h = 6, 6 * hk
+        q = rnd((b, hk, g, d), dtype)
+        kp_, vp_ = kf.to(dtype), vf.to(dtype)
+        lengths = pos + 1
+        out = TP.paged_attention_grouped(q, kp_, vp_, bt, lengths)
+        ref = TR.paged_attention_ref(q, kp_, vp_, bt, lengths)
+        torch.cuda.synchronize()
+        err = assert_close("paged_attention_g6", out, ref, dtype)
+        row("paged_attention_g6", dtype,
+            lambda: TP.paged_attention_grouped(q, kp_, vp_, bt, lengths),
+            lambda: TR.paged_attention_ref(q, kp_, vp_, bt, lengths),
+            sdpa_on(q.reshape(b, h, 1, d), bt, kf, vf, g, dtype, mask), err,
+            2 * b * h * d * el + 2 * keys * hk * d * el + 4 * (b + tables),
+            4 * keys * hk * g * d,
+            TP.paged_attention_grouped.last_split[0],
+            f"B={b} Hkv={hk} G={g} D={d} P={page} NB={nb} lengths<=1001 "
+            f"fp pools")
+
+        # -- the paged prefill at G=6, S=256 at offsets 0 and 256 ---------
+        s, tb = 256, bt[:1]
+        q = rnd((1, hk, g, s, d), dtype)
+        for offset in (0, 256):
+            out = TP.paged_prefill_attention_grouped(q, kp_, vp_, tb, offset)
+            ref = TR.paged_prefill_attention_ref(q, kp_, vp_, tb, offset)
+            err = assert_close(f"paged_prefill_g6 offset={offset}", out, ref,
+                               dtype)
+        qmask = (torch.arange(nb * page, device=dev)[None, :]
+                 <= offset + torch.arange(s, device=dev)[:, None])
+        t = offset + s
+        row("paged_prefill_g6", dtype,
+            lambda: TP.paged_prefill_attention_grouped(q, kp_, vp_, tb,
+                                                       offset),
+            lambda: TR.paged_prefill_attention_ref(q, kp_, vp_, tb, offset),
+            sdpa_on(q.reshape(1, h, s, d), tb, kf, vf, g, dtype, qmask), err,
+            (2 * h * s * d + 2 * t * hk * d) * el + 4 * (-(-t // page)),
+            4 * (s * offset + s * (s + 1) // 2) * h * d,
+            splits_of(dtype, TP.prefill_split(1, hk, g, s, page, nb,
+                                              offset)),
+            f"B=1 Hkv={hk} G={g} S={s} offset={offset} (also 0) D={d} "
+            f"P={page} NB={nb}")
+        print_rows(results, dtype, names + ["paged_attention_g6",
+                                            "paged_prefill_g6"])
+
+        # -- checked only: flash at G=1 and 6, the paged prefill at G=1 ---
+        qp = torch.arange(s, dtype=torch.int32, device=dev)
+        ones = torch.ones((s,), dtype=torch.int32, device=dev)
+        for heads, kvh in ((16, 16), (48, 8)):
+            q, k, v = (rnd((1, heads, s, d), dtype),
+                       rnd((1, kvh, s, d), dtype), rnd((1, kvh, s, d), dtype))
+            out = TF.flash_attention_bhsd(q, k, v, qp, qp, ones)
+            ref = TR.flash_attention_ref(q, k, v, qp, qp, ones)
+            assert_close(f"flash_attention G={heads // kvh} (H={heads}, "
+                         f"Hkv={kvh}, S={s})", out, ref, dtype)
+        k1, v1 = rnd((nb + 1, page, 16, d), dtype), \
+            rnd((nb + 1, page, 16, d), dtype)
+        t1 = torch.randperm(nb, generator=gen, device=dev)[None].to(
+            torch.int32)
+        q = rnd((1, 16, 1, s, d), dtype)
+        for offset in (0, 256):
+            out = TP.paged_prefill_attention_grouped(q, k1, v1, t1, offset)
+            ref = TR.paged_prefill_attention_ref(q, k1, v1, t1, offset)
+            assert_close(f"paged_prefill G=1 (Hkv=16, S={s}) "
+                         f"offset={offset}", out, ref, dtype)
 
 
 MM_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}     # by output dtype
@@ -2257,6 +2479,168 @@ def hybrid_parity_phase(dev, kernels):
                 overlap_launches=overlap_launches, replan=replan)
 
 
+# (arch, layers: 0 = the published depth) of the family parity runs
+GRANITE = "granite-moe-1b-a400m"
+FAMILIES = (("qwen2-moe-a2.7b", 2), ("nemotron-4-15b", 2), ("yi-34b", 2),
+            (GRANITE, 0))
+
+
+def family_parity_phase(dev, kernels):
+    """Phase 4, the MoE and non-llama dense families in f32 at published
+    width: qwen2-moe-a2.7b (60 experts top-4 and a shared expert, G=1),
+    nemotron-4-15b (LayerNorm, relu2, G=6) and yi-34b (G=7) at 2 layers,
+    granite-moe-1b-a400m (32 experts top-8, tied head, head_dim 64, G=2)
+    at its full 24.  parity-f32's staggered schedule (6 requests, one
+    sharing a 64-token prefix) through the paged engine must give the
+    one-shot gold's streams; a paged prefill + decode must give
+    ``Model.forward``'s logits.  MoE engines, built with ``speculate=4``,
+    must prefill at the exact prompt length, reuse no prefix compute and
+    not speculate, and a plan engine (``uniform_plan(groups, 2)``, 2
+    replicas, chunk 16) must prefill each prompt in one chunk and give the
+    gold's streams.  Each also runs the schedule on int8 pools (the fused
+    decode's int8 mode at G = 1, 6, 7 and 2): nemotron's and yi-34b's
+    first tokens must equal the fp gold's; the MoE streams must be whole
+    and finite (int8 K/V flips top-k routing choices, so they leave the
+    fp gold).  (The MoE models' forward check runs at a
+    drop-free capacity: a full forward's capacity drops differ from the
+    drop-free decode steps'.)"""
+    from repro_torch.configs import REGISTRY
+    from repro_torch.models import build_model
+    from repro_torch.plan import lower_serving, uniform_plan
+    out = {}
+    path = {k: kernels[k] for k in ("fused_paged_decode", "paged_prefill")}
+    for arch, layers in FAMILIES:
+        base = REGISTRY[arch]
+        cfg = dataclasses.replace(base, num_layers=layers or base.num_layers,
+                                  dtype="float32", param_dtype="float32")
+        moe = cfg.moe is not None
+        model = build_model(cfg, device=dev)
+        params = model.init(torch.Generator(device=dev).manual_seed(1))
+        nparam = model.param_count(params)
+        print(f"[parity] {arch} f32, {cfg.num_layers} layers: "
+              f"{nparam / 1e9:.3f} B params, {nparam * 4 / 1e9:.1f} GB, "
+              f"G={cfg.num_heads // cfg.num_kv_heads}, head_dim "
+              f"{cfg.head_dim}")
+        rng = np.random.default_rng(3)
+        v = cfg.vocab_size
+
+        def toks(m):
+            return rng.integers(1, v, m).astype(np.int32)
+
+        prefix = toks(64)
+        sched = [(np.concatenate([prefix, toks(16)]), 4, 0),
+                 (toks(50), 10, 0), (toks(120), 8, 0), (toks(33), 12, 1),
+                 (np.concatenate([prefix, toks(30)]), 10, 3),
+                 (toks(70), 9, 5)]
+        max_seq = 256
+        golds, gaps = {}, {}
+        for uid, (prompt, max_new, _) in enumerate(sched):
+            golds[uid], lgs = gold_decode(model, params, prompt, max_new,
+                                          max_seq)
+            gaps[uid] = [top2_gap(x) for x in lgs]
+        res = {}
+        eng, got, res["launches"] = run_engine(
+            f"{arch} paged fp", model, params, sched, path, max_seq, 4,
+            paged=True, page_size=16, speculate=4 if moe else 0)
+        compare_streams(f"{arch} paged fp vs one-shot gold", got, golds,
+                        gaps)
+        st = eng.cache_stats()
+        print(f"[parity] {arch}: prefill_bucket {eng.prefill_bucket}, "
+              f"suffix reuse {eng._suffix_reuse}, speculate "
+              f"{eng._spec_k}, warm admissions "
+              f"{st['prefill_compute_hits']} (prefix hits "
+              f"{st['prefix_hits']})")
+        if moe:
+            check(eng.prefill_bucket == 1 and not eng._suffix_reuse
+                  and eng._spec_k == 0 and st["prefill_compute_hits"] == 0,
+                  f"{arch}: an MoE engine must prefill at the exact length, "
+                  f"without compute reuse or speculation")
+            splan = lower_serving(uniform_plan(cfg.num_groups, 2,
+                                               n_microbatches=2),
+                                  slots=4, chunk=16)
+            peng, got, res["plan_launches"] = run_engine(
+                f"{arch} plan paged fp", model, params, sched, path,
+                max_seq, splan.slots, plan=splan, paged=True, page_size=16)
+            compare_streams(f"{arch} plan paged fp vs one-shot gold", got,
+                            golds, gaps)
+            res["plan_chunks"] = peng.prefill_chunk_counts
+            check(peng.prefill_chunk_counts == [1] * len(sched),
+                  f"{arch}: the plan engine chunked an MoE prefill: "
+                  f"{peng.prefill_chunk_counts}")
+            del peng
+        else:
+            check(st["prefill_compute_hits"] >= 1,
+                  f"{arch}: the warm prefix reused no compute")
+        _, got, res["int8_launches"] = run_engine(
+            f"{arch} paged int8", model, params, sched, path, max_seq, 4,
+            paged=True, page_size=16, kv_dtype="int8")
+        firsts = all(got[u].out_tokens[0] == golds[u][0] for u in golds)
+        agree = sum(got[u].out_tokens == golds[u] for u in golds)
+        print(f"[parity] {arch} paged int8: first tokens equal the fp "
+              f"gold's: {firsts}; streams equal in full: {agree} of "
+              f"{len(golds)} (printed, not checked: int8 rounds K/V)")
+        if moe:
+            # int8 K/V moves the router's inputs, and one flipped top-k
+            # choice moves the logits past far more than a near tie: the
+            # plain versions on the CPU leave the fp gold as far, so the
+            # MoE streams are held to be whole and finite only
+            check(all(len(got[u].out_tokens) == sched[u][1] for u in golds),
+                  f"{arch} int8: a stream ended short")
+        else:
+            check(firsts, f"{arch} int8: a first token differs from fp's")
+        del eng
+
+        # paged prefill + decode against the full forward.  A forward over
+        # n tokens routes them at capacity ceil(1.25 n / E) per round,
+        # which can drop tokens that the drop-free decode steps keep; so
+        # MoE models run this check at a drop-free capacity factor (E: a
+        # round's capacity is n), on the same weights
+        if moe:
+            model = build_model(dataclasses.replace(
+                cfg, moe=dataclasses.replace(
+                    cfg.moe, capacity_factor=float(cfg.moe.num_experts))),
+                device=dev)
+        prompt, new = sched[2][0], 4
+        nb = max_seq // 16
+        cache = model.init_paged_cache(1, max_seq, page_size=16,
+                                       num_blocks=nb)
+        bt = np.arange(nb, dtype=np.int32)[None]
+        logits, cache = model.prefill_suffix_paged(
+            params, cache, prompt[None], 0, 0, len(prompt), max_seq, bt, bt)
+        seq = list(prompt)
+        worst = 0.0
+        for step in range(new + 1):
+            ref, aux = model.forward(params,
+                                     {"tokens": np.asarray(seq)[None]})
+            mine, ref = logits[0, -1], ref[0, -1]
+            err = float((mine - ref).abs().max())
+            scale = max(1.0, float(ref.abs().max()))
+            worst = max(worst, err / scale)
+            check(err <= LOGIT_TOL * scale,
+                  f"{arch} paged logits at step {step} differ from "
+                  f"Model.forward by {err:.3g} (scale {scale:.3g})")
+            if step == new:
+                break
+            tok = int(mine.argmax())
+            seq.append(tok)
+            logits, cache = model.decode_step(
+                params, cache, np.array([[tok]], np.int32),
+                torch.tensor([len(seq) - 1], device=dev), block_tables=bt)
+        res["logit_rel_err"] = worst
+        res["aux"] = float(aux)
+        check(bool(torch.isfinite(aux)) and (float(aux) > 0) == moe,
+              f"{arch}: forward's aux loss {float(aux)}")
+        print(f"[parity] {arch} paged prefill + {new} decode steps vs "
+              f"Model.forward{' (drop-free capacity)' if moe else ''}: max "
+              f"|logit error| / max(1, max |logit|) = {worst:.3g} "
+              f"(tolerance {LOGIT_TOL}); forward aux {float(aux):.6g}")
+        out[arch] = res
+        del params, cache, model
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
 def serve_prompts(cfg, seed, repeat_segment):
     """8 prompts of 100-600 tokens, the first four sharing a 256-token
     prefix.  With ``repeat_segment`` every prompt holds a 32-token segment
@@ -2824,20 +3208,90 @@ def serve_hybrid_phase(dev, kernels):
     return hy
 
 
-def profile_decode(eng, prompts, request_cls):
+def serve_family_phase(dev, kernels, arch, label):
+    """Phase 5, serve-moe and serve-nemotron: ``arch`` at published width
+    and depth, bf16, random weights from ``torch.Generator`` seed 0,
+    served by serve-full's engine and requests (4 slots, max_seq 1024,
+    page 16, 8 prompts of 100-600 tokens, four sharing a 256-token prefix,
+    64 new tokens each), the fused decode's and the paged prefill's launch
+    counters zeroed just before and read just after; then a profiled
+    decode window (with the MoE expert products' device time, read from
+    the profile's batched-matmul ops) and the host syncs a tick.  The weights are freed before it returns."""
+    from repro_torch.configs import REGISTRY
+    from repro_torch.models import build_model
+    from repro_torch.serving import Request
+    cfg = REGISTRY[arch]
+    model = build_model(cfg, device=dev)
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    nparam = model.param_count(params)
+    print(f"[serve] {label}: {arch} bf16 full size, {cfg.num_layers} "
+          f"layers, G={cfg.num_heads // cfg.num_kv_heads}: "
+          f"{nparam / 1e9:.3f} B params, {nparam * 2 / 1e9:.2f} GB, init "
+          f"{time.perf_counter() - t0:.1f} s")
+    path = {k: kernels[k] for k in ("fused_paged_decode", "paged_prefill")}
+    prompts = serve_prompts(cfg, 0, repeat_segment=False)
+    eng, r = serve_run(label, model, params, prompts, path)
+    r["params"] = nparam
+    if cfg.moe is not None:
+        check(eng.prefill_bucket == 1 and not eng._suffix_reuse
+              and eng._spec_k == 0, f"{label}: the MoE engine must prefill "
+              f"at the exact length, without compute reuse or speculation")
+    r["profile"] = profile_decode(
+        eng, prompts[4:], Request,
+        experts=cfg.moe.num_experts if cfg.moe is not None else None)
+    unwatch(eng)
+    r["syncs"] = syncs_per_tick(label, eng, prompts[4:], Request)
+    p = r["profile"]
+    print(f"[serve] {label}: tok/s {r['tok_s']:.2f}; TTFT p50 "
+          f"{r['ttft_s'][len(r['ttft_s']) // 2]:.4f} s, max "
+          f"{r['ttft_s'][-1]:.4f} s; host tick {r['tick_s'] * 1e3:.2f} ms; "
+          f"device {p['busy_ms_per_tick']:.4f} ms a tick (busy share "
+          f"{p['busy_share']:.3f}), MoE expert products "
+          f"{p['expert_ms_per_tick']:.4f} ms a tick "
+          f"({p['expert_share']:.3f} of the device time); peak memory "
+          f"{r['peak_memory_gb']:.3f} GB; host syncs a tick "
+          f"{r['syncs']['per_tick']:.2f}")
+    del eng, params, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return r
+
+
+def expert_device_s(prof, experts):
+    """Device seconds of the MoE expert products in a profile recorded
+    with input shapes: the kernels under every batched-matmul op whose
+    operands are (E, rows, D) and (E, D, F) for ``experts`` = E (an op
+    nested in another such op is counted with its parent)."""
+    from torch.autograd import DeviceType
+
+    def hit(e):
+        sh = e.input_shapes or []
+        return ("bmm" in e.name and len(sh) >= 2 and len(sh[0]) == 3
+                and len(sh[1]) == 3 and sh[0][0] == sh[1][0] == experts)
+    return sum(e.device_time_total for e in prof.events()
+               if e.device_type == DeviceType.CPU and hit(e)
+               and not (e.cpu_parent is not None and hit(e.cpu_parent))) \
+        / 1e6
+
+
+def profile_decode(eng, prompts, request_cls, experts=None):
     """Where a decode tick's time goes: a short served window (4 requests
     of 16 tokens, after the measured run) under ``torch.profiler``.
     Reports the device's busy share of the window's wall time and device
-    time by kernel class.  Diagnostic only: a profiler that records no
-    device time is reported, not failed."""
+    time by kernel class; with ``experts`` (an MoE model's E) the profile
+    also records input shapes, and the expert products' device time is
+    read from it (``expert_device_s``).  Diagnostic only: a profiler that
+    records no device time is reported, not failed."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     for uid, p in enumerate(prompts):
         eng.submit(request_cls(100 + uid, p[:100], 16))
     eng.tick()                          # admissions outside the window
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=experts is not None) as prof:
         t0 = time.perf_counter()
         ticks = 0
         while eng.tick():
@@ -2851,6 +3305,7 @@ def profile_decode(eng, prompts, request_cls):
         if evt.device_type == DeviceType.CUDA and evt.self_device_time_total:
             by_kernel[evt.key] = (by_kernel.get(evt.key, 0.0)
                                   + evt.self_device_time_total / 1e6)
+    expert = expert_device_s(prof, experts) if experts else 0.0
     classes = {"fused_paged_decode": 0.0, "paged_verify": 0.0,
                "paged_attention": 0.0, "linear_scan": 0.0,
                "mamba_scan_fused": 0.0, "gemm": 0.0,
@@ -2897,9 +3352,16 @@ def profile_decode(eng, prompts, request_cls):
           f"device waits (s, calls): {json.dumps(waits)}")
     for sec, n, key in host[:10]:
         print(f"[profile]   host {sec:.5f} s  {n:6d} calls  {key[:70]}")
+    if expert:
+        print(f"[profile] MoE expert products: {expert:.4f} s of device "
+              f"time ({expert / busy:.3f} of it), "
+              f"{expert * 1e3 / (ticks + 1):.4f} ms a tick")
     return dict(ticks=ticks + 1, wall_s=wall, device_busy_s=busy,
                 busy_share=busy / wall if wall else 0.0, classes=classes,
                 per_tick_ms=per_tick,
+                busy_ms_per_tick=busy * 1e3 / (ticks + 1),
+                expert_ms_per_tick=expert * 1e3 / (ticks + 1),
+                expert_share=expert / busy if busy else 0.0,
                 top=top, host_top=host[:10], waits=waits)
 
 
@@ -2949,6 +3411,7 @@ def main():
         int8_kernel_phase(dev, flush, results)
         hybrid_kernel_phase(dev, flush, results)
         replica_kernel_phase(dev, flush, results)
+        group_kernel_phase(dev, flush, results)
         front_door_phase(dev, flush, results)
         repair = repair_phase(dev, flush)
         del flush
@@ -2969,6 +3432,9 @@ def main():
         parity["hybrid"] = hybrid_parity_phase(dev, kernels)
         parity["overlap"] = overlap_parity_phase(dev, kernels)
         t1 = time.perf_counter()
+        parity["families"] = family_parity_phase(dev, kernels)
+        print(f"[parity] families {time.perf_counter() - t1:.1f} s")
+        t1 = time.perf_counter()
         parity["replan"] = replan_parity_phase(dev, kernels)
         print(f"[replan] phase {time.perf_counter() - t1:.1f} s")
         print(f"[parity] phase {time.perf_counter() - t0:.1f} s")
@@ -2978,6 +3444,11 @@ def main():
         torch.cuda.empty_cache()
         served["hybrid"] = serve_hybrid_phase(dev, kernels)
         served["hybrid"]["front_door_launches"] = front_door_counts()
+        for arch, label in (("qwen2-moe-a2.7b", "serve-moe"),
+                            ("nemotron-4-15b", "serve-nemotron")):
+            t1 = time.perf_counter()
+            served[label] = serve_family_phase(dev, kernels, arch, label)
+            print(f"[serve] {label} {time.perf_counter() - t1:.1f} s")
         print(f"[serve] front-door kernels launched by the serves (no model "
               f"calls them, as in JAX): yi-6b serves "
               f"{json.dumps(served['front_door_launches'])}, hybrid "
@@ -3008,6 +3479,17 @@ def main():
         "flash_attention_cont": ("src/repro_torch/csrc/flash_attention.cu",
                                  "src/repro/kernels/flash_attention.py:85"),
         "paged_prefill_s48": prefill,
+        "fused_paged_decode_g6": decode,
+        "fused_paged_decode_g7": decode,
+        "fused_paged_decode_int8_g6": decode,
+        "fused_paged_decode_int8_g7": decode,
+        "fused_paged_decode_g1": decode,
+        "fused_paged_decode_int8_g1": decode,
+        "fused_paged_decode_g2_d64": decode,
+        "fused_paged_decode_int8_g2_d64": decode,
+        "paged_attention_g6": ("src/repro_torch/csrc/paged_attention.cu",
+                               "src/repro/kernels/paged_attention.py:394"),
+        "paged_prefill_g6": prefill,
         "fused_paged_decode_b2": decode,
         "fused_paged_decode_int8_b2": decode,
         "paged_attention_b2": ("src/repro_torch/csrc/paged_attention.cu",
@@ -3037,6 +3519,7 @@ def main():
     # selective scan's another), the front-door run for the matmul and
     # norm rows (one count each)
     hy = served["hybrid"]["launches"]
+    fam = parity["families"]
     launches = {**served["launches"], "paged_attention": hy["paged_attention"],
                 "linear_scan": hy["linear_scan"],
                 "linear_scan_prefill": hy["linear_scan"],
@@ -3065,7 +3548,29 @@ def main():
                     parity["plan"]["launches"]["int8_spec"][
                         "fused_paged_decode"],
                 "paged_attention_b2":
-                    parity["hybrid"]["plan_launches"]["paged_attention"]}
+                    parity["hybrid"]["plan_launches"]["paged_attention"],
+                # the G rows: serve-nemotron (G=6), serve-moe (G=1) and the
+                # f32 parity runs of yi-34b (G=7), granite-moe (G=2, D=64)
+                # and of all four on int8 pools; no config of the registry
+                # has rope-free attention at G=6, so no path launches the
+                # unfused decode there
+                "fused_paged_decode_g6":
+                    served["serve-nemotron"]["launches"]["fused_paged_decode"],
+                "fused_paged_decode_g7":
+                    fam["yi-34b"]["launches"]["fused_paged_decode"],
+                "fused_paged_decode_g1":
+                    served["serve-moe"]["launches"]["fused_paged_decode"],
+                "fused_paged_decode_g2_d64":
+                    fam[GRANITE]["launches"]["fused_paged_decode"],
+                **{f"fused_paged_decode_int8_{tag}":
+                   fam[arch]["int8_launches"]["fused_paged_decode"]
+                   for tag, arch in (("g6", "nemotron-4-15b"),
+                                     ("g7", "yi-34b"),
+                                     ("g1", "qwen2-moe-a2.7b"),
+                                     ("g2_d64", GRANITE))},
+                "paged_attention_g6": 0,
+                "paged_prefill_g6":
+                    served["serve-nemotron"]["launches"]["paged_prefill"]}
     line = []
     for name, (src, tpu) in meta.items():
         r = results.get((name, torch.bfloat16),

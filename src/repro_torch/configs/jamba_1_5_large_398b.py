@@ -6,18 +6,22 @@ position 3 inside the period, as in the released model), MoE 16 experts
 top-2 on every other layer.
 
 ``CONFIG`` is the published model, field for field as the JAX package
-holds it.  The port serves ``DENSE_FFN``,
-``jamba-1.5-large-398b-dense-ffn``: the same widths (d_model 8192, 64
-heads, 8 KV heads, head_dim 128, vocab 65536, d_ff 24576, mamba
-d_state 16, d_conv 4, expand 2: d_inner 16384, dt_rank 512), the same
-rope-free attention, RMSNorm, gated SiLU and untied head, and the same
-period (attention at position 3, mamba elsewhere), with two cuts:
+holds it, MoE layers included: the port builds and runs it (tested at
+``reduced`` width against the JAX package).  At published width one MoE
+layer's 16 experts of d_ff 24,576 are 19.3 GB in bf16, so the card serves
+``DENSE_FFN``, ``jamba-1.5-large-398b-dense-ffn``: the same widths
+(d_model 8192, 64 heads, 8 KV heads, head_dim 128, vocab 65536, d_ff
+24576, mamba d_state 16, d_conv 4, expand 2: d_inner 16384, dt_rank
+512), the same rope-free attention, RMSNorm, gated SiLU and untied head,
+and the same period (attention at position 3, mamba elsewhere), with two
+cuts:
 
   * the four MoE FFN positions of each period (1, 3, 5, 7) run as the
     dense gated FFN of the same width, 24,576 (the expert width).  Per
     token they do half the FFN work of top-2 routing.  At full width the
     16 experts of one period's four MoE layers alone are 77 GB in bf16,
-    more than one H100 holds beside the rest, and MoE is not ported yet;
+    more than one H100 holds beside the rest; how far to cut the experts
+    instead is not decided;
   * runs on the card cut the depth (``--layers``): 16 layers (2 periods,
     ~17 B parameters, ~34 GB in bf16) to serve, 8 in f32 for parity.
 """

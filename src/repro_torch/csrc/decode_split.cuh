@@ -20,6 +20,11 @@
 //     the CUDA cores, each lane D/32 dims of every key and query row and
 //     a reduce-scatter of the G x 8 partial sums over the 32 lanes (62
 //     shuffles at G = 8, not 5 per score);
+//   * any G from 1 to 8 query rows: the tensor-core path already pads
+//     its A operand to 8 rows, and the CUDA-core path lays its partial
+//     sums out for GP, G rounded up to a power of two (3 -> 4; 5, 6, 7
+//     -> 8), whose rows past G are zero scores that are never kept,
+//     stored or written back;
 //   * one online-softmax update per tile, query row and warp, over the
 //     warp's 8 keys (exp2 domain; each warp keeps its own m and l), P
 //     kept in f32;
@@ -70,7 +75,9 @@ struct Smem {
   // per warp: P of its 8 keys (G x 8) and G rescale factors; after the
   // walk the warps' m and l
   static constexpr int kRowsP = kMma ? 8 : G;   // rows of a warp's P
-  static constexpr int kWarpP = kRowsP * kKeysPerWarp + (G < 4 ? 4 : G);
+  // P, then G row factors rounded up to 4 floats: the next warp's P
+  // stays 16-byte aligned for its float4 reads
+  static constexpr int kWarpP = kRowsP * kKeysPerWarp + (G + 3) / 4 * 4;
   static constexpr int kRows = kS + kWarps * kWarpP * 4;
   static constexpr int kQ = kRows;
   static constexpr int kFresh = kQ + G * D * 4;           // K, V rows
@@ -163,14 +170,18 @@ __device__ __forceinline__ void split_decode_walk(
   constexpr bool kMma = std::is_same<T, __nv_bfloat16>::value;
   using S = Smem<TP, D, G, kMma>;
   constexpr bool kQuant = S::kQuant;
+  static_assert(G >= 1 && G <= 8, "1 to 8 query rows per kv head");
   constexpr int DL = D / 32;                 // dims per lane
-  constexpr int NV = G * kKeysPerWarp;       // partial scores per warp
+  // G rounded up to a power of two: the reduce-scatter halves its values
+  constexpr int GP = G <= 1 ? 1 : G <= 2 ? 2 : G <= 4 ? 4 : 8;
+  constexpr int NV = GP * kKeysPerWarp;      // partial scores per warp
   // totals a lane holds, lanes sharing one, lanes sharing a row: the
-  // reduce-scatter's layout, or the mma accumulator's (row lane / 4, keys
-  // 2 (lane % 4) and + 1; rows >= G are padding)
+  // reduce-scatter's layout (rows >= G of the GP are padding), or the mma
+  // accumulator's (row lane / 4, keys 2 (lane % 4) and + 1; rows >= G are
+  // padding)
   constexpr int NL = kMma ? 2 : NV >= 32 ? NV / 32 : 1;
   constexpr int kDup = kMma || NV >= 32 ? 1 : 32 / NV;
-  constexpr int kRowLanes = kMma ? 4 : 32 / G;
+  constexpr int kRowLanes = kMma ? 4 : 32 / GP;
   constexpr int CPR = S::kRow / 16;          // 16-byte chunks per row
   constexpr int kStages = S::kStages;
   extern __shared__ __align__(16) unsigned char smem_split[];
@@ -354,12 +365,14 @@ __device__ __forceinline__ void split_decode_walk(
           for (int e = 0; e < DL; ++e) s = fmaf(qreg[g][e], kx[e], s);
           part[g * kKeysPerWarp + jj] = s;
         }
+#pragma unroll
+        for (int g = G; g < GP; ++g) part[g * kKeysPerWarp + jj] = 0.f;
       }
       ReduceScatter<NV, 16>::run(part, lane);
     }
 
     // the warp's online-softmax update: lane holds totals idx0 .. idx0 +
-    // NL - 1 of its row g (the 32/G lanes of a row share its m and l)
+    // NL - 1 of its row g (the 32/GP lanes of a row share its m and l)
     const int idx0 = lane / kDup * NL;
     const int jj0 = idx0 % kKeysPerWarp;
     const bool row_ok = idx0 / kKeysPerWarp < G;    // not mma padding
@@ -430,7 +443,8 @@ __device__ __forceinline__ void split_decode_walk(
   mma::cp_wait<0>();
   __syncthreads();                     // the ring is free: partial sums
 
-  // merge the warps' (m, l, acc): row g's state sits in lane g * 32/G
+  // merge the warps' (m, l, acc): row g's state sits in lane g * 32/GP
+  // (CUDA cores) or 4g (tensor cores)
   float* red = reinterpret_cast<float*>(sm);       // [warp][G][D]
   float* red_m = sp;                               // [warp][G]
   float* red_l = sp + kWarps * G;

@@ -261,7 +261,11 @@ cudaError_t launch_g(int G, const void* q, const void* kn, const void* vn,
                               stream)
   REPRO_DECODE_G(1);
   REPRO_DECODE_G(2);
+  REPRO_DECODE_G(3);
   REPRO_DECODE_G(4);
+  REPRO_DECODE_G(5);
+  REPRO_DECODE_G(6);
+  REPRO_DECODE_G(7);
   REPRO_DECODE_G(8);
 #undef REPRO_DECODE_G
   return cudaErrorInvalidValue;
@@ -294,7 +298,7 @@ cudaError_t launch_pool(int G, const void* q, const void* kn, const void* vn,
 // split_keys keys each (a multiple of 64; nsplit * split_keys covers the
 // NB * P table), merged through the f32 workspaces ws_o (nsplit, B*Hkv*G,
 // D) and ws_ml (nsplit, B*Hkv*G, 2) when nsplit > 1.  Shape contract
-// (checked by the Python wrapper): D in {64, 128}, G in {1, 2, 4, 8},
+// (checked by the Python wrapper): D in {64, 128}, G from 1 to 8,
 // positions >= 0, block table entries in [0, N), all tensors contiguous,
 // the pools 16-byte aligned.
 extern "C" int repro_fused_paged_decode(int dtype, const void* q,

@@ -145,7 +145,11 @@ cudaError_t launch_g(int G, const void* q, const void* kp, const void* vp,
                               softcap, scale, stream)
   REPRO_PAGED_G(1);
   REPRO_PAGED_G(2);
+  REPRO_PAGED_G(3);
   REPRO_PAGED_G(4);
+  REPRO_PAGED_G(5);
+  REPRO_PAGED_G(6);
+  REPRO_PAGED_G(7);
   REPRO_PAGED_G(8);
 #undef REPRO_PAGED_G
   return cudaErrorInvalidValue;
@@ -176,7 +180,7 @@ cudaError_t launch_pool(int G, const void* q, const void* kp, const void* vp,
 // split_keys keys each (a multiple of 64; nsplit * split_keys covers the
 // NB * P table), merged through the f32 workspaces ws_o (nsplit, B*Hkv*G,
 // D) and ws_ml (nsplit, B*Hkv*G, 2) when nsplit > 1.  Shape contract
-// (checked by the Python wrapper): D in {64, 128}, G in {1, 2, 4, 8},
+// (checked by the Python wrapper): D in {64, 128}, G from 1 to 8,
 // block table entries in [0, N), all tensors contiguous, the pools
 // 16-byte aligned.
 extern "C" int repro_paged_attention(int dtype, const void* q,

@@ -45,11 +45,14 @@ dtype in {float32, bfloat16}; the pools hold either that dtype or int8,
 and int8 pools come with f32 scales of shape (N, P, Hkv) (fp pools with
 none); D in {64, 128}; block tables (B, NB) and positions / offsets (B,)
 int32 (lengths (B,) int32 for ``paged_attention_grouped``); for both
-decode kernels G = H / Hkv in {1, 2, 4, 8}; any page size; the pools
-(and for the prefill q) start on a 16-byte boundary (the decodes' and
-the prefill's cp.async copies).  Table entries must lie in [0, N) and positions and offsets be >= 0: the front
-doors (``backend/dispatch.py``) clip the tables, and reading the values
-here would cost a device sync per launch.
+decode kernels G = H / Hkv from 1 to 8, which covers every config of the
+registry (inside the kernel the f32 walk pads 3 query rows to 4 and 5-7
+to 8, the bf16 one every G to 8); any page size; the pools (and for the
+prefill q) start on a 16-byte boundary (the decodes' and the prefill's
+cp.async copies).  Table entries must lie in [0, N) and positions and
+offsets be >= 0: the front doors (``backend/dispatch.py``) clip the
+tables, and reading the values here would cost a device sync per
+launch.
 """
 from __future__ import annotations
 
@@ -61,7 +64,7 @@ from repro_torch.kernels import _build
 from repro_torch.kernels import ref as R
 
 HEAD_DIMS = (64, 128)
-DECODE_GROUPS = (1, 2, 4, 8)
+DECODE_GROUPS = tuple(range(1, 9))
 
 
 def _check_common(q, k_pages, v_pages, block_tables, k_scales, v_scales, b,

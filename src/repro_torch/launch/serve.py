@@ -9,6 +9,8 @@ default.
         --requests 4 --new-tokens 8
     PYTHONPATH=src python -m repro_torch.launch.serve \\
         --arch jamba-1.5-large-398b-dense-ffn --layers 16 --paged
+    PYTHONPATH=src python -m repro_torch.launch.serve \\
+        --arch qwen2-moe-a2.7b --paged
     PYTHONPATH=src python -m repro_torch.launch.serve --paged \\
         --strategy hybrid:2 --replicas 2 --chunk 128 --max-seq 1024
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \\
@@ -19,8 +21,10 @@ default.
         --slo-ttft 0.5 --max-seq 1024 --chunk 128
 
 The model is the registry config at its published width (yi-6b: d_model
-4096, 32 heads, 4 KV heads, head_dim 128; the jamba hybrid with dense
-FFNs: d_model 8192, 64 heads, 8 KV heads, mamba d_inner 16384), with
+4096, 32 heads, 4 KV heads, head_dim 128; yi-34b; nemotron-4-15b with
+LayerNorm and a squared-ReLU MLP; the MoE decoders qwen2-moe-a2.7b and
+granite-moe-1b-a400m; the jamba hybrid with dense FFNs: d_model 8192, 64
+heads, 8 KV heads, mamba d_inner 16384, or with its MoE layers), with
 random weights from a seeded ``torch.Generator``; ``--layers N`` cuts
 the depth to N layers (a multiple of the block pattern's period: 8 for
 jamba).
@@ -131,6 +135,18 @@ def _adaptive_ladder(cfg, splan, slots: int, chunk: int):
         if all(cand != c for c in cands):
             cands.append(cand)
     return cands
+
+
+def ffn_kind(cfg) -> str:
+    """The FFN kinds of the block pattern: ``dense``, ``moe E×top-k``, or
+    both joined by ``+`` (jamba)."""
+    kinds = []
+    for b in cfg.block_pattern:
+        kind = ("dense" if b.ffn == "dense" else
+                f"moe {cfg.moe.num_experts}×top-{cfg.moe.experts_per_token}")
+        if kind not in kinds:
+            kinds.append(kind)
+    return "+".join(kinds)
 
 
 def main(argv=None):
@@ -295,7 +311,7 @@ def main(argv=None):
     print(f"[serve] {len(done)} requests, {st['gen_tokens']} tokens, "
           f"{st['gen_tokens'] / wall:.1f} tok/s, "
           f"occupancy={st['slot_occupancy']:.2f}, "
-          f"kernels={st['kernel_path']}{extra}")
+          f"kernels={st['kernel_path']}, ffn={ffn_kind(cfg)}{extra}")
     if args.adapt:
         print(f"[serve] adapt decisions (tick, from, to): "
               f"{eng._ctl.decisions}")

@@ -1,9 +1,12 @@
 """Transformer layer primitives of the port (functional, on torch tensors).
 
 Counterparts of the JAX package's ``models/layers.py`` for the serving
-path of a dense GQA decoder (yi-6b) and of the attention layers of the
-jamba hybrid (rope-free): RMSNorm, RoPE, GQA attention over a dense or a
-paged KV cache, the gated MLP, embedding and LM head.
+path of the GQA decoders (llama-style yi, nemotron's LayerNorm and
+squared-ReLU MLP), of the MoE decoders (qwen2-moe, granite-moe) and of
+the attention layers of the jamba hybrid (rope-free): RMSNorm and
+LayerNorm, RoPE, GQA attention over a dense or a paged KV cache, the
+gated or plain MLP, the top-k routed MoE FFN, embedding and the LM head
+(its own weight or the embedding's transpose).
 
 Conventions, as on the JAX side:
   * params are nested dicts of tensors, weights laid out (in, out) so the
@@ -12,8 +15,8 @@ Conventions, as on the JAX side:
   * projections are ``torch.matmul`` (the JAX side leaves them to XLA as
     einsums), whose output JAX casts straight back to the activation
     dtype; where JAX keeps the f32 accumulator (the MLP's hidden and gate
-    products, the LM head) the port takes ``matmul_f32``.  Attention
-    softmax runs in f32.
+    products, the LM head, the MoE expert products) the port takes
+    ``matmul_f32``/``bmm_f32``.  Attention softmax runs in f32.
 
 Unlike JAX, which returns fresh cache arrays, the port writes K/V into the
 cache tensors it is given, IN PLACE, and returns the same dict.
@@ -44,8 +47,12 @@ def dense_init(generator, shape, in_axis_size, dtype, device):
 
 
 def init_norm(cfg: ModelConfig, device):
-    return {"scale": torch.ones((cfg.d_model,), dtype=torch.float32,
-                                device=device)}
+    p = {"scale": torch.ones((cfg.d_model,), dtype=torch.float32,
+                             device=device)}
+    if cfg.norm_kind == "layernorm":
+        p["bias"] = torch.zeros((cfg.d_model,), dtype=torch.float32,
+                                device=device)
+    return p
 
 
 def init_attention(generator, cfg: ModelConfig, device):
@@ -60,9 +67,29 @@ def init_attention(generator, cfg: ModelConfig, device):
 def init_mlp(generator, cfg: ModelConfig, device):
     dt = getattr(torch, cfg.param_dtype)
     d, f = cfg.d_model, cfg.d_ff
-    return {"wi": dense_init(generator, (d, f), d, dt, device),
-            "wo": dense_init(generator, (f, d), f, dt, device),
-            "wg": dense_init(generator, (d, f), d, dt, device)}
+    p = {"wi": dense_init(generator, (d, f), d, dt, device),
+         "wo": dense_init(generator, (f, d), f, dt, device)}
+    if cfg.gated_mlp:
+        p["wg"] = dense_init(generator, (d, f), d, dt, device)
+    return p
+
+
+def init_moe(generator, cfg: ModelConfig, device):
+    """Router (f32), stacked expert weights (E, D, F) / (E, F, D) and, with
+    shared experts, one fused shared expert of ``shared_expert_d_ff``."""
+    moe = cfg.moe
+    dt = getattr(torch, cfg.param_dtype)
+    e, d, f = moe.num_experts, cfg.d_model, moe.expert_d_ff
+    p = {"router": dense_init(generator, (d, e), d, torch.float32, device),
+         "wi": dense_init(generator, (e, d, f), d, dt, device),
+         "wg": dense_init(generator, (e, d, f), d, dt, device),
+         "wo": dense_init(generator, (e, f, d), f, dt, device)}
+    if moe.num_shared_experts:
+        sf = moe.shared_expert_d_ff
+        p["shared"] = {"wi": dense_init(generator, (d, sf), d, dt, device),
+                       "wg": dense_init(generator, (d, sf), d, dt, device),
+                       "wo": dense_init(generator, (sf, d), sf, dt, device)}
+    return p
 
 
 def init_embedding(generator, cfg: ModelConfig, device):
@@ -77,8 +104,14 @@ def init_embedding(generator, cfg: ModelConfig, device):
 
 
 def apply_norm(p, x, cfg: ModelConfig, eps: float = 1e-6):
-    """RMSNorm in f32, cast back to the input dtype."""
+    """RMSNorm, or LayerNorm with its bias, in f32, cast back to the input
+    dtype."""
     xf = x.to(torch.float32)
+    if cfg.norm_kind == "layernorm":
+        mu = xf.mean(dim=-1, keepdim=True)
+        var = (xf - mu).square().mean(dim=-1, keepdim=True)
+        y = (xf - mu) * torch.rsqrt(var + eps)
+        return (y * p["scale"] + p["bias"]).to(x.dtype)
     var = xf.square().mean(dim=-1, keepdim=True)
     return (xf * torch.rsqrt(var + eps) * p["scale"]).to(x.dtype)
 
@@ -382,19 +415,115 @@ def matmul_f32(x, w):
     return torch.matmul(x.to(torch.float32), w.to(torch.float32))
 
 
+def bmm_f32(x, w):
+    """Batched x (E, M, K) @ w (E, K, N) accumulated and returned in f32,
+    the batched counterpart of ``matmul_f32`` (JAX's expert einsums with
+    ``preferred_element_type=jnp.float32``)."""
+    if x.device.type == "cuda" and x.dtype != torch.float32:
+        return torch.bmm(x, w, out_dtype=torch.float32)
+    return torch.bmm(x.to(torch.float32), w.to(torch.float32))
+
+
+_ACTS = {"silu": torch.nn.functional.silu,
+         "gelu": lambda x: torch.nn.functional.gelu(x, approximate="tanh"),
+         "relu2": lambda x: torch.relu(x).square()}
+
+
 def apply_mlp(p, x, cfg: ModelConfig):
-    """Gated SiLU MLP: wo(silu(x wg) * (x wi)), the hidden and gate
-    products kept in f32 as JAX keeps them."""
+    """wo(act(x wg) * (x wi)) when gated, else wo(act(x wi)); the hidden
+    (and gate) products kept in f32 as JAX keeps them."""
+    act = _ACTS[cfg.mlp_activation]
     hid = matmul_f32(x, p["wi"])
-    gate = matmul_f32(x, p["wg"])
-    hid = torch.nn.functional.silu(gate) * hid
+    if "wg" in p:
+        hid = act(matmul_f32(x, p["wg"])) * hid
+    else:
+        hid = act(hid)
     return torch.matmul(hid.to(x.dtype), p["wo"])
 
 
+def moe_capacity(cfg: ModelConfig, n: int, s: int) -> int:
+    """Expert rows a choice round may fill: ``ceil(n * capacity_factor /
+    E)``, or ``n`` (drop-free) for a one-token step, as in JAX: there a
+    drop would make one slot's token depend on what the others decoded."""
+    if s == 1:
+        return n
+    return max(1, int(math.ceil(n * cfg.moe.capacity_factor
+                                / cfg.moe.num_experts)))
+
+
+def apply_moe(p, x, cfg: ModelConfig):
+    """Top-k capacity-limited MoE FFN with JAX's semantics
+    (``repro.models.layers.apply_moe``): f32 router and softmax, top-k
+    probabilities renormalized, per choice round a token's row in its
+    expert by a cumulative count in token order, rows past the capacity
+    dropped (contributing 0), each round's combine added into an f32 ``y``
+    in round order, then the shared expert.  Returns (y, aux), aux the
+    Switch load-balance loss.
+
+    Where JAX runs one expert product per round (each reading every
+    expert's weights), the port stacks the k rounds' dispatch buffers into
+    one (E, k * cap, D) product: each row's product is the same, and the
+    expert weights are read once.  The buffer is filled by one indexed
+    assignment with no host sync: kept rows hold distinct (expert, row)
+    pairs, dropped ones land on a sink row past the k * cap that the
+    product never reads."""
+    moe = cfg.moe
+    b, s, d = x.shape
+    n = b * s
+    e, k = moe.num_experts, moe.experts_per_token
+    cap = moe_capacity(cfg, n, s)
+    dt, dev = x.dtype, x.device
+    xf = x.reshape(n, d)
+
+    logits = torch.matmul(xf.to(torch.float32), p["router"])
+    probs = torch.softmax(logits, dim=-1)
+    top_w, top_e = torch.topk(probs, k, dim=-1)              # (n, k)
+    top_w = top_w / top_w.sum(dim=-1, keepdim=True)
+    # row of each (token, round) in its expert: the count of earlier
+    # tokens of the round that chose the same expert
+    onehot = (top_e[..., None]
+              == torch.arange(e, device=dev)).to(torch.int32)  # (n, k, e)
+    pos = ((torch.cumsum(onehot, dim=0) - 1) * onehot).sum(dim=-1)
+    keep = pos < cap                                          # (n, k)
+    rows = torch.arange(k, device=dev) * cap + pos
+    buf = torch.zeros((e, k * cap + 1, d), dtype=dt, device=dev)
+    buf[top_e, torch.where(keep, rows, k * cap)] = \
+        xf[:, None, :].expand(n, k, d)
+    buf = buf[:, :k * cap]
+    hid = bmm_f32(buf, p["wi"])
+    gate = bmm_f32(buf, p["wg"])
+    hid = (torch.nn.functional.silu(gate) * hid).to(dt)
+    out = bmm_f32(hid, p["wo"])                               # (e, k*cap, d)
+    tok = torch.where(keep[..., None],
+                      out[top_e, torch.where(keep, rows, 0)], 0.0)
+    y = torch.zeros((n, d), dtype=torch.float32, device=dev)
+    for j in range(k):
+        y = y + tok[:, j] * top_w[:, j:j + 1]
+    if "shared" in p:
+        sh = p["shared"]
+        hid = matmul_f32(xf, sh["wi"])
+        gate = matmul_f32(xf, sh["wg"])
+        hid = (torch.nn.functional.silu(gate) * hid).to(dt)
+        y = y + matmul_f32(hid, sh["wo"])
+    # Switch aux loss: E * sum(mean router prob * share of first choices)
+    first = torch.zeros((e,), dtype=torch.float32, device=dev)
+    first.index_add_(0, top_e[:, 0], torch.ones((n,), dtype=torch.float32,
+                                                 device=dev))
+    aux = e * torch.sum(probs.mean(dim=0) * (first / n))
+    return y.reshape(b, s, d).to(dt), aux
+
+
 def embed(p, ids, cfg: ModelConfig):
-    return p["table"][ids]
+    out = p["table"][ids]
+    if cfg.family == "dense" and cfg.tie_embeddings:
+        out = out * torch.sqrt(torch.tensor(float(cfg.d_model))).to(
+            out.dtype)
+    return out
 
 
-def logits_head(p_head, x, cfg: ModelConfig):
-    """f32 logits, as the JAX head's f32-accumulated einsum gives them."""
+def logits_head(p_embed, p_head, x, cfg: ModelConfig):
+    """f32 logits, as the JAX head's f32-accumulated einsum gives them;
+    a tied head reads the embedding table's transpose."""
+    if cfg.tie_embeddings or p_head is None:
+        return matmul_f32(x, p_embed["table"].t())
     return matmul_f32(x, p_head["w"])

@@ -1,12 +1,13 @@
 """Model facade of the port: init / forward / prefill / decode.
 
 ``build_model(cfg, device)`` returns a ``Model`` whose methods are plain
-functions of (params, inputs), like the JAX facade's, for the dense GQA
-decoders and the attention + mamba hybrids the port serves.  Params are
-nested dicts of tensors on ``model.device``: ``{"embed": {"table"},
-"stack": [per-group block dicts], "final_norm": {"scale"}, "head":
-{"w"}}``.  Inputs may be numpy arrays or tensors; they are moved to the
-model's device.
+functions of (params, inputs), like the JAX facade's, for the dense and
+MoE GQA decoders and the attention + mamba hybrids the port serves.
+Params are nested dicts of tensors on ``model.device``: ``{"embed":
+{"table"}, "stack": [per-group block dicts], "final_norm": {"scale"}
+(and ``"bias"`` for LayerNorm), "head": {"w"}}``, without ``"head"`` when
+the config ties it to the embedding.  Inputs may be numpy arrays or
+tensors; they are moved to the model's device.
 """
 from __future__ import annotations
 
@@ -43,21 +44,24 @@ class Model:
         The numbers differ from ``jax.random``'s: to run JAX's weights, use
         ``repro_torch.bridge.params_from_numpy``."""
         cfg, dev = self.cfg, self.device
-        return {"embed": L.init_embedding(generator, cfg, dev),
-                "stack": T.init_stack(generator, cfg, dev),
-                "final_norm": L.init_norm(cfg, dev),
-                "head": {"w": L.dense_init(
-                    generator, (cfg.d_model, cfg.vocab_size), cfg.d_model,
-                    getattr(torch, cfg.param_dtype), dev)}}
+        params = {"embed": L.init_embedding(generator, cfg, dev),
+                  "stack": T.init_stack(generator, cfg, dev),
+                  "final_norm": L.init_norm(cfg, dev)}
+        if not cfg.tie_embeddings:
+            params["head"] = {"w": L.dense_init(
+                generator, (cfg.d_model, cfg.vocab_size), cfg.d_model,
+                getattr(torch, cfg.param_dtype), dev)}
+        return params
 
     # --------------------------------------------------------------- forward
     def _lm_hidden(self, params, x, *, cache=None, cache_index=None,
                    block_tables=None, write_tables=None):
-        x, cache = T.run_stack(params["stack"], x, self.cfg, cache=cache,
-                               cache_index=cache_index,
-                               block_tables=block_tables,
-                               write_tables=write_tables)
-        return L.apply_norm(params["final_norm"], x, self.cfg), cache
+        """Returns (final-normed hidden, cache, aux)."""
+        x, cache, aux = T.run_stack(params["stack"], x, self.cfg,
+                                    cache=cache, cache_index=cache_index,
+                                    block_tables=block_tables,
+                                    write_tables=write_tables)
+        return L.apply_norm(params["final_norm"], x, self.cfg), cache, aux
 
     def _embed(self, params, tokens):
         dt = getattr(torch, self.cfg.dtype)
@@ -65,14 +69,17 @@ class Model:
                        self.cfg).to(dt)
 
     def _head(self, params, x):
-        return L.logits_head(params["head"], x, self.cfg)
+        return L.logits_head(params["embed"], params.get("head"), x,
+                             self.cfg)
 
     def forward(self, params, batch):
         """Full causal forward over ``batch["tokens"]`` (B, S) ->
-        (logits (B, S, V) f32, aux_loss 0)."""
+        (logits (B, S, V) f32, aux_loss: the MoE layers' summed
+        load-balance loss, 0 without them)."""
         x = self._embed(params, batch["tokens"])
-        hidden, _ = self._lm_hidden(params, x)
-        return self._head(params, hidden), torch.zeros((), device=x.device)
+        hidden, _, aux = self._lm_hidden(params, x)
+        return self._head(params, hidden), torch.as_tensor(
+            aux, dtype=torch.float32, device=x.device)
 
     # --------------------------------------------------------------- serving
     def init_cache(self, batch: int, max_seq: int):
@@ -89,8 +96,8 @@ class Model:
         (logits at the last position (B, 1, V), cache)."""
         x = self._embed(params, batch["tokens"])
         cache = self.init_cache(x.shape[0], max_seq)
-        hidden, cache = self._lm_hidden(params, x, cache=cache,
-                                        cache_index=0)
+        hidden, cache, _ = self._lm_hidden(params, x, cache=cache,
+                                           cache_index=0)
         return self._head(params, hidden[:, -1:]), cache
 
     def prefill_one(self, params, tokens, length: int, max_seq: int):
@@ -99,8 +106,8 @@ class Model:
         (1, 1, V), the batch-1 dense cache)."""
         x = self._embed(params, tokens)
         cache = self.init_cache(x.shape[0], max_seq)
-        hidden, cache = self._lm_hidden(params, x, cache=cache,
-                                        cache_index=0)
+        hidden, cache, _ = self._lm_hidden(params, x, cache=cache,
+                                           cache_index=0)
         last = hidden[:, int(length) - 1:int(length)]
         return self._head(params, last), cache
 
@@ -127,7 +134,7 @@ class Model:
             full_cache, T.make_prefill_part(self.cfg, max_seq,
                                             device=self.device))
         dev = self.device
-        hidden, view = self._lm_hidden(
+        hidden, view, _ = self._lm_hidden(
             params, x, cache=view, cache_index=int(offset),
             block_tables=torch.as_tensor(block_tables, device=dev),
             write_tables=torch.as_tensor(write_tables, device=dev))
@@ -150,9 +157,9 @@ class Model:
                 cache_index = int(cache_index)
         if block_tables is not None:
             block_tables = torch.as_tensor(block_tables, device=self.device)
-        hidden, cache = self._lm_hidden(params, x, cache=cache,
-                                        cache_index=cache_index,
-                                        block_tables=block_tables)
+        hidden, cache, _ = self._lm_hidden(params, x, cache=cache,
+                                           cache_index=cache_index,
+                                           block_tables=block_tables)
         return self._head(params, hidden), cache
 
     def param_count(self, params) -> int:

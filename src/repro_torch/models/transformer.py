@@ -8,12 +8,12 @@ dense ``(num_groups, B, W, Hkv, D)``, paged ``(num_groups, num_blocks + 1,
 page, Hkv, D)`` -- and each layer reads and writes its group's slice in
 place.
 
-The port serves stacks of ``attn`` and ``mamba`` mixers with dense FFNs
-(the yi-6b family; jamba with its MoE layers run dense); other block
-kinds raise.  A mamba block's cache is its recurrent state,
-``{"ssm_state": {"conv", "ssm"}}`` f32 leaves of shape (num_groups, B,
-...), dense per slot in both layouts (a paged cache pages only the
-attention K/V).
+The port serves stacks of ``attn`` and ``mamba`` mixers with dense or
+MoE FFNs (the llama-style and nemotron decoders, qwen2-moe and
+granite-moe, jamba); other block kinds raise.  A mamba block's cache is
+its recurrent state, ``{"ssm_state": {"conv", "ssm"}}`` f32 leaves of
+shape (num_groups, B, ...), dense per slot in both layouts (a paged
+cache pages only the attention K/V).
 """
 from __future__ import annotations
 
@@ -26,24 +26,25 @@ from repro_torch.models import layers as L
 from repro_torch.models import ssm as SSM
 
 SERVED_MIXERS = ("attn", "mamba")
+SERVED_FFNS = ("dense", "moe")
 
 
 def check_supported(cfg: ModelConfig):
     """Raise NotImplementedError for what this port does not serve yet."""
-    if any(b.mixer not in SERVED_MIXERS or b.ffn != "dense"
+    if any(b.mixer not in SERVED_MIXERS or b.ffn not in SERVED_FFNS
            for b in cfg.block_pattern):
         raise NotImplementedError(
-            f"{cfg.name}: the port serves {SERVED_MIXERS} mixers with dense "
-            f"FFNs only, got {cfg.block_pattern}")
-    if cfg.family not in ("dense", "hybrid") or cfg.mrope_sections \
+            f"{cfg.name}: the port serves {SERVED_MIXERS} mixers with "
+            f"{SERVED_FFNS} FFNs only, got {cfg.block_pattern}")
+    if cfg.family not in ("dense", "moe", "hybrid") or cfg.mrope_sections \
             or cfg.qk_norm or cfg.post_block_norm or cfg.frontend \
-            or cfg.tie_embeddings or cfg.final_logit_softcap \
-            or cfg.norm_kind != "rmsnorm" or cfg.mlp_activation != "silu" \
-            or not cfg.gated_mlp:
+            or cfg.final_logit_softcap \
+            or cfg.norm_kind not in ("rmsnorm", "layernorm") \
+            or cfg.mlp_activation not in ("silu", "relu2"):
         raise NotImplementedError(
             f"{cfg.name}: the port serves GQA decoders (and attention + "
-            f"mamba hybrids) with RMSNorm, a gated SiLU MLP and an untied "
-            f"LM head")
+            f"mamba hybrids) with RMSNorm or LayerNorm and a SiLU or "
+            f"squared-ReLU MLP, gated or not")
 
 
 # ---------------------------------------------------------------------------
@@ -56,14 +57,16 @@ def init_block(generator, cfg: ModelConfig, blk: BlockSpec, device):
     return {"norm1": L.init_norm(cfg, device),
             "mixer": mixer,
             "norm2": L.init_norm(cfg, device),
-            "ffn": L.init_mlp(generator, cfg, device)}
+            "ffn": (L.init_moe(generator, cfg, device) if blk.ffn == "moe"
+                    else L.init_mlp(generator, cfg, device))}
 
 
 def apply_block(p, x, cfg: ModelConfig, blk: BlockSpec, *, state=None,
                 cache_index=None, block_tables=None, write_tables=None,
                 attend_cache: bool = False):
-    """Returns (x, state) -- ``state`` is the block's cache, written in
-    place (None without a cache).  ``attend_cache``: see ``run_stack``."""
+    """Returns (x, state, aux) -- ``state`` is the block's cache, written
+    in place (None without a cache); ``aux`` the MoE FFN's load-balance
+    loss (0.0 for a dense FFN).  ``attend_cache``: see ``run_stack``."""
     h = L.apply_norm(p["norm1"], x, cfg)
     if blk.mixer == "mamba":
         st = state["ssm_state"] if state else None
@@ -78,8 +81,12 @@ def apply_block(p, x, cfg: ModelConfig, blk: BlockSpec, *, state=None,
             write_tables=write_tables, attend_cache=attend_cache)
     x = x + h
     h = L.apply_norm(p["norm2"], x, cfg)
-    x = x + L.apply_mlp(p["ffn"], h, cfg)
-    return x, state
+    aux = 0.0
+    if blk.ffn == "moe":
+        h, aux = L.apply_moe(p["ffn"], h, cfg)
+    else:
+        h = L.apply_mlp(p["ffn"], h, cfg)
+    return x + h, state, aux
 
 
 def group_view(cache, g: int):
@@ -95,22 +102,25 @@ def run_stack(stack_params: List[Dict[str, Any]], x, cfg: ModelConfig, *,
               write_tables=None, attend_cache: bool = False):
     """Run every group of ``stack_params`` in order against the cache
     leaves' matching group entries (a plan stage passes its group slice of
-    both).  Returns (x, cache).
+    both).  Returns (x, cache, aux), aux the sum of the MoE layers'
+    load-balance losses (the float 0.0 without MoE layers).
 
     attend_cache: chunked-prefill continuation -- attention blocks attend
     the tokens already in a dense ``cache`` (scalar ``cache_index`` = their
     count) beside the fresh chunk; recurrent blocks continue from the
     cached state either way, and a paged prefill always attends every
     mapped page."""
+    aux = 0.0
     for g, gp in enumerate(stack_params):
         gc = group_view(cache, g) if cache is not None else None
         for j, blk in enumerate(cfg.block_pattern):
-            x, _ = apply_block(
+            x, _, a = apply_block(
                 gp[f"b{j}"], x, cfg, blk,
                 state=gc[f"b{j}"] if gc is not None else None,
                 cache_index=cache_index, block_tables=block_tables,
                 write_tables=write_tables, attend_cache=attend_cache)
-    return x, cache
+            aux = aux + a
+    return x, cache, aux
 
 
 # ---------------------------------------------------------------------------

@@ -17,7 +17,7 @@ from repro_torch.models import transformer as T
 def run_stage(cfg: ModelConfig, stage_params, x, *, cache=None,
               cache_index=None, attend_cache: bool = False,
               block_tables=None, write_tables=None):
-    """Run ONE stage's group slice.  Returns (y, cache).
+    """Run ONE stage's group slice.  Returns (y, cache, aux).
 
     stage_params: the stage's slice of the per-group param list (exactly
       its n_groups entries).

@@ -76,7 +76,7 @@ def prefill_stage(model, plan: ExecutionPlan, params, s: int, cont: bool,
     view = part_cache if block_tables is None else \
         T.combine_prefill_parts(replica_cache, part_cache)
     st = plan.stages[s]
-    y, _ = run_stage(
+    y, _, _ = run_stage(
         model.cfg, _stage_slice(params["stack"], plan, s), hidden,
         cache=T.slice_cache_groups(view, st.first_group, st.n_groups),
         cache_index=int(pos_base), attend_cache=cont,
@@ -99,7 +99,7 @@ def stage_walk(model, plan: ExecutionPlan, params, cache, tokens,
     if block_tables is not None:
         block_tables = torch.as_tensor(block_tables, device=dev)
     for s, st in enumerate(plan.stages):
-        x, _ = run_stage(
+        x, _, _ = run_stage(
             model.cfg, _stage_slice(params["stack"], plan, s), x,
             cache=T.slice_cache_groups(cache, st.first_group, st.n_groups),
             cache_index=positions, block_tables=block_tables)

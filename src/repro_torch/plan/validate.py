@@ -59,8 +59,8 @@ def _stage_slice(stack_params, plan: ExecutionPlan, s: int):
 
 def stage_forward(model, params, x, plan: ExecutionPlan, s: int):
     """Apply stage ``s``'s group slice to hidden states ``x``."""
-    y, _ = T.run_stack(_stage_slice(params["stack"], plan, s), x,
-                       model.cfg)
+    y, _, _ = T.run_stack(_stage_slice(params["stack"], plan, s), x,
+                          model.cfg)
     return y
 
 

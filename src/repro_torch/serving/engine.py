@@ -269,11 +269,12 @@ class ServingEngine:
         self.kernel_path = dispatch.kernel_path(self.device)
         self.serve_step = make_serve_step(self.model)
         self._prefill_slot = make_prefill_slot_step(self.model, self.max_seq)
-        if any(not b.mixer.startswith("attn")
+        if any(not b.mixer.startswith("attn") or b.ffn == "moe"
                for b in self.cfg.block_pattern):
-            # pad tokens are exactly neutral only under causal attention:
-            # a recurrent mixer folds them into its state.  Prefill such
-            # families at the exact prompt length.
+            # pad tokens are only exactly neutral under causal attention +
+            # dense FFN: a recurrent mixer folds them into its state, and
+            # MoE routing lets them compete for expert capacity.  Prefill
+            # those families at the exact prompt length.
             self.prefill_bucket = 1
         # compute reuse skips a warm prefix's prefill; a hybrid keeps only
         # memory sharing (its recurrent state has no per-position cache to

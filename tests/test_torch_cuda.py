@@ -315,6 +315,58 @@ def test_fused_decode_splits_match_plain(cuda_device, case, dtype, d, pool):
         assert a is None or torch.equal(a, r)
 
 
+@pytest.mark.parametrize("pool", ["fp", "int8"])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("grp", range(1, 9))
+def test_fused_decode_every_group_matches_plain(cuda_device, grp, dtype, d,
+                                                pool):
+    """The fused decode at every G from 1 to 8 (the split walk pads 3 to 4
+    and 5-7 to 8 rows) against its plain version at the serve's split
+    case, the written rows (and int8 scales) bit-equal; G = 9 raises."""
+    b, positions, nb = DECODE_SPLIT_CASES["serve"]
+    hk, page = 2, 16
+    g = torch.Generator(device=cuda_device).manual_seed(grp * 10 + d)
+    n = b * nb + 1
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=g, device=cuda_device)
+
+    bt = torch.randperm(b * nb, generator=g, device=cuda_device).reshape(
+        b, nb).to(torch.int32)
+    pos = torch.tensor(positions, dtype=torch.int32, device=cuda_device)
+    q, kn, vn = (rnd(b, hk, grp, d).to(dtype), rnd(b, hk, d).to(dtype),
+                 rnd(b, hk, d).to(dtype))
+    if pool == "int8":
+        kq, ks = TR.quantize_int8_rows(rnd(n, page, hk, d))
+        vq, vs = TR.quantize_int8_rows(rnd(n, page, hk, d))
+        pools = [kq, vq, ks, vs]
+    else:
+        pools = [rnd(n, page, hk, d).to(dtype), rnd(n, page, hk, d).to(dtype),
+                 None, None]
+    mine = [None if t is None else t.clone() for t in pools]
+    plain = [None if t is None else t.clone() for t in pools]
+    out = TP.fused_paged_decode_grouped(
+        q, kn, vn, mine[0], mine[1], bt, pos, theta=1e4, k_scales=mine[2],
+        v_scales=mine[3])[0]
+    ref = TR.fused_paged_decode_ref(
+        q, kn, vn, plain[0], plain[1], bt, pos, theta=1e4,
+        k_scales=plain[2], v_scales=plain[3])[0]
+    torch.cuda.synchronize()
+    _close(out, ref, dtype)
+    for a, r in zip(mine, plain):
+        assert a is None or torch.equal(a, r)
+    if grp == 8:
+        with pytest.raises(ValueError):
+            TP.fused_paged_decode_grouped(
+                rnd(b, hk, 9, d).to(dtype), kn, vn, mine[0], mine[1], bt,
+                pos, theta=1e4, k_scales=mine[2], v_scales=mine[3])
+        with pytest.raises(ValueError):
+            TP.paged_attention_grouped(
+                rnd(b, hk, 9, d).to(dtype), mine[0], mine[1], bt, pos + 1,
+                k_scales=mine[2], v_scales=mine[3])
+
+
 def test_attention_wrappers_raise_on_misaligned_operands(cuda_device):
     """The cp.async copies need 16-byte aligned q, K/V and pools: a
     contiguous view that starts 2 bytes in raises before any launch."""
@@ -354,7 +406,7 @@ def test_attention_wrappers_raise_on_misaligned_operands(cuda_device):
 PAGED_SHAPES = [(1, 2, 64), (5, 2, 40), (4, 8, 64), (3, 2, 6), (17, 8, 8)]
 
 
-@pytest.mark.parametrize("grp", [1, 2, 4, 8])
+@pytest.mark.parametrize("grp", range(1, 9))
 @pytest.mark.parametrize("d", [64, 128])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_paged_attention_kernel_matches_plain(cuda_device, dtype, d, grp):

@@ -325,7 +325,7 @@ def test_fused_decode_contract_raises_outside_it(bad):
         q, kn, vn = _t(b, hk, g, 16), _t(b, hk, 16), _t(b, hk, 16)
         kp, vp = _t(n, p, hk, 16), _t(n, p, hk, 16)
     elif bad == "groups":
-        q = _t(b, hk, 3, d)
+        q = _t(b, hk, 9, d)
     elif bad == "dtype":
         q, kn, vn, kp, vp = (x.to(torch.float16) for x in (q, kn, vn, kp, vp))
     elif bad == "pool_dtype":
@@ -861,7 +861,7 @@ def test_paged_decode_contract_raises_outside_it(bad):
     bt, ln = _t(b, nb, dtype=torch.int32), _t(b, dtype=torch.int32)
     sc = {}
     if bad == "groups":
-        q = _t(b, hk, 3, d)
+        q = _t(b, hk, 9, d)
     elif bad == "head_dim":
         q, kp, vp = _t(b, hk, g, 32), _t(n, p, hk, 32), _t(n, p, hk, 32)
     elif bad == "lengths_dtype":

@@ -559,24 +559,56 @@ def _attn_view(cache):
     return {"b0": cache["b3"]}
 
 
-@pytest.mark.parametrize("arch", ["jamba-1.5-large-398b", "yi-6b"])
+NOT_SERVED = ("gemma2-9b", "xlstm-125m", "whisper-base", "qwen2-vl-72b",
+              "deit-t", "lv-vit-t")
+
+
+def _port_config(jcfg):
+    """The JAX package's config as the port's dataclass (field for
+    field), for the archs the port's registry does not list."""
+    from repro_torch.configs import base as B
+    d = {f.name: getattr(jcfg, f.name) for f in dataclasses.fields(jcfg)}
+    d["block_pattern"] = tuple(B.BlockSpec(b.mixer, b.ffn)
+                               for b in jcfg.block_pattern)
+    d["moe"] = (None if jcfg.moe is None
+                else B.MoEConfig(**dataclasses.asdict(jcfg.moe)))
+    d["ssm"] = B.SSMConfig(**dataclasses.asdict(jcfg.ssm))
+    d["xlstm"] = B.XLSTMConfig(**dataclasses.asdict(jcfg.xlstm))
+    return B.ModelConfig(**d)
+
+
+@pytest.mark.parametrize("arch", ["jamba-1.5-large-398b", "yi-6b",
+                                  *NOT_SERVED])
 def test_check_supported_lets_only_served_blocks_through(arch):
-    """The dense-FFN variant builds; the published jamba (MoE FFNs) and
-    the kinds not ported yet raise."""
+    """Every config of the port's registry builds, the published jamba
+    with its MoE layers too; yi-6b with MoE FFNs, LayerNorm, a plain
+    squared-ReLU MLP or a tied head builds; local-window and xLSTM
+    mixers, M-RoPE, a gelu MLP and the JAX package's archs not ported
+    yet (gemma2, xlstm, whisper, qwen2-vl, deit, lv-vit) raise."""
+    from repro_torch.configs.base import BlockSpec, MoEConfig
     from repro_torch.models import transformer as T
-    T.check_supported(T_REGISTRY[HYBRID])
+    for name in T_REGISTRY:
+        T.check_supported(T_REGISTRY[name])
+    if arch in NOT_SERVED:
+        with pytest.raises(NotImplementedError):
+            t_build(_port_config(J_REGISTRY[arch]), device="cpu")
+        return
     cfg = T_REGISTRY[arch]
+    t_build(cfg, device="cpu")
     if arch == "yi-6b":
-        from repro_torch.configs.base import BlockSpec
+        for kw in (dict(block_pattern=(BlockSpec("attn", "moe"),),
+                        moe=MoEConfig(num_experts=4, expert_d_ff=64)),
+                   dict(norm_kind="layernorm"),
+                   dict(mlp_activation="relu2", gated_mlp=False),
+                   dict(tie_embeddings=True)):
+            T.check_supported(dataclasses.replace(cfg, **kw))
         for blk in (BlockSpec("mlstm", "dense"), BlockSpec("slstm", "dense"),
                     BlockSpec("attn_local", "dense"),
-                    BlockSpec("attn", "moe")):
+                    BlockSpec("attn", "none")):
             with pytest.raises(NotImplementedError):
                 T.check_supported(dataclasses.replace(cfg,
                                                       block_pattern=(blk,)))
-        with pytest.raises(NotImplementedError):
-            T.check_supported(dataclasses.replace(
-                cfg, mrope_sections=(16, 24, 24)))
-    else:
-        with pytest.raises(NotImplementedError):
-            t_build(cfg, device="cpu")
+        for kw in (dict(mrope_sections=(16, 24, 24)),
+                   dict(mlp_activation="gelu")):
+            with pytest.raises(NotImplementedError):
+                T.check_supported(dataclasses.replace(cfg, **kw))
