@@ -3,6 +3,7 @@
 3's shapes, on one NVIDIA GPU.
 
     python3 bench_attention.py [--src DIR] [--label NAME] [--out FILE]
+                               [--head-dim 64|128]
 
 ``--src`` names the ``src`` directory whose ``repro_torch`` is timed (by
 default this checkout's), so that two trees can be compared on one card
@@ -11,7 +12,8 @@ directory that ``.gitignore`` lists and alternate the two, parent,
 change, change, parent.  Only the public wrappers are called, so any
 tree of the port since its paged verify window can be timed.
 
-Rows (bf16, H=32, Hkv=4, G=8, D=128, page 16, inputs from seed 0): the
+Rows (bf16, H=32, Hkv=4, G=8, D=128 or ``--head-dim``, page 16, inputs
+from seed 0): the
 fused decode (B=8 at positions up to 1000, and the serve's 4 slots at
 positions 100-700) over fp and int8 pools, the verify window (B=4, S=5,
 per-slot offsets 100-1000) over int8 and fp pools, the paged prefill at
@@ -51,6 +53,7 @@ def main(argv=None):
     ap.add_argument("--src", default=os.path.join(HERE, "src"))
     ap.add_argument("--label", default="")
     ap.add_argument("--out", default="")
+    ap.add_argument("--head-dim", type=int, default=128, choices=(64, 128))
     args = ap.parse_args(argv)
     sys.path.insert(0, HERE)
     import chip_smoke as C          # its timing helpers; it puts src first
@@ -72,7 +75,7 @@ def main(argv=None):
     print(card)
     _build.load_library()
     dev, dt = "cuda", torch.bfloat16
-    hk, g, d, page = 4, 8, 128, 16
+    hk, g, d, page = 4, 8, args.head_dim, 16
     h = hk * g
     gen = torch.Generator(device=dev).manual_seed(0)
     flush = torch.empty(64 * 2**20, dtype=torch.int8, device=dev)
@@ -109,8 +112,8 @@ def main(argv=None):
                                                                    flush),
                  library_ms=C.bench(library, flush),
                  library_device_ms=C.device_ms(library, flush))
-        print(f"[bench] {args.label} {name}: event {r['ms']:.4f} ms, device "
-              f"{r['device_ms']:.4f} ms; library event "
+        print(f"[bench] {args.label} D={d} {name}: event {r['ms']:.4f} ms, "
+              f"device {r['device_ms']:.4f} ms; library event "
               f"{r['library_ms']:.4f} ms, device "
               f"{r['library_device_ms']:.4f} ms; max_abs_err "
               f"{err:.3g} {'ok' if ok else 'MISMATCH'}")
@@ -261,7 +264,7 @@ def main(argv=None):
                     exist_ok=True)
         with open(args.out, "w") as f:
             json.dump({"card": card, "label": args.label, "src": args.src,
-                       "rows": rows}, f, indent=1)
+                       "head_dim": d, "rows": rows}, f, indent=1)
     return 0 if all(r["ok"] for r in rows) else 1
 
 

@@ -53,7 +53,14 @@ device it fails (it never runs on the CPU instead).  Phases, in order:
      pools, the unfused decode and the paged prefill (S=256) at G=6,
      each timed
      beside its bound, plain version and SDPA; flash and the paged
-     prefill at G=1 (qwen2-moe) and flash at G=6, checked; then
+     prefill at G=1 (qwen2-moe) and flash at G=6, checked; then head_dim
+     256 at gemma2-9b's shapes (Hkv=8, G=2, page 16, softcap 50), f32
+     and bf16: flash (causal, window 4096, Sq=Skv=4608), the paged
+     prefill (S=600 at 0 on fp and int8 pools, S=256 at 4096), the fused
+     decode (B=4, positions up to 6000, fp and int8) and the ring-view
+     decode of the local layers (the unfused decode over B=4 rings of
+     4096 rows), each beside SDPA at the same mask without the softcap;
+     then
      the kernel front door, ``repro_torch.kernels.ops``: the fused matmul
      (yi-6b's gate projection at 4 and 512 tokens, a 4096-wide projection
      with each epilogue, f32 and bf16, bf16 to f32) and the one-pass norm
@@ -109,6 +116,12 @@ device it fails (it never runs on the CPU instead).  Phases, in order:
      chunk 16 in one chunk a prompt, with the gold's streams; on int8
      pools nemotron and yi-34b must give the fp gold's first tokens, and
      the MoE models whole, finite streams (int8 K/V flips routing).
+     gemma2-9b in f32 at published width, 4 layers (two groups), on
+     prompts of 4,000-4,600 tokens (the prefills and one decode cross
+     position 4,096 and wrap the 4,096-row rings): the dense and the
+     paged engine must give the gold's streams, int8 pools whole finite
+     streams with f32 rings, a 2-stage plan at chunk 256 one chunk a
+     prompt longer than the ring and the gold's streams.
      Each run zeroes the launch counters
      just before and reads them just after: every kernel of its path
      must have launched (the dense run's flash launches are also sorted
@@ -154,7 +167,12 @@ device it fails (it never runs on the CPU instead).  Phases, in order:
      width and depth, bf16, with serve-full's engine and requests, each
      with its profiled decode window (the MoE expert products' device
      time a tick from the profile's bmm ops) and host syncs a tick; each
-     model is freed before the next.
+     model is freed before the next.  serve-gemma2: gemma2-9b at
+     published width and depth (42 layers, 18.48 GB in bf16), serve-full's
+     engine at max_seq 8192, 8 prompts of 1,000-6,000 tokens (four past
+     the window, four sharing a 256-token prefix, one crossing 4,096
+     while it decodes), 64 new tokens each, with its profiled decode
+     window and host syncs a tick.
 
 It prints a ``{"kernels": [...]}`` JSON line, then as its last line
 ``{"ok": true, "device": {...}}``.  Any failed check exits non-zero
@@ -611,7 +629,7 @@ def print_rows(results, dtype, names):
                    f"{r['library_device_ms']:.4f} ms]")
         print(f"[kernels] {name} {str(dtype)[6:]} ({r['shape']}): "
               f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
-              f"sdpa {r['library_ms']:.4f} ms, bound "
+              f"{r.get('library', 'sdpa')} {r['library_ms']:.4f} ms, bound "
               f"{r['bound_ms']:.4f} ms ({r['bound_by']}), splits "
               f"{r.get('splits', 1)}{dev}")
 
@@ -1352,6 +1370,314 @@ def group_kernel_phase(dev, flush, results):
             ref = TR.paged_prefill_attention_ref(q, k1, v1, t1, offset)
             assert_close(f"paged_prefill G=1 (Hkv=16, S={s}) "
                          f"offset={offset}", out, ref, dtype)
+
+
+GEMMA2 = "gemma2-9b"
+
+
+def gemma2_kernel_phase(dev, flush, results):
+    """Phase 3, head_dim 256 at gemma2-9b's shapes (Hkv=8, G=2, D=256,
+    page 16, softcap 50), f32 and bf16, each kernel against its plain
+    version and timed beside its bound, the plain version and SDPA at the
+    same shape and mask WITHOUT the softcap (no single PyTorch call
+    applies a tanh softcap; the line says so): flash, causal with window
+    4096, at Sq=Skv=4608 (the window bites for the last 512 queries);
+    the paged prefill at S=600 from offset 0 and S=256 from offset 4096
+    (fp pools; int8 pools at S=600); the fused decode at B=4, positions
+    up to 6000 over 512-entry tables (fp and int8 pools, written rows
+    held to the plain version's, int8 bit-equal); and the ring-view decode
+    of the local layers (the unfused decode over B=4 rings of W=4096 rows,
+    one W-row page a slot, lengths min(pos + 1, 4096) with one slot short
+    of a full ring).  Queries are drawn at std 4 and K/V at std 1: scores
+    of std 4 let a few keys dominate each row, so outputs are of order 1
+    and a kernel that drops or misplaces a 64-key tile moves them by far
+    more than the tolerance (at std-1 queries over 4,096 keys they are
+    ~0.03, of the tolerance's own size).  Then, bf16 only, the int8
+    prefill at S=600 with every input at std 2 (``int8_prefill_numerics``),
+    where the plain version and the kernel round in different places."""
+    from repro_torch.configs import REGISTRY
+    from repro_torch.kernels import flash_attention as TF
+    from repro_torch.kernels import paged_attention as TP
+    from repro_torch.kernels import ref as TR
+    F = torch.nn.functional
+    cfg = REGISTRY[GEMMA2]
+    hk, d, page, cap = cfg.num_kv_heads, cfg.head_dim, 16, \
+        cfg.attn_logit_softcap
+    g = cfg.num_heads // hk
+    h, win = hk * g, cfg.window_size
+    gen = torch.Generator(device=dev).manual_seed(23)
+    lib_note = "sdpa without the softcap"
+
+    def rnd(shape, dtype=torch.float32, std=1.0):
+        return (torch.randn(shape, generator=gen, device=dev)
+                * std).to(dtype)
+
+    def row(name, dtype, launch, plain, sdpa, err, nbytes, ops, split,
+            shape):
+        bnd, by = bound_ms(nbytes, ops, dtype)
+        results[(name, dtype)] = dict(
+            max_abs_err=err, ms=bench(launch, flush),
+            plain_ms=bench(plain, flush, iters=5, warmup=1),
+            library_ms=bench(sdpa, flush), bound_ms=bnd, bound_by=by,
+            device_ms=device_ms(launch, flush),
+            library_device_ms=device_ms(sdpa, flush), splits=split,
+            shape=shape, library=lib_note)
+
+    def gathered(table, kpool, vpool, dtype):
+        """The pages of ``table`` in logical order, heads repeated G
+        times, (B, H, T, D), for SDPA."""
+        bb, nbb = table.shape
+        kg = kpool[table.long()].reshape(bb, nbb * kpool.shape[1], hk, d)
+        vg = vpool[table.long()].reshape(bb, nbb * vpool.shape[1], hk, d)
+        return (kg.transpose(1, 2).repeat_interleave(g, 1).to(dtype)
+                .contiguous(),
+                vg.transpose(1, 2).repeat_interleave(g, 1).to(dtype)
+                .contiguous())
+
+    for dtype in (torch.float32, torch.bfloat16):
+        el = torch.tensor([], dtype=dtype).element_size()
+        names = []
+
+        # -- flash: causal, window 4096, softcap 50, Sq = Skv = 4608 ------
+        s = 4608
+        q, k, v = rnd((1, h, s, d), dtype, QSTD), \
+            rnd((1, hk, s, d), dtype), rnd((1, hk, s, d), dtype)
+        qp = torch.arange(s, dtype=torch.int32, device=dev)
+        ones = torch.ones((s,), dtype=torch.int32, device=dev)
+        kw = dict(causal=True, window=win, softcap=cap)
+        out = TF.flash_attention_bhsd(q, k, v, qp, qp, ones, **kw)
+        ref = TR.flash_attention_ref(q, k, v, qp, qp, ones, **kw)
+        torch.cuda.synchronize()
+        err = assert_close("flash_attention_d256", out, ref, dtype)
+        del out, ref
+        rel = qp[:, None].long() - qp[None, :].long()
+        fmask = (rel >= 0) & (rel < win)
+        pairs = int(fmask.sum())
+        kr = k.repeat_interleave(g, 1).contiguous()
+        vr = v.repeat_interleave(g, 1).contiguous()
+        row("flash_attention_d256", dtype,
+            lambda: TF.flash_attention_bhsd(q, k, v, qp, qp, ones, **kw),
+            lambda: TR.flash_attention_ref(q, k, v, qp, qp, ones, **kw),
+            functools.partial(F.scaled_dot_product_attention, q, kr, vr,
+                              attn_mask=fmask),
+            err, (2 * h + 2 * hk) * s * d * el + 12 * s, 4 * pairs * h * d,
+            splits_of(dtype, TF.flash_split(1, h, s, s)),
+            f"B=1 H={h} Hkv={hk} Sq=Skv={s} D={d} causal window={win} "
+            f"softcap={cap:g}")
+        names.append("flash_attention_d256")
+        del q, k, v, kr, vr, fmask, rel
+
+        # -- paged prefill: S=600 at 0 (fp, int8), S=256 at 4096 (fp) -----
+        nb = 288                                   # 4608 keys of table
+        bt = torch.randperm(nb, generator=gen, device=dev)[None].to(
+            torch.int32)
+        kq, ks = TR.quantize_int8_rows(rnd((nb + 1, page, hk, d)))
+        vq, vs = TR.quantize_int8_rows(rnd((nb + 1, page, hk, d)))
+        kf, vf = TR.dequantize_int8(kq, ks), TR.dequantize_int8(vq, vs)
+        kp, vp = kf.to(dtype), vf.to(dtype)
+        kg, vg = gathered(bt, kf, vf, dtype)
+        for name, s, offset, pool in (
+                ("paged_prefill_d256", 600, 0, "fp"),
+                ("paged_prefill_d256_s256", 256, 4096, "fp"),
+                ("paged_prefill_int8_d256", 600, 0, "int8")):
+            q = rnd((1, hk, g, s, d), dtype, QSTD)
+            pools = (kp, vp) if pool == "fp" else (kq, vq)
+            sc = {} if pool == "fp" else dict(k_scales=ks, v_scales=vs)
+
+            def launch(q=q, offset=offset, pools=pools, sc=sc):
+                return TP.paged_prefill_attention_grouped(
+                    q, *pools, bt, offset, softcap=cap, **sc)
+
+            def plain(q=q, offset=offset, pools=pools, sc=sc):
+                return TR.paged_prefill_attention_ref(
+                    q, *pools, bt, offset, softcap=cap, **sc)
+            out, ref = launch(), plain()
+            torch.cuda.synchronize()
+            err = assert_close(f"{name} offset={offset}", out, ref, dtype)
+            t = offset + s
+            qmask = (torch.arange(nb * page, device=dev)[None, :]
+                     <= offset + torch.arange(s, device=dev)[:, None])
+            row_bytes = d * el if pool == "fp" else d + 4
+            row(name, dtype, launch, plain,
+                functools.partial(F.scaled_dot_product_attention,
+                                  q.reshape(1, h, s, d), kg, vg,
+                                  attn_mask=qmask),
+                err, 2 * h * s * d * el + 2 * t * hk * row_bytes
+                + 4 * -(-t // page),
+                4 * (s * offset + s * (s + 1) // 2) * h * d,
+                splits_of(dtype, TP.prefill_split(1, hk, g, s, page, nb,
+                                                  offset)),
+                f"B=1 Hkv={hk} G={g} S={s} offset={offset} D={d} P={page} "
+                f"NB={nb} softcap={cap:g} {pool} pools")
+            names.append(name)
+        del kg, vg
+
+        # -- fused decode: B=4, positions up to 6000, 512-entry tables ----
+        b, nb = 4, 512                            # max_seq 8192
+        n = b * nb + 1
+        pos = torch.tensor([5999, 4095, 4096, 1234], dtype=torch.int32,
+                           device=dev)
+        bt = torch.randperm(b * nb, generator=gen, device=dev).reshape(
+            b, nb).to(torch.int32)
+        kq, ks = TR.quantize_int8_rows(rnd((n, page, hk, d)))
+        vq, vs = TR.quantize_int8_rows(rnd((n, page, hk, d)))
+        kf, vf = TR.dequantize_int8(kq, ks), TR.dequantize_int8(vq, vs)
+        keys = int((pos.long() + 1).sum())
+        tables = int(((pos.long() + page) // page).sum())
+        q, kn, vn = rnd((b, hk, g, d), dtype, QSTD), \
+            rnd((b, hk, d), dtype), rnd((b, hk, d), dtype)
+        kg, vg = gathered(bt, kf, vf, dtype)
+        dmask = (torch.arange(nb * page, device=dev)[None, :]
+                 <= pos[:, None].long())[:, None, None, :]
+        for pool in ("fp", "int8"):
+            name = "fused_paged_decode" + ("_int8" if pool == "int8" else
+                                           "") + "_d256"
+            if pool == "int8":
+                pools, row_bytes = [kq, vq, ks, vs], d + 4
+            else:
+                pools, row_bytes = [kf.to(dtype), vf.to(dtype), None,
+                                    None], d * el
+            mine = [None if x is None else x.clone() for x in pools]
+            refp = [None if x is None else x.clone() for x in pools]
+
+            def launch(p=mine):
+                return TP.fused_paged_decode_grouped(
+                    q, kn, vn, p[0], p[1], bt, pos, theta=cfg.rope_theta,
+                    softcap=cap, k_scales=p[2], v_scales=p[3])
+
+            def plain(p=refp):
+                return TR.fused_paged_decode_ref(
+                    q, kn, vn, p[0], p[1], bt, pos, theta=cfg.rope_theta,
+                    softcap=cap, k_scales=p[2], v_scales=p[3])
+            out, ref = launch()[0], plain()[0]
+            torch.cuda.synchronize()
+            err = assert_close(f"{name} out", out, ref, dtype)
+            for what, a, r in zip(("k_pages", "v_pages", "k_scales",
+                                   "v_scales"), mine, refp):
+                if a is None:
+                    continue
+                if pool == "int8":
+                    same = torch.equal(a, r)
+                    print(f"[kernels] {name} {str(dtype)[6:]} written "
+                          f"{what} bit-equal: {same}")
+                    check(same, f"{name} {what} differ from the plain "
+                                f"version's ({dtype})")
+                else:
+                    assert_close(f"{name} {what}", a, r, dtype)
+            split = TP.fused_paged_decode_grouped.last_split[0]
+            row(name, dtype, launch, plain,
+                functools.partial(F.scaled_dot_product_attention,
+                                  q.reshape(b, h, 1, d), kg, vg,
+                                  attn_mask=dmask),
+                err, 2 * b * h * d * el + 2 * b * hk * d * el
+                + 2 * b * hk * row_bytes + 2 * keys * hk * row_bytes
+                + 4 * (b + tables), 4 * keys * hk * g * d, split,
+                f"B={b} Hkv={hk} G={g} D={d} P={page} NB={nb} pos<=6000 "
+                f"softcap={cap:g} {pool} pools")
+            names.append(name)
+            del mine, refp
+        del kg, vg, kq, vq, kf, vf
+
+        # -- the ring-view decode: B=4 rings of W=4096 rows, one W-row
+        #    page a slot, lengths min(pos + 1, W) ---------------------------
+        w = win
+        kr, vr = rnd((b, w, hk, d), dtype), rnd((b, w, hk, d), dtype)
+        table = torch.arange(b, dtype=torch.int32, device=dev)[:, None]
+        lengths = torch.tensor([4096, 4096, 1000, 4096], dtype=torch.int32,
+                               device=dev)
+        q = rnd((b, hk, g, d), dtype, QSTD)
+        out = TP.paged_attention_grouped(q, kr, vr, table, lengths,
+                                         softcap=cap)
+        ref = TR.paged_attention_ref(q, kr, vr, table, lengths, softcap=cap)
+        torch.cuda.synchronize()
+        err = assert_close("paged_attention_ring_d256", out, ref, dtype)
+        keys = int(lengths.long().sum())
+        rmask = (torch.arange(w, device=dev)[None, :]
+                 < lengths[:, None].long())[:, None, None, :]
+        row("paged_attention_ring_d256", dtype,
+            lambda: TP.paged_attention_grouped(q, kr, vr, table, lengths,
+                                               softcap=cap),
+            lambda: TR.paged_attention_ref(q, kr, vr, table, lengths,
+                                           softcap=cap),
+            functools.partial(
+                F.scaled_dot_product_attention, q.reshape(b, h, 1, d),
+                kr.transpose(1, 2).repeat_interleave(g, 1).contiguous(),
+                vr.transpose(1, 2).repeat_interleave(g, 1).contiguous(),
+                attn_mask=rmask),
+            err, 2 * b * h * d * el + 2 * keys * hk * d * el + 8 * b,
+            4 * keys * hk * g * d, TP.paged_attention_grouped.last_split[0],
+            f"B={b} Hkv={hk} G={g} D={d} W={w} (one {w}-row page a slot) "
+            f"lengths<=4096 softcap={cap:g}")
+        names.append("paged_attention_ring_d256")
+        del kr, vr
+        print_rows(results, dtype, names)
+        torch.cuda.empty_cache()
+
+    # bf16 int8 prefill with every input at std 2: outputs near zero that
+    # cancel terms up to ~8 leave the plain version and the kernel a few
+    # hundredths apart, beyond 2e-2 absolute; both are held to an f64
+    # evaluation in bf16 units at the terms' magnitude instead
+    e = int8_prefill_numerics(TP, TR, dev, cfg, seed=23)
+    print(f"[kernels] paged_prefill_int8_d256 numerics bf16, inputs at std "
+          f"2: max |kernel - plain| {e['gap']:.3g}; from the f64 value the "
+          f"kernel {e['max_ulps']:.3g} bf16 ulps at sum_j p_j |v_j| (its "
+          f"rounding bound 1.5), the plain version "
+          f"{e['plain_max_ulps']:.3g}; max |out| {e['max_out']:.3g}")
+    check(e["max_ulps"] <= 2.0,
+          f"bf16 int8 paged prefill at D=256 strays from f64 beyond its "
+          f"rounding: {e}")
+    results[("paged_prefill_int8_d256", torch.bfloat16)]["numerics_std2"] = e
+
+
+QSTD = 4.0      # gemma2_kernel_phase's query std (K/V at 1): outputs ~ 1
+
+
+def int8_prefill_numerics(TP, TR, dev, cfg, seed, s=600, std=2.0):
+    """The bf16 int8 paged prefill at gemma2's shape (Hkv, G, D=256, page
+    16, its softcap), S tokens from offset 0, q and K/V drawn at ``std``:
+    the kernel's and the plain version's largest distance from an f64
+    evaluation of the same function on the same (bf16 q, dequantized K/V)
+    inputs, in bf16 ulps at m = sum_j p_j |v_j|, the magnitude of the
+    terms each output sums.  The kernel rounds each p_j times its v scale
+    to bf16 (at most half an ulp of m over the sum) and then its output
+    (at most an ulp of m): 1.5 in all, checked at 2.  The plain version
+    rounds p_j and v_j apart and sums in a bf16 GEMM; its distance is
+    reported beside.  A dropped tile or a wrong mask moves a row by many
+    ulps."""
+    import math
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    hk, d, page = cfg.num_kv_heads, cfg.head_dim, 16
+    g, cap = cfg.num_heads // hk, cfg.attn_logit_softcap
+    bf = torch.bfloat16
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device=dev) * std
+    nb = -(-s // page)
+    bt = torch.randperm(nb, generator=gen, device=dev)[None].to(torch.int32)
+    kq, ks = TR.quantize_int8_rows(rnd(nb + 1, page, hk, d))
+    vq, vs = TR.quantize_int8_rows(rnd(nb + 1, page, hk, d))
+    q = rnd(1, hk, g, s, d).to(bf)
+    sc = dict(k_scales=ks, v_scales=vs)
+    out = TP.paged_prefill_attention_grouped(q, kq, vq, bt, 0, softcap=cap,
+                                             **sc).float()
+    plain = TR.paged_prefill_attention_ref(q, kq, vq, bt, 0, softcap=cap,
+                                           **sc).float()
+    idx = bt[0].long()
+    k = (kq.double() * ks.double()[..., None])[idx].reshape(-1, hk, d)[:s]
+    v = (vq.double() * vs.double()[..., None])[idx].reshape(-1, hk, d)[:s]
+    sco = torch.einsum("hgsd,thd->hgst", q[0].double(), k) / math.sqrt(d)
+    sco = cap * torch.tanh(sco / cap)
+    causal = torch.arange(s, device=dev)[None, :] \
+        <= torch.arange(s, device=dev)[:, None]
+    p = torch.softmax(sco.masked_fill(~causal, float("-inf")), -1)
+    ref = torch.einsum("hgst,thd->hgsd", p, v)[None]
+    unit = bf16_ulp(torch.einsum("hgst,thd->hgsd", p, v.abs())[None]
+                    .float()).double()
+    return dict(gap=max_err(out, plain),
+                max_ulps=float(((out.double() - ref).abs() / unit).max()),
+                plain_max_ulps=float(((plain.double() - ref).abs()
+                                      / unit).max()),
+                max_out=float(ref.abs().max()))
 
 
 MM_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}     # by output dtype
@@ -2641,6 +2967,114 @@ def family_parity_phase(dev, kernels):
     return out
 
 
+GEMMA2_PARITY_LAYERS = 4      # two (local, global) groups: the 2-stage plan
+
+
+def gemma2_parity_phase(dev, kernels):
+    """Phase 4, gemma2-9b in f32 at published width and 4 layers (two
+    (local, global) periods, so that a 2-stage plan has a group a stage;
+    1.71 B parameters, 6.8 GB), on prompts of 4,000-4,600 tokens: the
+    prefills of the prompts past 4,096 tokens wrap the 4,096-row rings
+    and mask with the window, and the 4,090-token prompt crosses position
+    4,096 while it decodes.  The dense and the paged engine (4 slots, page
+    16; built with ``speculate=4``, which gemma2's rings turn off) must
+    give the one-shot gold's streams (dense prefill through flash with the
+    window, lock-step decode); int8 pools must give whole, finite streams
+    with the rings kept in f32 at 4,096 rows; a 2-stage plan (2 replicas,
+    chunk 256) must prefill each prompt longer than the ring in one
+    chunk, as JAX's plan path does, the others in chunks of 256 that
+    continue over the ring, and give the gold's streams.
+    Every kernel of each run's path must launch: flash (every dense
+    prefill, the local layers' paged one), the unfused decode (the local
+    layers' per-slot decode over the ring view) and, paged, the paged
+    prefill and the fused decode (the global layers')."""
+    from repro_torch.configs import REGISTRY
+    from repro_torch.models import build_model
+    from repro_torch.plan import lower_serving, uniform_plan
+    cfg = dataclasses.replace(REGISTRY[GEMMA2],
+                              num_layers=GEMMA2_PARITY_LAYERS,
+                              dtype="float32", param_dtype="float32")
+    model = build_model(cfg, device=dev)
+    params = model.init(torch.Generator(device=dev).manual_seed(1))
+    nparam = model.param_count(params)
+    print(f"[parity] {GEMMA2} f32, {cfg.num_layers} layers: "
+          f"{nparam / 1e9:.3f} B params, {nparam * 4 / 1e9:.2f} GB, window "
+          f"{cfg.window_size}, softcaps {cfg.attn_logit_softcap:g} / "
+          f"{cfg.final_logit_softcap:g}, head_dim {cfg.head_dim}")
+    rng = np.random.default_rng(4)
+
+    def toks(m):
+        return rng.integers(1, cfg.vocab_size, m).astype(np.int32)
+
+    sched = [(toks(4090), 12, 0), (toks(4100), 8, 0), (toks(4600), 6, 0),
+             (toks(4000), 10, 1), (toks(4333), 5, 2)]
+    max_seq = 4672
+    golds, gaps = {}, {}
+    for uid, (prompt, max_new, _) in enumerate(sched):
+        golds[uid], lgs = gold_decode(model, params, prompt, max_new,
+                                      max_seq)
+        gaps[uid] = [top2_gap(x) for x in lgs]
+    out = {}
+    dense_path = {k: kernels[k] for k in ("flash_attention",
+                                          "paged_attention")}
+    paged_path = {k: kernels[k] for k in ("flash_attention", "paged_prefill",
+                                          "fused_paged_decode",
+                                          "paged_attention")}
+    eng, got, out["dense_launches"] = run_engine(
+        f"{GEMMA2} dense f32", model, params, sched, dense_path, max_seq, 4,
+        speculate=4)
+    compare_streams(f"{GEMMA2} dense f32 vs one-shot gold", got, golds,
+                    gaps)
+    check(eng._ring_min == cfg.window_size and eng._spec_k == 0,
+          f"{GEMMA2}: the dense engine's ring guard or speculation gate")
+    eng, got, out["launches"] = run_engine(
+        f"{GEMMA2} paged f32", model, params, sched, paged_path, max_seq, 4,
+        paged=True, page_size=16, speculate=4)
+    compare_streams(f"{GEMMA2} paged f32 vs one-shot gold", got, golds,
+                    gaps)
+    check(not eng._suffix_reuse and eng._spec_k == 0,
+          f"{GEMMA2}: the paged engine reused prefix compute or speculated")
+    eng, got, out["int8_launches"] = run_engine(
+        f"{GEMMA2} paged int8", model, params, sched, paged_path, max_seq, 4,
+        paged=True, page_size=16, kv_dtype="int8")
+    ring = eng._cache["b0"]["kv"]["k"]
+    print(f"[parity] {GEMMA2} paged int8: local rings {tuple(ring.shape)} "
+          f"{str(ring.dtype)[6:]}, global pools "
+          f"{str(eng._cache['b1']['kv']['k_pages'].dtype)[6:]}")
+    check(ring.dtype == torch.float32 and ring.shape[2] == cfg.window_size,
+          f"{GEMMA2} int8: the rings are not f32 rows of the window")
+    check(all(len(got[u].out_tokens) == sched[u][1] for u in golds),
+          f"{GEMMA2} int8: a stream ended short")
+    firsts = all(got[u].out_tokens[0] == golds[u][0] for u in golds)
+    agree = sum(got[u].out_tokens == golds[u] for u in golds)
+    print(f"[parity] {GEMMA2} paged int8: first tokens equal the fp gold's: "
+          f"{firsts}; streams equal in full: {agree} of {len(golds)} "
+          f"(printed, not checked: int8 rounds K/V)")
+    del eng
+    splan = lower_serving(uniform_plan(cfg.num_groups, 2, n_microbatches=2),
+                          slots=4, chunk=256)
+    peng, got, out["plan_launches"] = run_engine(
+        f"{GEMMA2} plan paged f32", model, params, sched, paged_path,
+        max_seq, splan.slots, plan=splan, paged=True, page_size=16)
+    compare_streams(f"{GEMMA2} plan paged f32 vs one-shot gold", got, golds,
+                    gaps)
+    out["plan_chunks"] = peng.prefill_chunk_counts
+    # a prompt longer than the ring wraps it in one chunk; a shorter one
+    # streams in chunks of 256 (continuations over the ring)
+    want = [1 if len(p) > cfg.window_size else -(-len(p) // splan.chunk)
+            for p, _, _ in sched]
+    print(f"[parity] {GEMMA2} plan: chunks per admission "
+          f"{peng.prefill_chunk_counts} (prompt lengths "
+          f"{[len(p) for p, _, _ in sched]})")
+    check(peng.prefill_chunk_counts == want,
+          f"{GEMMA2}: the plan's chunks {peng.prefill_chunk_counts} are not "
+          f"{want} (one chunk a prompt longer than the ring)")
+    del peng, params, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 def serve_prompts(cfg, seed, repeat_segment):
     """8 prompts of 100-600 tokens, the first four sharing a 256-token
     prefix.  With ``repeat_segment`` every prompt holds a 32-token segment
@@ -2661,12 +3095,12 @@ def serve_prompts(cfg, seed, repeat_segment):
     return prompts
 
 
-def serve_run(label, model, params, prompts, kernels, new=64, **engine_kw):
+def serve_run(label, model, params, prompts, kernels, new=64, max_seq=1024,
+              **engine_kw):
     """Serve ``prompts`` at full size, the kernels' launch counters set to
     0 just before and read just after, and the peak device memory over
     the serve.  Returns (engine, results)."""
     from repro_torch.serving import Request, ServingEngine
-    max_seq = 1024
     eng = ServingEngine(model, params, slots=4, max_seq=max_seq, paged=True,
                         page_size=16, **engine_kw)
     gaps = {}
@@ -3259,6 +3693,75 @@ def serve_family_phase(dev, kernels, arch, label):
     return r
 
 
+def gemma2_serve_prompts(cfg, seed):
+    """serve-gemma2's 8 prompts of 1,000-6,000 tokens: four share a
+    256-token prefix (1,000, 2,200, 3,400 and 4,060 tokens; the last
+    crosses position 4,096 while it decodes 64 tokens), four are longer
+    than the 4,096-token window (4,500, 5,000, 5,600 and 6,000)."""
+    rng = np.random.default_rng(seed)
+    v = cfg.vocab_size
+    prefix = rng.integers(1, v, 256)
+    out = [np.concatenate([prefix, rng.integers(1, v, n - 256)])
+           for n in (1000, 2200, 3400, 4060)]
+    out += [rng.integers(1, v, n) for n in (4500, 5000, 5600, 6000)]
+    return [p.astype(np.int32) for p in out]
+
+
+def serve_gemma2_phase(dev, kernels):
+    """Phase 5, serve-gemma2: gemma2-9b at published width and depth (42
+    layers, 21 local and 21 global, head_dim 256), bf16, random weights
+    from ``torch.Generator`` seed 0, served by serve-full's engine (paged,
+    4 slots, page 16) at max_seq 8192: 8 prompts of 1,000-6,000 tokens
+    (``gemma2_serve_prompts``), 64 new tokens each, the four kernels'
+    launch counters zeroed just before and read just after (flash for the
+    local layers' prefill, the paged prefill and the fused decode for the
+    global layers', the unfused decode over the local rings); then a
+    profiled decode window and the host syncs a tick.  The weights are
+    freed before it returns."""
+    from repro_torch.configs import REGISTRY
+    from repro_torch.models import build_model
+    from repro_torch.serving import Request
+    label = "serve-gemma2"
+    cfg = REGISTRY[GEMMA2]
+    model = build_model(cfg, device=dev)
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    nparam = model.param_count(params)
+    print(f"[serve] {label}: {GEMMA2} bf16 full size, {cfg.num_layers} "
+          f"layers, G={cfg.num_heads // cfg.num_kv_heads}, head_dim "
+          f"{cfg.head_dim}, window {cfg.window_size}: {nparam / 1e9:.3f} B "
+          f"params, {nparam * 2 / 1e9:.2f} GB, init "
+          f"{time.perf_counter() - t0:.1f} s")
+    path = {k: kernels[k] for k in ("flash_attention", "paged_prefill",
+                                    "fused_paged_decode", "paged_attention")}
+    prompts = gemma2_serve_prompts(cfg, 0)
+    eng, r = serve_run(label, model, params, prompts, path, max_seq=8192)
+    r["params"] = nparam
+    r["prompt_lengths"] = [len(p) for p in prompts]
+    check(not eng._suffix_reuse and eng._spec_k == 0
+          and eng._ring_min == cfg.window_size,
+          f"{label}: gemma2's engine must keep its ring guard, without "
+          f"compute reuse or speculation")
+    r["profile"] = profile_decode(eng, prompts[4:], Request)
+    unwatch(eng)
+    r["syncs"] = syncs_per_tick(label, eng, prompts[4:], Request)
+    p = r["profile"]
+    print(f"[serve] {label}: tok/s {r['tok_s']:.2f}; TTFT p50 "
+          f"{r['ttft_s'][len(r['ttft_s']) // 2]:.4f} s, max "
+          f"{r['ttft_s'][-1]:.4f} s; prefill phase "
+          f"{r['phase_time_s']['prefill']:.4f} s; host tick "
+          f"{r['tick_s'] * 1e3:.2f} ms; device {p['busy_ms_per_tick']:.4f} "
+          f"ms a tick (busy share {p['busy_share']:.3f}), by class "
+          f"{json.dumps({k: round(v, 4) for k, v in p['per_tick_ms'].items()})}"
+          f"; peak memory {r['peak_memory_gb']:.3f} GB; host syncs a tick "
+          f"{r['syncs']['per_tick']:.2f}")
+    del eng, params, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return r
+
+
 def expert_device_s(prof, experts):
     """Device seconds of the MoE expert products in a profile recorded
     with input shapes: the kernels under every batched-matmul op whose
@@ -3412,6 +3915,7 @@ def main():
         hybrid_kernel_phase(dev, flush, results)
         replica_kernel_phase(dev, flush, results)
         group_kernel_phase(dev, flush, results)
+        gemma2_kernel_phase(dev, flush, results)
         front_door_phase(dev, flush, results)
         repair = repair_phase(dev, flush)
         del flush
@@ -3435,6 +3939,9 @@ def main():
         parity["families"] = family_parity_phase(dev, kernels)
         print(f"[parity] families {time.perf_counter() - t1:.1f} s")
         t1 = time.perf_counter()
+        parity["gemma2"] = gemma2_parity_phase(dev, kernels)
+        print(f"[parity] gemma2 {time.perf_counter() - t1:.1f} s")
+        t1 = time.perf_counter()
         parity["replan"] = replan_parity_phase(dev, kernels)
         print(f"[replan] phase {time.perf_counter() - t1:.1f} s")
         print(f"[parity] phase {time.perf_counter() - t0:.1f} s")
@@ -3449,6 +3956,9 @@ def main():
             t1 = time.perf_counter()
             served[label] = serve_family_phase(dev, kernels, arch, label)
             print(f"[serve] {label} {time.perf_counter() - t1:.1f} s")
+        t1 = time.perf_counter()
+        served["serve-gemma2"] = serve_gemma2_phase(dev, kernels)
+        print(f"[serve] serve-gemma2 {time.perf_counter() - t1:.1f} s")
         print(f"[serve] front-door kernels launched by the serves (no model "
               f"calls them, as in JAX): yi-6b serves "
               f"{json.dumps(served['front_door_launches'])}, hybrid "
@@ -3490,6 +4000,17 @@ def main():
         "paged_attention_g6": ("src/repro_torch/csrc/paged_attention.cu",
                                "src/repro/kernels/paged_attention.py:394"),
         "paged_prefill_g6": prefill,
+        "flash_attention_d256": ("src/repro_torch/csrc/flash_attention.cu",
+                                 "src/repro/kernels/flash_attention.py:85"),
+        "paged_prefill_d256": prefill,
+        "paged_prefill_d256_s256": prefill,
+        "paged_prefill_int8_d256": prefill,
+        "fused_paged_decode_d256": decode,
+        "fused_paged_decode_int8_d256": decode,
+        # no Pallas kernel: JAX decodes a local ring with jnp per slot
+        "paged_attention_ring_d256": (
+            "src/repro_torch/csrc/paged_attention.cu",
+            "src/repro/models/layers.py:512"),
         "fused_paged_decode_b2": decode,
         "fused_paged_decode_int8_b2": decode,
         "paged_attention_b2": ("src/repro_torch/csrc/paged_attention.cu",
@@ -3520,6 +4041,8 @@ def main():
     # norm rows (one count each)
     hy = served["hybrid"]["launches"]
     fam = parity["families"]
+    g2 = served["serve-gemma2"]["launches"]
+    gi8 = parity["gemma2"]["int8_launches"]
     launches = {**served["launches"], "paged_attention": hy["paged_attention"],
                 "linear_scan": hy["linear_scan"],
                 "linear_scan_prefill": hy["linear_scan"],
@@ -3570,7 +4093,18 @@ def main():
                                      ("g2_d64", GRANITE))},
                 "paged_attention_g6": 0,
                 "paged_prefill_g6":
-                    served["serve-nemotron"]["launches"]["paged_prefill"]}
+                    served["serve-nemotron"]["launches"]["paged_prefill"],
+                # head_dim 256: serve-gemma2 and the f32 gemma2 int8
+                # parity run; serve-gemma2's paged prefills all start at
+                # offset 0 (gemma2 reuses no prefix compute), so none is
+                # at the S=256-from-4096 row's shape
+                **{f"{k}_d256": g2[k] for k in ("flash_attention",
+                                                "paged_prefill",
+                                                "fused_paged_decode")},
+                "paged_prefill_d256_s256": 0,
+                "paged_attention_ring_d256": g2["paged_attention"],
+                **{f"{k}_int8_d256": gi8[k]
+                   for k in ("paged_prefill", "fused_paged_decode")}}
     line = []
     for name, (src, tpu) in meta.items():
         r = results.get((name, torch.bfloat16),
@@ -3583,6 +4117,7 @@ def main():
                      "bound_by": r["bound_by"],
                      "library_ms": r["library_ms"],
                      "splits": r.get("splits", 1),
+                     **({"library": r["library"]} if "library" in r else {}),
                      **({"path": r["path"]} if "path" in r else {}),
                      **({"was_ms": r["was_ms"]} if "was_ms" in r else {})})
     out_dir = os.path.join(HERE, "chiprun_out")

@@ -91,6 +91,29 @@ def dispatch_paged_attention(q, k_pages, v_pages, block_tables, lengths, *,
     return out.reshape(b, s, h * d)
 
 
+def dispatch_ring_decode(q, k_ring, v_ring, positions, *, softcap=0.0):
+    """One-token per-slot decode over a sliding window's dense ring, the
+    fresh row already written at row ``positions % W``.  q (B, 1, H, D)
+    model layout, rings (B, W, Hkv, D) with W = min(max_seq, window), so
+    every valid row lies inside the window -> (B, 1, H*D).
+
+    JAX computes this with its plain ``_attend_block``; here it is the
+    unfused paged decode over a view of the ring: slot b's W rows are one
+    page of W rows (page b of the pool view, an identity block table of
+    one entry), at lengths ``min(pos + 1, W)`` -- before the ring wraps
+    its rows 0..pos are the slot's positions; after, all W rows are.
+    Softmax is order-free, so the ring's rotation does not matter.  A
+    slot at position -1 has length 0: the uniform mean of V over its W
+    rows, as JAX's all-masked row gives."""
+    b, w = k_ring.shape[:2]
+    table = torch.arange(b, dtype=torch.int32,
+                         device=q.device)[:, None]
+    lengths = torch.clamp(torch.as_tensor(positions, device=q.device) + 1,
+                          max=w)
+    return dispatch_paged_attention(q, k_ring, v_ring, table, lengths,
+                                    softcap=softcap)
+
+
 def dispatch_fused_paged_decode(q, k_new, v_new, k_pages, v_pages,
                                 block_tables, positions, *, theta,
                                 softcap=0.0, k_scales=None, v_scales=None):
@@ -198,7 +221,8 @@ def dispatch_layernorm(x, scale, bias=None, *, kind="rmsnorm", eps=1e-6):
 
 
 __all__ = ["kernel_path", "dispatch_flash_attention",
-           "dispatch_paged_attention", "dispatch_fused_paged_decode",
+           "dispatch_paged_attention", "dispatch_ring_decode",
+           "dispatch_fused_paged_decode",
            "dispatch_paged_prefill_attention",
            "dispatch_paged_verify_attention", "dispatch_matmul",
            "dispatch_layernorm", "dispatch_linear_scan"]

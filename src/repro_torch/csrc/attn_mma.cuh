@@ -7,8 +7,11 @@
 // 64 keys:
 //
 //   * Q: the block's 64 x D bf16 tile is copied once with 16-byte
-//     cp.async chunks and kept, for the whole walk, as ldmatrix-loaded
-//     A fragments in registers.
+//     cp.async chunks into shared memory.  At D <= 128 it is kept, for
+//     the whole walk, as ldmatrix-loaded A fragments in registers; at
+//     D = 256 those would take 64 registers a lane beside the 128 of the
+//     O accumulator, so each k-step of Q K^T reads its fragment from the
+//     tile with ldmatrix instead.
 //   * K/V: a two-stage ring in dynamic shared memory.  While a warp
 //     computes on one stage, the next live tile's rows stream into the
 //     other (cp.async.cg, 16 bytes, commit_group/wait_group).  Each key's
@@ -24,9 +27,11 @@
 //     Scale, tanh softcap and (only on tiles that straddle a mask
 //     boundary) the per-element mask are applied in registers; online
 //     softmax in the exp2 domain, row max and sum over the quad that
-//     shares a row.  P is rounded to bf16 in registers (on int8 pools
-//     after multiplying each column by its key's v scale) and is the A
-//     operand of O += P V, which stays in f32 registers.  With kSplitP
+//     shares a row.  P is rounded to bf16 (on int8 pools after
+//     multiplying each column by its key's v scale) as the A operand of
+//     O += P V, which stays in f32 registers: at D <= 128 the whole
+//     tile's P is packed first, at D = 256 P overwrites S and each k-step
+//     is packed just before its products.  With kSplitP
 //     (the flash instantiation: JAX's flash kernel and its ref keep P in
 //     f32) P goes in as two bf16 parts, hi = bf16(P) and lo = bf16(P - hi),
 //     two products into the same f32 accumulator: P keeps 16 significant
@@ -176,6 +181,14 @@ __device__ __forceinline__ void tile_attention_mma(
   constexpr bool kQuant = SM::kQuant;
   constexpr int KD = D / 16;         // k-steps of Q K^T
   constexpr int ND = D / 8;          // n-tiles of P V
+  // D <= 128: Q's A fragments held in registers for the walk, and each
+  // tile's P packed whole before O += P V.  D = 256: both read a k-step at
+  // a time (Q from shared memory, P from S) to save registers.  On the
+  // card the D <= 128 layout is the faster one there: Q from shared memory
+  // took flash 7% longer at D=128 and the int8 prefill 5-12% at D=64, and
+  // P a k-step at a time with Q in registers the fp prefill 14-20% at
+  // D=128 (bench_attention.py, H100 80GB HBM3, 700 W)
+  constexpr bool kQRegs = D <= 128;
   constexpr int CPR = D / 8;         // 16-byte chunks in a bf16 row
   constexpr int RPP = kThreads / CPR;
   constexpr int CPR8 = D / 16;       // 16-byte chunks in an int8 row
@@ -286,11 +299,16 @@ __device__ __forceinline__ void tile_attention_mma(
   cp_wait<1>();                      // the Q group has landed
   __syncthreads();
 
-  uint32_t qa[KD][4];
-#pragma unroll
-  for (int kk = 0; kk < KD; ++kk)
+  // the warp's Q A fragment of k-step kk
+  auto q_frag = [&](int kk, uint32_t (&a)[4]) {
     ldsm_x4(sbase + SM::kQ + swz<D>(warp * 16 + (lane & 15),
-                                    kk * 2 + (lane >> 4)), qa[kk]);
+                                    kk * 2 + (lane >> 4)), a);
+  };
+  uint32_t qa[kQRegs ? KD : 1][4];
+  if constexpr (kQRegs) {
+#pragma unroll
+    for (int kk = 0; kk < KD; ++kk) q_frag(kk, qa[kk]);
+  }
 
   const int r_lo = warp * 16 + g, r_hi = r_lo + 8;
   const int qp_lo = r_lo < pb.n_rows ? pb.qpos(r_lo) : 0;
@@ -335,13 +353,20 @@ __device__ __forceinline__ void tile_attention_mma(
       for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
 #pragma unroll
     for (int kk = 0; kk < KD; ++kk) {
+      uint32_t a[4];
+      if constexpr (kQRegs) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) a[e] = qa[kk][e];
+      } else {
+        q_frag(kk, a);
+      }
 #pragma unroll
       for (int np = 0; np < 4; ++np) {
         uint32_t b[4];
         ldsm_x4(kt + swz<D>(np * 16 + (lane & 7) + ((lane >> 4) << 3),
                             kk * 2 + ((lane >> 3) & 1)), b);
-        mma_bf16(s[2 * np], qa[kk], b[0], b[1]);
-        mma_bf16(s[2 * np + 1], qa[kk], b[2], b[3]);
+        mma_bf16(s[2 * np], a, b[0], b[1]);
+        mma_bf16(s[2 * np + 1], a, b[2], b[3]);
       }
     }
 
@@ -387,9 +412,11 @@ __device__ __forceinline__ void tile_attention_mma(
       o[n][3] *= a_hi;
     }
 
-    // P in bf16 A fragments: k-step kk covers keys 16kk .. 16kk+15
-    // (kSplitP: pl holds the parts the bf16 rounding dropped)
-    uint32_t pa[4][4], pl[kSplitP ? 4 : 1][4];
+    // P (on int8 pools times each key's v scale, after l takes the
+    // unscaled sum): bf16 A fragments, k-step kk covering keys 16kk ..
+    // 16kk+15 (kSplitP: pl holds the parts the bf16 rounding dropped);
+    // at D = 256 P overwrites S and is packed a k-step at a time below
+    uint32_t pa[kQRegs ? 4 : 1][4], pl[kQRegs && kSplitP ? 4 : 1][4];
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
       float p0 = exp2f(s[j][0] - mu_lo), p1 = exp2f(s[j][1] - mu_lo);
@@ -403,27 +430,55 @@ __device__ __forceinline__ void tile_attention_mma(
         p2 *= mvs[col];
         p3 *= mvs[col + 1];
       }
-      pa[j >> 1][(j & 1) * 2] = pack_bf16(p0, p1);
-      pa[j >> 1][(j & 1) * 2 + 1] = pack_bf16(p2, p3);
-      if constexpr (kSplitP) {
-        pl[j >> 1][(j & 1) * 2] = pack_lo_bf16(p0, p1);
-        pl[j >> 1][(j & 1) * 2 + 1] = pack_lo_bf16(p2, p3);
+      if constexpr (kQRegs) {
+        pa[j >> 1][(j & 1) * 2] = pack_bf16(p0, p1);
+        pa[j >> 1][(j & 1) * 2 + 1] = pack_bf16(p2, p3);
+        if constexpr (kSplitP) {
+          pl[j >> 1][(j & 1) * 2] = pack_lo_bf16(p0, p1);
+          pl[j >> 1][(j & 1) * 2 + 1] = pack_lo_bf16(p2, p3);
+        }
+      } else {
+        s[j][0] = p0;
+        s[j][1] = p1;
+        s[j][2] = p2;
+        s[j][3] = p3;
       }
     }
 
     // O += P V
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk) {
+      uint32_t a[4], lo[4];
+      if constexpr (kQRegs) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          a[e] = pa[kk][e];
+          if constexpr (kSplitP) lo[e] = pl[kk][e];
+        }
+      } else {
+        const float(&s0)[4] = s[2 * kk];
+        const float(&s1)[4] = s[2 * kk + 1];
+        a[0] = pack_bf16(s0[0], s0[1]);
+        a[1] = pack_bf16(s0[2], s0[3]);
+        a[2] = pack_bf16(s1[0], s1[1]);
+        a[3] = pack_bf16(s1[2], s1[3]);
+        if constexpr (kSplitP) {
+          lo[0] = pack_lo_bf16(s0[0], s0[1]);
+          lo[1] = pack_lo_bf16(s0[2], s0[3]);
+          lo[2] = pack_lo_bf16(s1[0], s1[1]);
+          lo[3] = pack_lo_bf16(s1[2], s1[3]);
+        }
+      }
 #pragma unroll
       for (int dp = 0; dp < ND / 2; ++dp) {
         uint32_t b[4];
         ldsm_x4_t(vt + swz<D>(kk * 16 + (lane & 7) + (((lane >> 3) & 1) << 3),
                               dp * 2 + (lane >> 4)), b);
-        mma_bf16(o[2 * dp], pa[kk], b[0], b[1]);
-        mma_bf16(o[2 * dp + 1], pa[kk], b[2], b[3]);
+        mma_bf16(o[2 * dp], a, b[0], b[1]);
+        mma_bf16(o[2 * dp + 1], a, b[2], b[3]);
         if constexpr (kSplitP) {
-          mma_bf16(o[2 * dp], pl[kk], b[0], b[1]);
-          mma_bf16(o[2 * dp + 1], pl[kk], b[2], b[3]);
+          mma_bf16(o[2 * dp], lo, b[0], b[1]);
+          mma_bf16(o[2 * dp + 1], lo, b[2], b[3]);
         }
       }
     }

@@ -4,9 +4,11 @@
 // decodes, fused_paged_decode.cu and paged_attention.cu: one block of 256
 // threads (8 warps) attends the G query rows of one (slot, kv head) over
 // the logical key range [t_begin, t_hi) of one key split.  The keys go by
-// in tiles of 64 (four 16-row pages):
+// in tiles of 64 (four 16-row pages), or of 32 where three stages of 64
+// keys do not fit the ring (f32 rows at D = 256: 128 KB a stage):
 //
-//   * warp w owns keys 8w .. 8w+7 of every tile: it resolves their pool
+//   * warp w owns keys 8w .. 8w+7 of every tile (4w .. 4w+3 in a 32-key
+//     tile): it resolves their pool
 //     rows through the slot's block table once, a tile ahead of their
 //     copy (without waiting for the slot's position), and streams their K
 //     and V rows (and on int8 pools their f32 row scales) into a ring of
@@ -48,11 +50,10 @@
 namespace repro_torch {
 namespace split {
 
-constexpr int kKeys = 64;        // keys per tile
+constexpr int kKeys = 64;        // keys per split unit (and most tiles)
 constexpr int kRingBytes = 192 * 1024;   // the cp.async ring, at most
 constexpr int kWarps = 8;
 constexpr int kThreads = kWarps * 32;
-constexpr int kKeysPerWarp = kKeys / kWarps;
 constexpr float kLog2e = 1.4426950408889634f;
 
 // kMma: the scores run on the tensor cores (bf16 activations), whose
@@ -62,11 +63,18 @@ struct Smem {
   static constexpr bool kQuant = std::is_same<TP, int8_t>::value;
   static constexpr int kRow = D * (int)sizeof(TP);        // bytes per row
   static constexpr int kKRow = kRow + (kMma ? 16 : 0);    // K's row stride
+  // keys per tile: 64, or 32 where three 64-key stages of K and V would
+  // pass the ring's bytes (f32 rows at D = 256; the tensor-core walk
+  // takes 8 keys a warp and bf16 rows, which always fit)
+  static constexpr int kKeys =
+      kMma || 3 * 2 * 64 * kRow <= kRingBytes ? 64 : 32;
+  static constexpr int kKeysPerWarp = kKeys / kWarps;
   static constexpr int kTileK = kKeys * kKRow;
   static constexpr int kTile = kKeys * kRow;
   // stage: K tile, V tile, then (int8) k and v scales
   static constexpr int kStage = kTileK + kTile + (kQuant ? 2 * kKeys * 4 : 0);
-  // 3 to 5 stages, as many as 192 KB hold (5 in bf16 at D = 128, 3 in f32)
+  // 3 to 5 stages, as many as 192 KB hold (5 in bf16 at D = 128, 3 in
+  // f32, 3 in bf16 at D = 256)
   static constexpr int kFit = kRingBytes / kStage;
   static constexpr int kStages = kFit < 3 ? 3 : kFit > 5 ? 5 : kFit;
   static constexpr int kRing = kStages * kStage;
@@ -84,6 +92,10 @@ struct Smem {
   static constexpr int kFreshSc = kFresh + 2 * kRow;      // their scales
   static constexpr size_t kBytes = (size_t)kFreshSc + 16;
   static_assert(kRow % 16 == 0, "rows are copied in 16-byte chunks");
+  static_assert(kKeysPerWarp % 4 == 0, "P is read as float4");
+  static_assert(!kMma || kKeysPerWarp == 8, "an mma B fragment is 8 keys");
+  // the launch adds the fused decode's few KB of static shared memory
+  static_assert(kBytes <= 220 * 1024, "the walk fits one SM's 227 KB");
 };
 
 template <int B>
@@ -106,19 +118,26 @@ struct Vec<2> {
 };
 
 // A lane's D/32 consecutive values of a shared row, in f32 (int8 rows
-// times their scale, one rounding, as the plain version dequantizes).
+// times their scale, one rounding, as the plain version dequantizes);
+// read in pieces of at most 16 bytes (f32 rows at D = 256 give a lane
+// 32 bytes).
 template <typename TP, int DL>
 __device__ __forceinline__ void lane_row(const unsigned char* row, int lane,
                                          float sc, float (&x)[DL]) {
   constexpr int B = DL * (int)sizeof(TP);
-  using V = typename Vec<B>::type;
-  union {
-    V raw;
-    TP v[DL];
-  } u;
-  u.raw = *reinterpret_cast<const V*>(row + lane * B);
+  constexpr int PB = B < 16 ? B : 16;             // bytes a piece
+  constexpr int PN = PB / (int)sizeof(TP);        // values a piece
+  using V = typename Vec<PB>::type;
 #pragma unroll
-  for (int e = 0; e < DL; ++e) x[e] = pool_f32<TP>(u.v[e], sc);
+  for (int c = 0; c < B / PB; ++c) {
+    union {
+      V raw;
+      TP v[PN];
+    } u;
+    u.raw = *reinterpret_cast<const V*>(row + lane * B + c * PB);
+#pragma unroll
+    for (int e = 0; e < PN; ++e) x[c * PN + e] = pool_f32<TP>(u.v[e], sc);
+  }
 }
 
 // Sums N per-lane values over the warp's 32 lanes, leaving each lane
@@ -170,6 +189,8 @@ __device__ __forceinline__ void split_decode_walk(
   constexpr bool kMma = std::is_same<T, __nv_bfloat16>::value;
   using S = Smem<TP, D, G, kMma>;
   constexpr bool kQuant = S::kQuant;
+  constexpr int kKeys = S::kKeys;            // keys per tile
+  constexpr int kKeysPerWarp = S::kKeysPerWarp;
   static_assert(G >= 1 && G <= 8, "1 to 8 query rows per kv head");
   constexpr int DL = D / 32;                 // dims per lane
   // G rounded up to a power of two: the reduce-scatter halves its values
@@ -199,14 +220,16 @@ __device__ __forceinline__ void split_decode_walk(
 
   const int ntiles = t_hi > t_begin ? (t_hi - t_begin + kKeys - 1) / kKeys
                                     : 0;
-  // Each warp streams its own 8 rows of every tile (keys 8w .. 8w+7), so
-  // that a warp waits only for its own copies: the loop has no block
-  // barrier.  row_of(i): lane l holds the pool row (page * P + slot row)
-  // of key 8w + (l % 8) of tile i, for every key of the split's range
+  // Each warp streams its own rows of every tile (keys 8w .. 8w+7 of 64,
+  // 4w .. 4w+3 of 32), so that a warp waits only for its own copies: the
+  // loop has no block barrier.  row_of(i): lane l holds the pool row
+  // (page * P + slot row) of the warp's key l % kKeysPerWarp of tile i,
+  // for every key of the split's range
   // inside the table (t_range), so that the table's loads need not wait
   // for the slot's position (-1 past it); it is loaded a tile ahead.
   auto row_of = [&](int i) {
-    const int t = t_begin + i * kKeys + warp * kKeysPerWarp + (lane & 7);
+    const int t =
+        t_begin + i * kKeys + warp * kKeysPerWarp + lane % kKeysPerWarp;
     return t < t_range ? btb[t / P] * P + t % P : -1;
   };
   auto stage_at = [&](int i) { return (i % kStages) * S::kStage; };
@@ -232,14 +255,16 @@ __device__ __forceinline__ void split_decode_walk(
             reinterpret_cast<const unsigned char*>(vp + g) + cc * 16, ok);
       }
       if constexpr (kQuant) {
-        // lanes 0-7 copy their keys' k scales, 8-15 their v scales
-        const int r = lane & 7;
+        // the warp's first lanes copy their keys' k scales, the next as
+        // many their v scales
+        const int r = lane % kKeysPerWarp;
         const int j = warp * kKeysPerWarp + r;
-        if (lane < 16 && t0 + r != t_fresh) {
+        const bool kside = lane < kKeysPerWarp;
+        if (lane < 2 * kKeysPerWarp && t0 + r != t_fresh) {
           const bool ok = t0 + r < t_hi;
           const size_t g = (size_t)(ok ? row : 0) * Hkv + h;
-          mma::cp_async4(vd + S::kTile + (lane < 8 ? 0 : kKeys * 4) + j * 4,
-                         (lane < 8 ? ks : vs) + g, ok);
+          mma::cp_async4(vd + S::kTile + (kside ? 0 : kKeys * 4) + j * 4,
+                         (kside ? ks : vs) + g, ok);
         }
       }
     }

@@ -28,7 +28,11 @@
 // pair is admissible takes no per-element mask.  When the (query tile,
 // head) blocks are too few for the card the host splits the keys and a
 // combine pass merges the splits (none at the main path's shapes: 256
-// blocks at 512 tokens).  The f32 path keeps the CUDA-core engine
+// blocks at 512 tokens).  At head_dim 256 (gemma2) the Q fragments are
+// read from shared memory a k-step at a time (attn_mma.cuh), so that
+// the 16 x 256 f32 O accumulator fits the registers beside S and P;
+// the window then bounds each query tile's key range, and tiles outside
+// it are skipped.  The f32 path keeps the CUDA-core engine
 // (tile_attention, attn_common.cuh): its callers hold it to 2e-5, which
 // neither TF32 nor bf16 tensor cores meet.
 #include "attn_common.cuh"
@@ -233,7 +237,7 @@ cudaError_t launch_mma(const void* q, const void* k, const void* v,
 // split_keys keys each, merged through the f32 workspaces ws_o
 // (nsplit, B*H*Sq, D) and ws_ml (nsplit, B*H*Sq, 2) when nsplit > 1 (f32
 // takes nsplit = 1).  Shape contract (checked by the Python wrapper): D in
-// {64, 128}, H % Hkv == 0, all tensors contiguous, q, k and v 16-byte
+// {64, 128, 256}, H % Hkv == 0, all tensors contiguous, q, k and v 16-byte
 // aligned.
 extern "C" int repro_flash_attention(int dtype, const void* q, const void* k,
                                      const void* v, const int* q_pos,
@@ -261,6 +265,7 @@ extern "C" int repro_flash_attention(int dtype, const void* q, const void* k,
                                     scale, s))
   if (D == 64) REPRO_FLASH(64);
   if (D == 128) REPRO_FLASH(128);
+  if (D == 256) REPRO_FLASH(256);
 #undef REPRO_FLASH
   return (int)cudaErrorInvalidValue;
 }

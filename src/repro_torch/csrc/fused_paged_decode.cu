@@ -298,7 +298,7 @@ cudaError_t launch_pool(int G, const void* q, const void* kn, const void* vn,
 // split_keys keys each (a multiple of 64; nsplit * split_keys covers the
 // NB * P table), merged through the f32 workspaces ws_o (nsplit, B*Hkv*G,
 // D) and ws_ml (nsplit, B*Hkv*G, 2) when nsplit > 1.  Shape contract
-// (checked by the Python wrapper): D in {64, 128}, G from 1 to 8,
+// (checked by the Python wrapper): D in {64, 128, 256}, G from 1 to 8,
 // positions >= 0, block table entries in [0, N), all tensors contiguous,
 // the pools 16-byte aligned.
 extern "C" int repro_fused_paged_decode(int dtype, const void* q,
@@ -327,8 +327,10 @@ extern "C" int repro_fused_paged_decode(int dtype, const void* q,
                                  softcap, scale, s)
   if (dtype == 0 && D == 64) REPRO_DECODE(float, 64);
   if (dtype == 0 && D == 128) REPRO_DECODE(float, 128);
+  if (dtype == 0 && D == 256) REPRO_DECODE(float, 256);
   if (dtype == 1 && D == 64) REPRO_DECODE(__nv_bfloat16, 64);
   if (dtype == 1 && D == 128) REPRO_DECODE(__nv_bfloat16, 128);
+  if (dtype == 1 && D == 256) REPRO_DECODE(__nv_bfloat16, 256);
 #undef REPRO_DECODE
   return (int)cudaErrorInvalidValue;
 }

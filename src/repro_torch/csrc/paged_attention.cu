@@ -8,6 +8,12 @@
 // optional tanh softcap.  It serves the decode steps that cannot fuse
 // their RoPE and page write (rope-free attention, jamba's): the model has
 // already written the fresh row into its page, and lengths = position + 1.
+// It also serves the per-slot decode of sliding-window layers (gemma2's
+// local layers), which JAX computes with jnp over its dense ring
+// (src/repro/models/layers.py, the per-slot branch of
+// multi_head_attention): the ring is viewed as one W-row page a slot,
+// lengths = min(position + 1, W) (backend/dispatch.py,
+// dispatch_ring_decode).
 // On int8 pools (scale pointers non-null) every key and value element is
 // dequantized as (float)q * scale[(page, row, h)], as the paged prefill
 // kernel does -- the JAX package sends every int8 pool of this step to
@@ -180,7 +186,7 @@ cudaError_t launch_pool(int G, const void* q, const void* kp, const void* vp,
 // split_keys keys each (a multiple of 64; nsplit * split_keys covers the
 // NB * P table), merged through the f32 workspaces ws_o (nsplit, B*Hkv*G,
 // D) and ws_ml (nsplit, B*Hkv*G, 2) when nsplit > 1.  Shape contract
-// (checked by the Python wrapper): D in {64, 128}, G from 1 to 8,
+// (checked by the Python wrapper): D in {64, 128, 256}, G from 1 to 8,
 // block table entries in [0, N), all tensors contiguous, the pools
 // 16-byte aligned.
 extern "C" int repro_paged_attention(int dtype, const void* q,
@@ -206,8 +212,10 @@ extern "C" int repro_paged_attention(int dtype, const void* q,
                                  NB, softcap, scale, s)
   if (dtype == 0 && D == 64) REPRO_PAGED(float, 64);
   if (dtype == 0 && D == 128) REPRO_PAGED(float, 128);
+  if (dtype == 0 && D == 256) REPRO_PAGED(float, 256);
   if (dtype == 1 && D == 64) REPRO_PAGED(__nv_bfloat16, 64);
   if (dtype == 1 && D == 128) REPRO_PAGED(__nv_bfloat16, 128);
+  if (dtype == 1 && D == 256) REPRO_PAGED(__nv_bfloat16, 256);
 #undef REPRO_PAGED
   return (int)cudaErrorInvalidValue;
 }

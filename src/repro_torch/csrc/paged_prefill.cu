@@ -258,7 +258,7 @@ cudaError_t launch_dtype(int dtype, const void* q, const void* kp,
 // split_keys keys each, merged through the f32 workspaces ws_o
 // (nsplit, B*Hkv*G*S, D) and ws_ml (nsplit, B*Hkv*G*S, 2) when nsplit > 1
 // (f32 takes nsplit = 1).  Shape contract (checked by the Python
-// wrapper): D in {64, 128}, offsets >= 0, block table entries in [0, N),
+// wrapper): D in {64, 128, 256}, offsets >= 0, block table entries in [0, N),
 // all tensors contiguous, q and the pools 16-byte aligned.
 extern "C" int repro_paged_prefill(int dtype, const void* q, const void* kp,
                                    const void* vp, const float* ks,
@@ -281,6 +281,7 @@ extern "C" int repro_paged_prefill(int dtype, const void* q, const void* kp,
                                B, Hkv, G, S, P, NB, softcap, scale, s)
   if (D == 64) REPRO_PREFILL(64);
   if (D == 128) REPRO_PREFILL(128);
+  if (D == 256) REPRO_PREFILL(256);
 #undef REPRO_PREFILL
   return (int)cudaErrorInvalidValue;
 }

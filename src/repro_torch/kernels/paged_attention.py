@@ -43,7 +43,7 @@ Shape contract on CUDA (checked before every launch): every operand
 contiguous and on one device; q and the fresh rows share one activation
 dtype in {float32, bfloat16}; the pools hold either that dtype or int8,
 and int8 pools come with f32 scales of shape (N, P, Hkv) (fp pools with
-none); D in {64, 128}; block tables (B, NB) and positions / offsets (B,)
+none); D in {64, 128, 256}; block tables (B, NB) and positions / offsets (B,)
 int32 (lengths (B,) int32 for ``paged_attention_grouped``); for both
 decode kernels G = H / Hkv from 1 to 8, which covers every config of the
 registry (inside the kernel the f32 walk pads 3 query rows to 4 and 5-7
@@ -63,7 +63,7 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels import ref as R
 
-HEAD_DIMS = (64, 128)
+HEAD_DIMS = (64, 128, 256)
 DECODE_GROUPS = tuple(range(1, 9))
 
 

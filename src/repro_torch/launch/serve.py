@@ -11,6 +11,8 @@ default.
         --arch jamba-1.5-large-398b-dense-ffn --layers 16 --paged
     PYTHONPATH=src python -m repro_torch.launch.serve \\
         --arch qwen2-moe-a2.7b --paged
+    PYTHONPATH=src python -m repro_torch.launch.serve \\
+        --arch gemma2-9b --paged --max-seq 8192
     PYTHONPATH=src python -m repro_torch.launch.serve --paged \\
         --strategy hybrid:2 --replicas 2 --chunk 128 --max-seq 1024
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \\
@@ -23,8 +25,11 @@ default.
 The model is the registry config at its published width (yi-6b: d_model
 4096, 32 heads, 4 KV heads, head_dim 128; yi-34b; nemotron-4-15b with
 LayerNorm and a squared-ReLU MLP; the MoE decoders qwen2-moe-a2.7b and
-granite-moe-1b-a400m; the jamba hybrid with dense FFNs: d_model 8192, 64
-heads, 8 KV heads, mamba d_inner 16384, or with its MoE layers), with
+granite-moe-1b-a400m; gemma2-9b with its alternating local (window 4096)
+and global layers, attention and final logit softcaps, post-block norms
+and GeGLU at head_dim 256; the jamba hybrid with dense FFNs: d_model
+8192, 64 heads, 8 KV heads, mamba d_inner 16384, or with its MoE
+layers), with
 random weights from a seeded ``torch.Generator``; ``--layers N`` cuts
 the depth to N layers (a multiple of the block pattern's period: 8 for
 jamba).
@@ -147,6 +152,20 @@ def ffn_kind(cfg) -> str:
         if kind not in kinds:
             kinds.append(kind)
     return "+".join(kinds)
+
+
+def attn_kind(cfg) -> str:
+    """What the attention adds to plain global GQA, as ``, key=value``
+    parts: the local mixers' sliding window and the attention and final
+    logit softcaps (empty for the llama-style decoders)."""
+    parts = []
+    if any(b.mixer == "attn_local" for b in cfg.block_pattern):
+        parts.append(f"window={cfg.window_size}")
+    if cfg.attn_logit_softcap:
+        parts.append(f"attn_softcap={cfg.attn_logit_softcap:g}")
+    if cfg.final_logit_softcap:
+        parts.append(f"final_softcap={cfg.final_logit_softcap:g}")
+    return "".join(", " + p for p in parts)
 
 
 def main(argv=None):
@@ -311,7 +330,8 @@ def main(argv=None):
     print(f"[serve] {len(done)} requests, {st['gen_tokens']} tokens, "
           f"{st['gen_tokens'] / wall:.1f} tok/s, "
           f"occupancy={st['slot_occupancy']:.2f}, "
-          f"kernels={st['kernel_path']}, ffn={ffn_kind(cfg)}{extra}")
+          f"kernels={st['kernel_path']}, ffn={ffn_kind(cfg)}"
+          f"{attn_kind(cfg)}{extra}")
     if args.adapt:
         print(f"[serve] adapt decisions (tick, from, to): "
               f"{eng._ctl.decisions}")

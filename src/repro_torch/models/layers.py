@@ -2,11 +2,12 @@
 
 Counterparts of the JAX package's ``models/layers.py`` for the serving
 path of the GQA decoders (llama-style yi, nemotron's LayerNorm and
-squared-ReLU MLP), of the MoE decoders (qwen2-moe, granite-moe) and of
-the attention layers of the jamba hybrid (rope-free): RMSNorm and
-LayerNorm, RoPE, GQA attention over a dense or a paged KV cache, the
-gated or plain MLP, the top-k routed MoE FFN, embedding and the LM head
-(its own weight or the embedding's transpose).
+squared-ReLU MLP, gemma2's sliding windows, softcaps and GeGLU), of the
+MoE decoders (qwen2-moe, granite-moe) and of the attention layers of the
+jamba hybrid (rope-free): RMSNorm and LayerNorm, RoPE, GQA attention over
+a dense cache or ring or a paged KV cache, the gated or plain MLP, the
+top-k routed MoE FFN, embedding and the LM head (its own weight or the
+embedding's transpose, with an optional final softcap).
 
 Conventions, as on the JAX side:
   * params are nested dicts of tensors, weights laid out (in, out) so the
@@ -222,10 +223,19 @@ def _scale_kw(cache):
     return {}
 
 
-def multi_head_attention(p, x, cfg: ModelConfig, *, kv_cache=None,
-                         cache_index=None, block_tables=None,
+def multi_head_attention(p, x, cfg: ModelConfig, *, window: int = 0,
+                         kv_cache=None, cache_index=None, block_tables=None,
                          write_tables=None, attend_cache: bool = False):
     """GQA attention with RoPE over an optional KV cache.
+
+    window > 0: sliding-window attention (a query attends keys less than
+    ``window`` positions back), applied in every dense mode as JAX does;
+    its dense cache is a ring of ``min(max_seq, window)`` rows.  On a CUDA
+    tensor the per-slot one-token decode over such a ring runs the
+    unfused paged decode kernel on a view of the ring
+    (``dispatch_ring_decode``: every valid ring row lies inside the
+    window); elsewhere the plain ``_attend_block``.  A paged cache with a
+    window raises, as JAX's does.
 
     Modes (as on the JAX side):
       * no cache: full causal attention over x;
@@ -279,8 +289,12 @@ def multi_head_attention(p, x, cfg: ModelConfig, *, kv_cache=None,
     if kv_cache is None:
         out = _attend(q, k, v, cfg, q_pos=q_pos,
                       k_pos=torch.arange(s, device=dev), k_valid=None,
-                      causal=True, window=0, dt=dt)
+                      causal=True, window=window, dt=dt)
     elif paged:
+        if window:
+            raise NotImplementedError(
+                "sliding-window attention keeps its dense ring cache "
+                "(ring wrap order is position-, not block-, aligned)")
         if block_tables is None:
             raise NotImplementedError(
                 "paged KV caches are addressed through block_tables")
@@ -361,12 +375,13 @@ def multi_head_attention(p, x, cfg: ModelConfig, *, kv_cache=None,
                     k_valid=torch.cat([k_valid_old,
                                        torch.ones((s,), dtype=torch.bool,
                                                   device=dev)]),
-                    causal=True, window=0, dt=dt)
+                    causal=True, window=window, dt=dt)
             else:
                 # prefill: attend the fresh k/v
                 out = _attend(q, k, v, cfg, q_pos=q_pos,
                               k_pos=torch.arange(s, device=dev),
-                              k_valid=None, causal=True, window=0, dt=dt)
+                              k_valid=None, causal=True, window=window,
+                              dt=dt)
             # write the tail into the ring
             tail = min(s, W)
             slots = (offset + torch.arange(s - tail, s, device=dev)) % W
@@ -379,9 +394,18 @@ def multi_head_attention(p, x, cfg: ModelConfig, *, kv_cache=None,
             bidx = torch.arange(b, device=dev)[:, None]
             kc[bidx, rows] = k.to(kc.dtype)
             vc[bidx, rows] = v.to(vc.dtype)
-            k_pos, k_valid = ring_k_positions((offset + s - 1)[:, None], W)
-            out = _attend(q, kc, vc, cfg, q_pos=q_pos, k_pos=k_pos,
-                          k_valid=k_valid, causal=True, window=0, dt=dt)
+            if window and s == 1 and dev.type == "cuda":
+                # a window's ring: every valid row lies inside the window
+                # (W = min(max_seq, window)), so this is the unfused paged
+                # decode over the ring at lengths min(pos + 1, W)
+                out = kops.dispatch_ring_decode(
+                    q, kc, vc, offset, softcap=cfg.attn_logit_softcap).to(dt)
+            else:
+                k_pos, k_valid = ring_k_positions((offset + s - 1)[:, None],
+                                                  W)
+                out = _attend(q, kc, vc, cfg, q_pos=q_pos, k_pos=k_pos,
+                              k_valid=k_valid, causal=True, window=window,
+                              dt=dt)
         else:
             # lock-step decode: ring write then attend over the cache
             slots = (offset + torch.arange(s, device=dev)) % W
@@ -390,7 +414,7 @@ def multi_head_attention(p, x, cfg: ModelConfig, *, kv_cache=None,
             k_pos, k_valid = ring_k_positions(
                 torch.full((), offset + s - 1, device=dev), W)
             out = _attend(q, kc, vc, cfg, q_pos=q_pos, k_pos=k_pos,
-                          k_valid=k_valid, causal=True, window=0, dt=dt)
+                          k_valid=k_valid, causal=True, window=window, dt=dt)
 
     out = torch.matmul(out, p["wo"])
     return out, kv_cache
@@ -523,7 +547,13 @@ def embed(p, ids, cfg: ModelConfig):
 
 def logits_head(p_embed, p_head, x, cfg: ModelConfig):
     """f32 logits, as the JAX head's f32-accumulated einsum gives them;
-    a tied head reads the embedding table's transpose."""
+    a tied head reads the embedding table's transpose.  A final softcap
+    ``c * tanh(logits / c)`` applies in f32."""
     if cfg.tie_embeddings or p_head is None:
-        return matmul_f32(x, p_embed["table"].t())
-    return matmul_f32(x, p_head["w"])
+        out = matmul_f32(x, p_embed["table"].t())
+    else:
+        out = matmul_f32(x, p_head["w"])
+    if cfg.final_logit_softcap > 0:
+        c = cfg.final_logit_softcap
+        out = c * torch.tanh(out / c)
+    return out

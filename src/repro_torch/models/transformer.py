@@ -8,12 +8,15 @@ dense ``(num_groups, B, W, Hkv, D)``, paged ``(num_groups, num_blocks + 1,
 page, Hkv, D)`` -- and each layer reads and writes its group's slice in
 place.
 
-The port serves stacks of ``attn`` and ``mamba`` mixers with dense or
-MoE FFNs (the llama-style and nemotron decoders, qwen2-moe and
-granite-moe, jamba); other block kinds raise.  A mamba block's cache is
-its recurrent state, ``{"ssm_state": {"conv", "ssm"}}`` f32 leaves of
-shape (num_groups, B, ...), dense per slot in both layouts (a paged
-cache pages only the attention K/V).
+The port serves stacks of ``attn``, ``attn_global``, ``attn_local`` and
+``mamba`` mixers with dense or MoE FFNs (the llama-style and nemotron
+decoders, qwen2-moe and granite-moe, jamba, gemma2 with its post-block
+norms); other block kinds raise.  A mamba block's cache is its recurrent
+state, ``{"ssm_state": {"conv", "ssm"}}`` f32 leaves of shape
+(num_groups, B, ...); a local-window block's is a ring of
+``min(max_seq, window_size)`` rows in the activation dtype.  Both stay
+dense per slot in either layout (a paged cache pages only the global
+attention K/V).
 """
 from __future__ import annotations
 
@@ -25,7 +28,7 @@ from repro_torch.configs.base import BlockSpec, ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.models import ssm as SSM
 
-SERVED_MIXERS = ("attn", "mamba")
+SERVED_MIXERS = ("attn", "attn_global", "attn_local", "mamba")
 SERVED_FFNS = ("dense", "moe")
 
 
@@ -37,13 +40,12 @@ def check_supported(cfg: ModelConfig):
             f"{cfg.name}: the port serves {SERVED_MIXERS} mixers with "
             f"{SERVED_FFNS} FFNs only, got {cfg.block_pattern}")
     if cfg.family not in ("dense", "moe", "hybrid") or cfg.mrope_sections \
-            or cfg.qk_norm or cfg.post_block_norm or cfg.frontend \
-            or cfg.final_logit_softcap \
+            or cfg.qk_norm or cfg.frontend \
             or cfg.norm_kind not in ("rmsnorm", "layernorm") \
-            or cfg.mlp_activation not in ("silu", "relu2"):
+            or cfg.mlp_activation not in ("silu", "relu2", "gelu"):
         raise NotImplementedError(
             f"{cfg.name}: the port serves GQA decoders (and attention + "
-            f"mamba hybrids) with RMSNorm or LayerNorm and a SiLU or "
+            f"mamba hybrids) with RMSNorm or LayerNorm and a SiLU, GELU or "
             f"squared-ReLU MLP, gated or not")
 
 
@@ -54,11 +56,15 @@ def check_supported(cfg: ModelConfig):
 def init_block(generator, cfg: ModelConfig, blk: BlockSpec, device):
     mixer = (SSM.init_mamba(generator, cfg, device) if blk.mixer == "mamba"
              else L.init_attention(generator, cfg, device))
-    return {"norm1": L.init_norm(cfg, device),
-            "mixer": mixer,
-            "norm2": L.init_norm(cfg, device),
-            "ffn": (L.init_moe(generator, cfg, device) if blk.ffn == "moe"
-                    else L.init_mlp(generator, cfg, device))}
+    p = {"norm1": L.init_norm(cfg, device),
+         "mixer": mixer,
+         "norm2": L.init_norm(cfg, device),
+         "ffn": (L.init_moe(generator, cfg, device) if blk.ffn == "moe"
+                 else L.init_mlp(generator, cfg, device))}
+    if cfg.post_block_norm:
+        p["post_norm1"] = L.init_norm(cfg, device)
+        p["post_norm2"] = L.init_norm(cfg, device)
+    return p
 
 
 def apply_block(p, x, cfg: ModelConfig, blk: BlockSpec, *, state=None,
@@ -76,9 +82,13 @@ def apply_block(p, x, cfg: ModelConfig, blk: BlockSpec, *, state=None,
             st["ssm"].copy_(new["ssm"])
     else:
         h, _ = L.multi_head_attention(
-            p["mixer"], h, cfg, kv_cache=state.get("kv") if state else None,
+            p["mixer"], h, cfg,
+            window=cfg.window_size if blk.mixer == "attn_local" else 0,
+            kv_cache=state.get("kv") if state else None,
             cache_index=cache_index, block_tables=block_tables,
             write_tables=write_tables, attend_cache=attend_cache)
+    if cfg.post_block_norm:
+        h = L.apply_norm(p["post_norm1"], h, cfg)
     x = x + h
     h = L.apply_norm(p["norm2"], x, cfg)
     aux = 0.0
@@ -86,6 +96,8 @@ def apply_block(p, x, cfg: ModelConfig, blk: BlockSpec, *, state=None,
         h, aux = L.apply_moe(p["ffn"], h, cfg)
     else:
         h = L.apply_mlp(p["ffn"], h, cfg)
+    if cfg.post_block_norm:
+        h = L.apply_norm(p["post_norm2"], h, cfg)
     return x + h, state, aux
 
 
@@ -136,7 +148,10 @@ def block_state_shapes(cfg: ModelConfig, blk: BlockSpec, batch: int,
     """One pattern slot's cache leaf shapes, without the group axis."""
     if blk.mixer == "mamba":
         return {"ssm_state": SSM.mamba_state_shape(cfg, batch)}
-    shp = (batch, max_seq, cfg.num_kv_heads, cfg.head_dim)
+    # a local-window block keeps a ring of its window's last rows
+    rows = (min(max_seq, cfg.window_size) if blk.mixer == "attn_local"
+            else max_seq)
+    shp = (batch, rows, cfg.num_kv_heads, cfg.head_dim)
     return {"kv": {"k": shp, "v": shp}}
 
 
@@ -155,7 +170,8 @@ def _dense_block_leaves(cfg: ModelConfig, blk: BlockSpec, batch: int,
 def make_cache(cfg: ModelConfig, batch: int, max_seq: int, *, dtype=None,
                device="cuda"):
     """Dense decode cache: per pattern slot ``{"kv": {"k", "v"}}`` leaves of
-    shape (num_groups, batch, max_seq, Hkv, D), or a mamba slot's
+    shape (num_groups, batch, max_seq, Hkv, D) (a local-window slot's ring
+    holds min(max_seq, window_size) rows), or a mamba slot's
     ``{"ssm_state": {"conv", "ssm"}}``, zero-filled."""
     dt = getattr(torch, dtype or cfg.dtype)
     return {f"b{j}": _dense_block_leaves(cfg, blk, batch, max_seq, dt,
@@ -175,7 +191,8 @@ def make_paged_cache(cfg: ModelConfig, batch: int, max_seq: int, *,
     mamba slots keep their dense per-slot state leaves (as ``make_cache``).
     The extra page is the write sink the manager's sentinel
     (``num_blocks``) indexes: writes that cannot be dropped land there,
-    and no table maps it for reading.
+    and no table maps it for reading.  Local-window rings stay dense and
+    keep the activation dtype on int8 pools too, as JAX's do.
 
     kv_dtype: "fp" stores K/V at ``dtype``; "int8" stores int8 rows plus
     per-(row, kv head) f32 dequant scales, ``k_scales``/``v_scales`` of
@@ -186,14 +203,14 @@ def make_paged_cache(cfg: ModelConfig, batch: int, max_seq: int, *,
                          f"page_size={page_size}")
     if kv_dtype not in ("fp", "int8"):
         raise ValueError(f"kv_dtype={kv_dtype!r} must be 'fp' or 'int8'")
-    dt = torch.int8 if kv_dtype == "int8" else getattr(torch,
-                                                       dtype or cfg.dtype)
+    dt = getattr(torch, dtype or cfg.dtype)
+    pool_dt = torch.int8 if kv_dtype == "int8" else dt
     shp = (cfg.num_groups, num_blocks + 1, page_size, cfg.num_kv_heads,
            cfg.head_dim)
 
     def leaves():
-        kv = {"k_pages": torch.zeros(shp, dtype=dt, device=device),
-              "v_pages": torch.zeros(shp, dtype=dt, device=device)}
+        kv = {"k_pages": torch.zeros(shp, dtype=pool_dt, device=device),
+              "v_pages": torch.zeros(shp, dtype=pool_dt, device=device)}
         if kv_dtype == "int8":
             for n in ("k_scales", "v_scales"):
                 kv[n] = torch.zeros(shp[:-1], dtype=torch.float32,

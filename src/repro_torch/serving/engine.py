@@ -276,6 +276,17 @@ class ServingEngine:
             # MoE routing lets them compete for expert capacity.  Prefill
             # those families at the exact prompt length.
             self.prefill_bucket = 1
+        # the smallest sliding-window ring among the mixers: a padded
+        # prompt never spills past it (the ring's tail write would keep
+        # pad K/V and evict real tokens the gold decode still attends)
+        self._ring_min = min(
+            (min(self.max_seq, self.cfg.window_size)
+             for b in self.cfg.block_pattern if b.mixer == "attn_local"),
+            default=0)
+        if self.paged and not T.has_paged_layers(self.cfg):
+            # nothing to page: every mixer keeps dense state (SSM) or a
+            # dense ring (local windows), so the engine runs dense
+            self.paged = False
         # compute reuse skips a warm prefix's prefill; a hybrid keeps only
         # memory sharing (its recurrent state has no per-position cache to
         # resume from)
@@ -895,7 +906,13 @@ class ServingEngine:
 
     def _padded_len(self, n: int) -> int:
         b = max(self.prefill_bucket, 1)
-        return min(-(-n // b) * b, self.max_seq - 1)
+        pp = min(-(-n // b) * b, self.max_seq - 1)
+        if self._ring_min:
+            # never pad past a sliding window; a prompt longer than the
+            # window prefills at its exact length (its own tail wraps the
+            # ring, as the gold one-shot prefill's does)
+            pp = n if n > self._ring_min else min(pp, self._ring_min)
+        return pp
 
     def _free_slots(self):
         return [s for s in range(self.slots)

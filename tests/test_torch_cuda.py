@@ -50,7 +50,7 @@ def _close(a, b, dtype):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [64, 128, 256])
 def test_flash_kernel_matches_plain(cuda_device, dtype, d):
     g = torch.Generator(device=cuda_device).manual_seed(d)
     b, h, hk, sq, skv = 2, 8, 2, 100, 130
@@ -140,7 +140,7 @@ def test_int8_paged_kernels_match_plain(cuda_device, dtype):
 
 @pytest.mark.parametrize("pool", ["fp", "int8"])
 @pytest.mark.parametrize("page", [16, 24])
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [64, 128, 256])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_paged_windows_that_split_match_plain(cuda_device, dtype, d, page,
                                               pool):
@@ -186,7 +186,7 @@ def test_paged_windows_that_split_match_plain(cuda_device, dtype, d, page,
     _close(out, ref, dtype)
 
 
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [64, 128, 256])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_kernel_splits_and_fully_masked_rows(cuda_device, dtype, d):
     """Few query tiles over 1000 keys (the bf16 launch splits them), keys
@@ -218,7 +218,7 @@ def _bf16_ulp(x):
     return torch.exp2(torch.floor(torch.log2(a)) - 7)
 
 
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [64, 128, 256])
 def test_flash_bf16_keeps_p_in_f32(cuda_device, d):
     """Phase 3's flash shape in bf16: the kernel within one bf16 ulp of
     the plain version (which keeps P in f32, as JAX's kernel and ref do)
@@ -266,7 +266,7 @@ DECODE_SPLIT_CASES = {
 
 
 @pytest.mark.parametrize("pool", ["fp", "int8"])
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [64, 128, 256])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("case", sorted(DECODE_SPLIT_CASES))
 def test_fused_decode_splits_match_plain(cuda_device, case, dtype, d, pool):
@@ -316,7 +316,7 @@ def test_fused_decode_splits_match_plain(cuda_device, case, dtype, d, pool):
 
 
 @pytest.mark.parametrize("pool", ["fp", "int8"])
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [64, 128, 256])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("grp", range(1, 9))
 def test_fused_decode_every_group_matches_plain(cuda_device, grp, dtype, d,
@@ -407,7 +407,7 @@ PAGED_SHAPES = [(1, 2, 64), (5, 2, 40), (4, 8, 64), (3, 2, 6), (17, 8, 8)]
 
 
 @pytest.mark.parametrize("grp", range(1, 9))
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [64, 128, 256])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_paged_attention_kernel_matches_plain(cuda_device, dtype, d, grp):
     """The unfused paged decode on the split walk over fp and int8 pools,
@@ -729,3 +729,35 @@ def test_matmul_and_norm_raise_outside_their_contracts_on_cuda(cuda_device):
                         torch.ones((40_000,), device=cuda_device))
     with pytest.raises(ValueError):
         TL.norm_onepass(x.t(), torch.ones((8,), device=cuda_device))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ring_decode_runs_the_unfused_decode_kernel(cuda_device, dtype):
+    """gemma2's local-layer per-slot decode on the card: the unfused paged
+    decode over a view of the ring (``dispatch_ring_decode``, one launch)
+    at D=256, G=2, softcap 50, against the plain ``_attend_block`` over
+    ``ring_k_positions``: a slot before the ring fills, one at its last
+    row, one wrapped, and an empty one (position -1: the mean of V)."""
+    from repro_torch.backend import dispatch as kops
+    from repro_torch.configs import REGISTRY
+    from repro_torch.models import layers as TL
+    cfg = REGISTRY["gemma2-9b"]
+    b, w, hk, h, d = 4, 320, cfg.num_kv_heads, cfg.num_heads, cfg.head_dim
+    g = torch.Generator(device=cuda_device).manual_seed(7)
+
+    def rnd(*shape):
+        return (torch.randn(shape, generator=g, device=cuda_device)
+                * 4).to(dtype)
+
+    q, kc, vc = rnd(b, 1, h, d), rnd(b, w, hk, d), rnd(b, w, hk, d)
+    pos = torch.tensor([5, w - 1, 3 * w + 17, -1], device=cuda_device)
+    n0 = TP.paged_attention_grouped.launches
+    got = kops.dispatch_ring_decode(q, kc, vc, pos,
+                                    softcap=cfg.attn_logit_softcap)
+    assert TP.paged_attention_grouped.launches == n0 + 1
+    k_pos, k_valid = TL.ring_k_positions(pos[:, None], w)
+    ref = TL._attend_block(q.reshape(b, 1, hk, h // hk, d), kc, vc, cfg,
+                           pos[:, None], k_pos, k_valid, True,
+                           cfg.window_size, dtype)
+    torch.cuda.synchronize()
+    _close(got, ref, dtype)

@@ -559,8 +559,8 @@ def _attn_view(cache):
     return {"b0": cache["b3"]}
 
 
-NOT_SERVED = ("gemma2-9b", "xlstm-125m", "whisper-base", "qwen2-vl-72b",
-              "deit-t", "lv-vit-t")
+NOT_SERVED = ("xlstm-125m", "whisper-base", "qwen2-vl-72b", "deit-t",
+              "lv-vit-t")
 
 
 def _port_config(jcfg):
@@ -578,13 +578,14 @@ def _port_config(jcfg):
 
 
 @pytest.mark.parametrize("arch", ["jamba-1.5-large-398b", "yi-6b",
-                                  *NOT_SERVED])
+                                  "gemma2-9b", *NOT_SERVED])
 def test_check_supported_lets_only_served_blocks_through(arch):
     """Every config of the port's registry builds, the published jamba
-    with its MoE layers too; yi-6b with MoE FFNs, LayerNorm, a plain
-    squared-ReLU MLP or a tied head builds; local-window and xLSTM
-    mixers, M-RoPE, a gelu MLP and the JAX package's archs not ported
-    yet (gemma2, xlstm, whisper, qwen2-vl, deit, lv-vit) raise."""
+    with its MoE layers and gemma2 too; yi-6b with MoE FFNs, LayerNorm, a
+    plain squared-ReLU MLP, a gated GELU MLP, a tied head, post-block
+    norms, a final softcap or local-window mixers builds; xLSTM mixers,
+    M-RoPE and the JAX package's archs not ported yet (xlstm, whisper,
+    qwen2-vl, deit, lv-vit) raise."""
     from repro_torch.configs.base import BlockSpec, MoEConfig
     from repro_torch.models import transformer as T
     for name in T_REGISTRY:
@@ -600,15 +601,18 @@ def test_check_supported_lets_only_served_blocks_through(arch):
                         moe=MoEConfig(num_experts=4, expert_d_ff=64)),
                    dict(norm_kind="layernorm"),
                    dict(mlp_activation="relu2", gated_mlp=False),
-                   dict(tie_embeddings=True)):
+                   dict(mlp_activation="gelu"),
+                   dict(tie_embeddings=True),
+                   dict(post_block_norm=True, final_logit_softcap=30.0),
+                   dict(block_pattern=(BlockSpec("attn_local", "dense"),
+                                       BlockSpec("attn_global", "dense")),
+                        num_layers=2)):
             T.check_supported(dataclasses.replace(cfg, **kw))
         for blk in (BlockSpec("mlstm", "dense"), BlockSpec("slstm", "dense"),
-                    BlockSpec("attn_local", "dense"),
                     BlockSpec("attn", "none")):
             with pytest.raises(NotImplementedError):
                 T.check_supported(dataclasses.replace(cfg,
                                                       block_pattern=(blk,)))
-        for kw in (dict(mrope_sections=(16, 24, 24)),
-                   dict(mlp_activation="gelu")):
+        for kw in (dict(mrope_sections=(16, 24, 24)),):
             with pytest.raises(NotImplementedError):
                 T.check_supported(dataclasses.replace(cfg, **kw))
