@@ -3,7 +3,7 @@
 3's shapes, on one NVIDIA GPU.
 
     python3 bench_attention.py [--src DIR] [--label NAME] [--out FILE]
-                               [--head-dim 64|128]
+                               [--head-dim 64|128] [--encoders]
 
 ``--src`` names the ``src`` directory whose ``repro_torch`` is timed (by
 default this checkout's), so that two trees can be compared on one card
@@ -34,6 +34,13 @@ the norms.  Then the flash kernel's numerics at the same
 shape, D = 64 and 128: its largest distance from the plain version in
 bf16 ulps, and its mean absolute error and the plain version's against
 an f64 evaluation of the same function (``chip_smoke.flash_p_error``).
+``--encoders`` times flash at the encoders' shapes instead
+(``chip_smoke.ENCODER_FLASH``: the ViTs' Sq=Skv=197 at D=64, 40 and
+60, whisper's encoder at Sq=Skv=1500, its cross decode and dense
+self-decode), bf16 and f32, beside non-causal SDPA: the event and
+device times above, and a third, ``burst``: one event pair around 50
+launches back to back (warm, no flush), over 50, which the device sets
+whenever a launch outlasts the host's dispatch of the next.
 Without a CUDA device it exits non-zero.
 """
 from __future__ import annotations
@@ -54,6 +61,8 @@ def main(argv=None):
     ap.add_argument("--label", default="")
     ap.add_argument("--out", default="")
     ap.add_argument("--head-dim", type=int, default=128, choices=(64, 128))
+    ap.add_argument("--encoders", action="store_true",
+                    help="time flash at the encoders' shapes instead")
     args = ap.parse_args(argv)
     sys.path.insert(0, HERE)
     import chip_smoke as C          # its timing helpers; it puts src first
@@ -101,6 +110,15 @@ def main(argv=None):
                 TR.dequantize_int8(vq, vs).to(dt)), {}
 
     rows = []
+    if args.encoders:
+        rows = encoder_rows(args.label, C, TF, TR, flush)
+        if args.out:
+            os.makedirs(os.path.dirname(os.path.abspath(args.out)),
+                        exist_ok=True)
+            with open(args.out, "w") as f:
+                json.dump({"card": card, "label": args.label,
+                           "src": args.src, "rows": rows}, f, indent=1)
+        return 0 if all(r["ok"] for r in rows) else 1
 
     def row(name, kernel, plain, library, tol=C.TOL[dt]):
         out, ref = kernel(), plain()
@@ -266,6 +284,47 @@ def main(argv=None):
             json.dump({"card": card, "label": args.label, "src": args.src,
                        "head_dim": d, "rows": rows}, f, indent=1)
     return 0 if all(r["ok"] for r in rows) else 1
+
+
+def encoder_rows(label, C, TF, TR, flush):
+    """Flash at ``chip_smoke.ENCODER_FLASH``'s shapes, bf16 and f32,
+    queries at ``chip_smoke.QSTD``, beside non-causal SDPA (the
+    self-decode's with its mask): event, device and burst times."""
+    import torch
+    F = torch.nn.functional
+    dev = "cuda"
+    gen = torch.Generator(device=dev).manual_seed(29)
+    rows = []
+    for dtype in (torch.bfloat16, torch.float32):
+        for row in C.ENCODER_FLASH:
+            name, causal = row[0], row[6]
+            args, mask = C.encoder_flash_inputs(row, dtype, gen, dev)
+            q, k, v = args[:3]
+            kernel = functools.partial(TF.flash_attention_bhsd, *args,
+                                       causal=causal)
+            lib = functools.partial(F.scaled_dot_product_attention, q, k, v,
+                                    attn_mask=mask)
+            out = kernel()
+            ref = TR.flash_attention_ref(*args, causal=causal)
+            torch.cuda.synchronize()
+            tol = C.TOL[dtype]
+            ok = torch.allclose(out.float(), ref.float(), atol=tol, rtol=tol)
+            r = dict(name=name, dtype=str(dtype)[6:], ok=bool(ok),
+                     max_abs_err=C.max_err(out, ref),
+                     ms=C.bench(kernel, flush),
+                     device_ms=C.device_ms(kernel, flush),
+                     burst_ms=C.burst_ms(kernel, n=50)[0],
+                     library_ms=C.bench(lib, flush),
+                     library_device_ms=C.device_ms(lib, flush),
+                     library_burst_ms=C.burst_ms(lib, n=50)[0])
+            print(f"[bench] {label} {name} {r['dtype']}: event "
+                  f"{r['ms']:.4f} ms, device {r['device_ms']:.4f} ms, burst "
+                  f"{r['burst_ms']:.4f} ms; sdpa event {r['library_ms']:.4f} "
+                  f"ms, device {r['library_device_ms']:.4f} ms, burst "
+                  f"{r['library_burst_ms']:.4f} ms; max_abs_err "
+                  f"{r['max_abs_err']:.3g} {'ok' if ok else 'MISMATCH'}")
+            rows.append(r)
+    return rows
 
 
 if __name__ == "__main__":

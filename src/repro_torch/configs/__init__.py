@@ -1,8 +1,11 @@
 """Config registry of the port: the architectures its model path serves,
 jamba's published config (MoE layers included) beside the dense-FFN cut
-that one card holds."""
+that one card holds, whisper-base, and the paper's own DeiT family
+(``PAPER_MODELS``)."""
 from repro_torch.configs.base import (BlockSpec, ModelConfig, MoEConfig,
                                       ShapeConfig, reduced)
+from repro_torch.configs.deit import (DEIT_160, DEIT_256, DEIT_T, LV_VIT_T,
+                                      VIT_SEQ, vit_shape)
 from repro_torch.configs.gemma2_9b import CONFIG as GEMMA2_9B
 from repro_torch.configs.granite_moe_1b_a400m import CONFIG as GRANITE_MOE
 from repro_torch.configs.jamba_1_5_large_398b import CONFIG as JAMBA
@@ -10,12 +13,17 @@ from repro_torch.configs.jamba_1_5_large_398b import \
     DENSE_FFN as JAMBA_DENSE_FFN
 from repro_torch.configs.nemotron_4_15b import CONFIG as NEMOTRON_15B
 from repro_torch.configs.qwen2_moe_a2_7b import CONFIG as QWEN2_MOE
+from repro_torch.configs.whisper_base import CONFIG as WHISPER_BASE
 from repro_torch.configs.yi_34b import CONFIG as YI_34B
 from repro_torch.configs.yi_6b import CONFIG as YI_6B
 
-REGISTRY = {c.name: c for c in (YI_6B, JAMBA, JAMBA_DENSE_FFN, QWEN2_MOE,
-                                GRANITE_MOE, NEMOTRON_15B, YI_34B,
-                                GEMMA2_9B)}
+# Paper models (FPGA'24 Table 3).
+PAPER_MODELS = {c.name: c for c in (DEIT_T, DEIT_160, DEIT_256, LV_VIT_T)}
+
+REGISTRY = {**{c.name: c for c in (YI_6B, JAMBA, JAMBA_DENSE_FFN,
+                                   QWEN2_MOE, GRANITE_MOE, NEMOTRON_15B,
+                                   YI_34B, GEMMA2_9B, WHISPER_BASE)},
+            **PAPER_MODELS}
 
 
 def get_config(name: str) -> ModelConfig:
@@ -24,5 +32,5 @@ def get_config(name: str) -> ModelConfig:
     return REGISTRY[name]
 
 
-__all__ = ["REGISTRY", "get_config", "reduced", "BlockSpec", "ModelConfig",
-           "MoEConfig", "ShapeConfig"]
+__all__ = ["REGISTRY", "PAPER_MODELS", "get_config", "reduced", "vit_shape",
+           "VIT_SEQ", "BlockSpec", "ModelConfig", "MoEConfig", "ShapeConfig"]

@@ -24,7 +24,8 @@ from typing import List, Tuple
 from repro_torch.configs.base import BlockSpec, ModelConfig, ShapeConfig
 
 # decoder length = seq_len // 4 for audio shapes (the JAX package's
-# ``models/model.py`` constant; the port serves no audio family yet)
+# ``models/model.py`` constant, which the port's model facade has no use
+# for: its callers give the decoder tokens)
 AUDIO_DECODER_RATIO = 4
 
 BYTES = 2  # bf16

@@ -7,7 +7,9 @@
 // 64 keys:
 //
 //   * Q: the block's 64 x D bf16 tile is copied once with 16-byte
-//     cp.async chunks into shared memory.  At D <= 128 it is kept, for
+//     cp.async chunks into shared memory (8-byte ones, two a chunk, for
+//     rows whose length is not a multiple of 16 bytes, see "Head dims
+//     40 and 60" below).  At D <= 128 it is kept, for
 //     the whole walk, as ldmatrix-loaded A fragments in registers; at
 //     D = 256 those would take 64 registers a lane beside the 128 of the
 //     O accumulator, so each k-step of Q K^T reads its fragment from the
@@ -49,6 +51,20 @@
 // unnormalised O) for split `split` into the workspace, and
 // split_combine_kernel merges the splits and casts the result; with
 // ws_o null the engine writes the normalised bf16 rows itself.
+//
+// Head dims 40 and 60 (DeiT-160, LV-ViT-T; flash only): the tile is
+// instantiated at a padded width D (48 and 64: mma.sync k-steps over D
+// are 16 wide, the P V n-tiles 8) and the true width DG is the global
+// row stride.  Columns past DG are zero-filled in shared memory (the
+// copies' zero fill), so they add 0 to every score and give 0 output
+// columns, which are never written: only DG columns are read from and
+// written to global memory.  A bf16 row of 60 is 120 bytes, so every
+// other row starts 8 bytes off a 16-byte boundary: those rows stream in
+// 8-byte cp.async copies (cp_row_chunk).  At D = 48 a row holds 6
+// 16-byte chunks, too few for the XOR swizzle, so rows are laid out at a
+// stride of 7 chunks instead (RowLayout): 8 consecutive rows at one chunk
+// still fall in 8 distinct bank groups for ldmatrix.  The softmax scale
+// is the caller's, 1/sqrt(DG).
 #pragma once
 
 #include <climits>
@@ -76,6 +92,13 @@ __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
                                            bool pred) {
   const int n = pred ? 16 : 0;
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(n));
+}
+
+__device__ __forceinline__ void cp_async8(uint32_t dst, const void* src,
+                                          bool pred) {
+  const int n = pred ? 8 : 0;
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(dst),
                "l"(src), "r"(n));
 }
 
@@ -135,16 +158,50 @@ __device__ __forceinline__ uint32_t pack_lo_bf16(float a, float b) {
                    b - __bfloat162float(__float2bfloat16_rn(b)));
 }
 
-// Byte offset of 16-byte chunk c of row r in a swizzled 64 x D bf16 tile.
+// A 64 x D bf16 tile's rows in shared memory: D/8 16-byte chunks a row,
+// XOR-swizzled by row when that is a multiple of 8; else (D = 48) a row
+// stride of D/8 rounded up to odd chunks, unswizzled.
+template <int D>
+struct RowLayout {
+  static_assert(D % 16 == 0, "tile widths are whole mma k-steps");
+  static constexpr int kChunks = D / 8;
+  static constexpr bool kSwizzle = kChunks % 8 == 0;
+  static constexpr int kStride = kSwizzle ? kChunks : (kChunks | 1);
+};
+
+// Byte offset of 16-byte chunk c of row r in a 64 x D bf16 tile.
 template <int D>
 __device__ __forceinline__ int swz(int r, int c) {
-  return r * (D * 2) + ((c ^ (r & 7)) << 4);
+  if constexpr (RowLayout<D>::kSwizzle)
+    return r * (D * 2) + ((c ^ (r & 7)) << 4);
+  else
+    return r * (RowLayout<D>::kStride * 16) + (c << 4);
+}
+
+// Chunk c (bf16 columns 8c .. 8c+7) of a global row of DG columns into
+// 16 bytes of shared memory at dst; columns past DG, and every column
+// when !ok, are zero-filled.  A row of DG % 8 != 0 columns (DG = 60) may
+// start 8 bytes off a 16-byte boundary: its chunks go as two 8-byte
+// copies (DG % 4 == 0, so each half is whole or empty).
+template <int DG>
+__device__ __forceinline__ void cp_row_chunk(uint32_t dst, const bf16* row,
+                                             int c, bool ok) {
+  static_assert(DG % 4 == 0, "rows are whole 8-byte halves");
+  if constexpr (DG % 8 == 0) {
+    const bool in = ok && c * 8 < DG;
+    cp_async16(dst, row + (in ? c * 8 : 0), in);
+  } else {
+    const bool lo = ok && c * 8 < DG, hi = ok && c * 8 + 4 < DG;
+    cp_async8(dst, row + (lo ? c * 8 : 0), lo);
+    cp_async8(dst + 8, row + (hi ? c * 8 + 4 : 0), hi);
+  }
 }
 
 template <typename TP, int D>
 struct MmaSmem {
   static constexpr bool kQuant = std::is_same<TP, int8_t>::value;
-  static constexpr int kTile = kRows * D * 2;  // one 64 x D bf16 tile
+  // one 64 x D bf16 tile
+  static constexpr int kTile = kRows * RowLayout<D>::kStride * 16;
   static constexpr int kRaw = kKeys * D;       // one 64 x D int8 tile
   static constexpr int kQ = 0;
   // the ring: stage s holds K then V (bf16 tiles, or int8 tiles)
@@ -170,7 +227,10 @@ struct MmaSmem {
 //   int tile_class(int t0, int t1);  keys [t0, t1): 0 no pair admissible,
 //       1 mask per element, 2 every pair admissible; the same value in
 //       every thread of the block
-template <typename TP, int D, bool kSplitP, typename Prob>
+// DG: the true head dim, the row stride of q, k, v, out and the
+// workspace (D, the tile's width, by default; DG < D pads, bf16 pools
+// only).
+template <typename TP, int D, bool kSplitP, typename Prob, int DG = D>
 __device__ __forceinline__ void tile_attention_mma(
     const Prob& pb, const bf16* __restrict__ q, const TP* __restrict__ kbase,
     const TP* __restrict__ vbase, const float* __restrict__ ks,
@@ -179,6 +239,8 @@ __device__ __forceinline__ void tile_attention_mma(
     int split, float scale, float softcap) {
   using SM = MmaSmem<TP, D>;
   constexpr bool kQuant = SM::kQuant;
+  static_assert(DG <= D && D - DG < 16 && (!kQuant || DG == D),
+                "a padded tile is at most one k-step wider, bf16 only");
   constexpr int KD = D / 16;         // k-steps of Q K^T
   constexpr int ND = D / 8;          // n-tiles of P V
   // D <= 128: Q's A fragments held in registers for the walk, and each
@@ -191,6 +253,8 @@ __device__ __forceinline__ void tile_attention_mma(
   constexpr bool kQRegs = D <= 128;
   constexpr int CPR = D / 8;         // 16-byte chunks in a bf16 row
   constexpr int RPP = kThreads / CPR;
+  // a padded tile (DG < D) copies chunk by chunk through cp_row_chunk
+  constexpr int kChunkIters = (kRows * CPR + kThreads - 1) / kThreads;
   constexpr int CPR8 = D / 16;       // 16-byte chunks in an int8 row
   constexpr int RPP8 = kThreads / CPR8;
   extern __shared__ __align__(16) unsigned char smem_mma[];
@@ -204,7 +268,7 @@ __device__ __forceinline__ void tile_attention_mma(
   };
 
   // -- Q tile, zero rows past n_rows ------------------------------------
-  {
+  if constexpr (DG == D) {
     const int c = tid % CPR;
 #pragma unroll
     for (int i = 0; i < kRows / RPP; ++i) {
@@ -212,6 +276,16 @@ __device__ __forceinline__ void tile_attention_mma(
       const bool ok = r < pb.n_rows;
       cp_async16(sbase + SM::kQ + swz<D>(r, c),
                  q + (pb.row0 + (ok ? r : 0)) * D + c * 8, ok);
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < kChunkIters; ++i) {
+      const int idx = tid + i * kThreads;
+      const int r = idx / CPR, c = idx % CPR;
+      const bool ok = r < pb.n_rows;
+      if (r < kRows)
+        cp_row_chunk<DG>(sbase + SM::kQ + swz<D>(r, c),
+                         q + (pb.row0 + (ok ? r : 0)) * DG, c, ok);
     }
   }
   cp_commit();
@@ -222,14 +296,27 @@ __device__ __forceinline__ void tile_attention_mma(
     if constexpr (!kQuant) {
       const uint32_t kd = sbase + SM::kRing + stage * SM::kStage;
       const uint32_t vd = kd + SM::kTile;
-      const int c = tid % CPR;
+      if constexpr (DG == D) {
+        const int c = tid % CPR;
 #pragma unroll
-      for (int i = 0; i < kKeys / RPP; ++i) {
-        const int r = tid / CPR + i * RPP;
-        const bool ok = t0 + r < t1;
-        const size_t row = ok ? pb.kv_row(t0 + r) : 0;
-        cp_async16(kd + swz<D>(r, c), kbase + row * D + c * 8, ok);
-        cp_async16(vd + swz<D>(r, c), vbase + row * D + c * 8, ok);
+        for (int i = 0; i < kKeys / RPP; ++i) {
+          const int r = tid / CPR + i * RPP;
+          const bool ok = t0 + r < t1;
+          const size_t row = ok ? pb.kv_row(t0 + r) : 0;
+          cp_async16(kd + swz<D>(r, c), kbase + row * D + c * 8, ok);
+          cp_async16(vd + swz<D>(r, c), vbase + row * D + c * 8, ok);
+        }
+      } else {
+#pragma unroll
+        for (int i = 0; i < kChunkIters; ++i) {
+          const int idx = tid + i * kThreads;
+          const int r = idx / CPR, c = idx % CPR;
+          if (r >= kKeys) continue;
+          const bool ok = t0 + r < t1;
+          const size_t row = ok ? pb.kv_row(t0 + r) : 0;
+          cp_row_chunk<DG>(kd + swz<D>(r, c), kbase + row * DG, c, ok);
+          cp_row_chunk<DG>(vd + swz<D>(r, c), vbase + row * DG, c, ok);
+        }
       }
     } else {
       const uint32_t kd = sbase + SM::kRing + stage * SM::kStage;
@@ -501,22 +588,26 @@ __device__ __forceinline__ void tile_attention_mma(
     const int r = half ? r_hi : r_lo;
     if (r >= pb.n_rows) continue;
     const float m = half ? m_hi : m_lo, l = half ? l_hi : l_lo;
+    // a column pair past the true width (a padded tile) is not written
+    auto col_ok = [&](int col) { return DG == D || col < DG; };
     if (ws_o != nullptr) {
       const size_t w = (size_t)split * ws_rows + pb.row0 + r;
 #pragma unroll
       for (int n = 0; n < ND; ++n)
-        *reinterpret_cast<float2*>(ws_o + w * D + 8 * n + 2 * tig) =
-            make_float2(o[n][2 * half], o[n][2 * half + 1]);
+        if (col_ok(8 * n + 2 * tig))
+          *reinterpret_cast<float2*>(ws_o + w * DG + 8 * n + 2 * tig) =
+              make_float2(o[n][2 * half], o[n][2 * half + 1]);
       if (tig == 0)
         *reinterpret_cast<float2*>(ws_ml + 2 * w) = make_float2(m, l);
     } else {
       const float inv = l > 0.f ? 1.f / l : 0.f;
-      bf16* orow = out + (pb.row0 + r) * D;
+      bf16* orow = out + (pb.row0 + r) * DG;
 #pragma unroll
       for (int n = 0; n < ND; ++n)
-        *reinterpret_cast<__nv_bfloat162*>(orow + 8 * n + 2 * tig) =
-            __floats2bfloat162_rn(o[n][2 * half] * inv,
-                                  o[n][2 * half + 1] * inv);
+        if (col_ok(8 * n + 2 * tig))
+          *reinterpret_cast<__nv_bfloat162*>(orow + 8 * n + 2 * tig) =
+              __floats2bfloat162_rn(o[n][2 * half] * inv,
+                                    o[n][2 * half + 1] * inv);
     }
   }
 }

@@ -32,7 +32,13 @@
 // read from shared memory a k-step at a time (attn_mma.cuh), so that
 // the 16 x 256 f32 O accumulator fits the registers beside S and P;
 // the window then bounds each query tile's key range, and tiles outside
-// it are skipped.  The f32 path keeps the CUDA-core engine
+// it are skipped.  The paper's ViTs bring head dims 40 (DeiT-160) and
+// 60 (LV-ViT-T), which no mma k-step divides: the bf16 tile is built at
+// 48 and 64 columns with the true width as the global row stride
+// (attn_mma.cuh, "Head dims 40 and 60"), and the f32 tile at the true
+// width.  Those encoders run non-causal at Sq = Skv = 197: 4 query tiles
+// of 64 rows, the last holding 5, every key tile admissible (no
+// per-element mask).  The f32 path keeps the CUDA-core engine
 // (tile_attention, attn_common.cuh): its callers hold it to 2e-5, which
 // neither TF32 nor bf16 tensor cores meet.
 #include "attn_common.cuh"
@@ -171,7 +177,8 @@ struct FlashMmaProb {
   }
 };
 
-template <int D>
+// D: the tile's width; DG: the true head dim (D = 48 for 40, 64 for 60)
+template <int D, int DG>
 __global__ void __launch_bounds__(mma::kThreads)
 flash_mma_kernel(const mma::bf16* __restrict__ q,
                  const mma::bf16* __restrict__ k,
@@ -203,14 +210,14 @@ flash_mma_kernel(const mma::bf16* __restrict__ q,
   pb.qmax = __reduce_max_sync(kFull, qmax);
   pb.t_begin = z * split_keys;
   pb.t_end = min(pb.t_begin + split_keys, Skv);
-  const size_t kv = ((size_t)b * Hkv + hk) * Skv * D;
+  const size_t kv = ((size_t)b * Hkv + hk) * Skv * DG;
   const size_t rows = (size_t)(gridDim.z / nsplit) * H * Sq;
-  mma::tile_attention_mma<mma::bf16, D, true>(pb, q, k + kv, v + kv, nullptr,
-                                        nullptr, out, ws_o, ws_ml, rows, z,
-                                        scale, softcap);
+  mma::tile_attention_mma<mma::bf16, D, true, FlashMmaProb, DG>(
+      pb, q, k + kv, v + kv, nullptr, nullptr, out, ws_o, ws_ml, rows, z,
+      scale, softcap);
 }
 
-template <int D>
+template <int D, int DG = D>
 cudaError_t launch_mma(const void* q, const void* k, const void* v,
                        const int* q_pos, const int* k_pos, const int* k_valid,
                        void* out, float* ws_o, float* ws_ml, int nsplit,
@@ -219,15 +226,16 @@ cudaError_t launch_mma(const void* q, const void* k, const void* v,
                        cudaStream_t stream) {
   dim3 grid((Sq + mma::kRows - 1) / mma::kRows, H, B * nsplit);
   cudaError_t err = mma::launch_tiles(
-      flash_mma_kernel<D>, mma::MmaSmem<mma::bf16, D>::kBytes, grid, stream,
+      flash_mma_kernel<D, DG>, mma::MmaSmem<mma::bf16, D>::kBytes, grid,
+      stream,
       static_cast<const mma::bf16*>(q), static_cast<const mma::bf16*>(k),
       static_cast<const mma::bf16*>(v), q_pos, k_pos, k_valid,
       static_cast<mma::bf16*>(out), nsplit > 1 ? ws_o : nullptr,
       nsplit > 1 ? ws_ml : nullptr, H, Hkv, Sq, Skv, causal, window, nsplit,
       split_keys, softcap, scale);
   if (err != cudaSuccess) return err;
-  return mma::launch_combine<D>(ws_o, ws_ml, out, (size_t)B * H * Sq, nsplit,
-                                stream);
+  return mma::launch_combine<DG>(ws_o, ws_ml, out, (size_t)B * H * Sq,
+                                 nsplit, stream);
 }
 
 }  // namespace
@@ -237,8 +245,8 @@ cudaError_t launch_mma(const void* q, const void* k, const void* v,
 // split_keys keys each, merged through the f32 workspaces ws_o
 // (nsplit, B*H*Sq, D) and ws_ml (nsplit, B*H*Sq, 2) when nsplit > 1 (f32
 // takes nsplit = 1).  Shape contract (checked by the Python wrapper): D in
-// {64, 128, 256}, H % Hkv == 0, all tensors contiguous, q, k and v 16-byte
-// aligned.
+// {40, 60, 64, 128, 256}, H % Hkv == 0, all tensors contiguous, q, k and v
+// 16-byte aligned.
 extern "C" int repro_flash_attention(int dtype, const void* q, const void* k,
                                      const void* v, const int* q_pos,
                                      const int* k_pos, const int* k_valid,
@@ -254,18 +262,21 @@ extern "C" int repro_flash_attention(int dtype, const void* q, const void* k,
       (dtype == 0 && nsplit != 1) ||
       (nsplit > 1 && (ws_o == nullptr || ws_ml == nullptr)))
     return (int)cudaErrorInvalidValue;
-#define REPRO_FLASH(DD)                                                      \
+// DD: the head dim; DP: the bf16 tile's width
+#define REPRO_FLASH(DD, DP)                                                  \
   return (int)(dtype == 0                                                    \
                    ? launch_f32<DD>(q, k, v, q_pos, k_pos, k_valid, out, B,  \
                                     H, Hkv, Sq, Skv, causal, window,         \
                                     softcap, scale, s)                       \
-                   : launch_mma<DD>(q, k, v, q_pos, k_pos, k_valid, out,     \
-                                    ws_o, ws_ml, nsplit, split_keys, B, H,   \
-                                    Hkv, Sq, Skv, causal, window, softcap,   \
-                                    scale, s))
-  if (D == 64) REPRO_FLASH(64);
-  if (D == 128) REPRO_FLASH(128);
-  if (D == 256) REPRO_FLASH(256);
+                   : launch_mma<DP, DD>(q, k, v, q_pos, k_pos, k_valid, out, \
+                                        ws_o, ws_ml, nsplit, split_keys, B,  \
+                                        H, Hkv, Sq, Skv, causal, window,     \
+                                        softcap, scale, s))
+  if (D == 40) REPRO_FLASH(40, 48);
+  if (D == 60) REPRO_FLASH(60, 64);
+  if (D == 64) REPRO_FLASH(64, 64);
+  if (D == 128) REPRO_FLASH(128, 128);
+  if (D == 256) REPRO_FLASH(256, 256);
 #undef REPRO_FLASH
   return (int)cudaErrorInvalidValue;
 }

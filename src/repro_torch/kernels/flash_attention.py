@@ -13,8 +13,11 @@ allocated here, and a combine pass of the same C call merges them.
 
 Shape contract on CUDA: q, k, v contiguous and starting on a 16-byte
 boundary (the kernel's cp.async copies), one dtype in {float32,
-bfloat16}, D in {64, 128, 256}, H a multiple of Hkv; q_pos, k_pos, k_valid
-contiguous int32 of lengths Sq, Skv, Skv; everything on one device.
+bfloat16}, D in {40, 60, 64, 128, 256}, H a multiple of Hkv; q_pos,
+k_pos, k_valid contiguous int32 of lengths Sq, Skv, Skv; everything on
+one device.  D = 40 and 60 (the paper's DeiT-160 and LV-ViT-T) run the
+bf16 tile padded to 48 and 64 columns inside the kernel; the softmax
+scale is 1/sqrt(D) of the true D, as in JAX.
 """
 from __future__ import annotations
 
@@ -25,7 +28,7 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels import ref as R
 
-HEAD_DIMS = (64, 128, 256)
+HEAD_DIMS = (40, 60, 64, 128, 256)
 
 
 def check_flash_contract(q, k, v, q_pos, k_pos, k_valid):

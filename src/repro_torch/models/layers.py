@@ -3,11 +3,13 @@
 Counterparts of the JAX package's ``models/layers.py`` for the serving
 path of the GQA decoders (llama-style yi, nemotron's LayerNorm and
 squared-ReLU MLP, gemma2's sliding windows, softcaps and GeGLU), of the
-MoE decoders (qwen2-moe, granite-moe) and of the attention layers of the
-jamba hybrid (rope-free): RMSNorm and LayerNorm, RoPE, GQA attention over
-a dense cache or ring or a paged KV cache, the gated or plain MLP, the
-top-k routed MoE FFN, embedding and the LM head (its own weight or the
-embedding's transpose, with an optional final softcap).
+MoE decoders (qwen2-moe, granite-moe), of the attention layers of the
+jamba hybrid (rope-free), and of the encoders (the paper's ViTs and
+whisper's encoder: non-causal, rope-free) and whisper's cross-attention
+over encoder K/V: RMSNorm and LayerNorm, RoPE and sinusoidal positions,
+GQA attention over a dense cache or ring or a paged KV cache, the gated
+or plain MLP, the top-k routed MoE FFN, embedding and the LM head (its
+own weight or the embedding's transpose, with an optional final softcap).
 
 Conventions, as on the JAX side:
   * params are nested dicts of tensors, weights laid out (in, out) so the
@@ -56,7 +58,9 @@ def init_norm(cfg: ModelConfig, device):
     return p
 
 
-def init_attention(generator, cfg: ModelConfig, device):
+def init_attention(generator, cfg: ModelConfig, device, cross: bool = False):
+    """wq, wk, wv, wo; a cross-attention layer (``cross``) has the same
+    weights, its wk/wv applied to the encoder's output."""
     d, qd, kvd = cfg.d_model, cfg.q_dim, cfg.kv_dim
     dt = getattr(torch, cfg.param_dtype)
     return {"wq": dense_init(generator, (d, qd), d, dt, device),
@@ -133,6 +137,29 @@ def apply_rope(x, positions, theta: float):
     x1, x2 = torch.chunk(x.to(torch.float32), 2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)
+
+
+def sinusoidal_positions(seq: int, dim: int, device="cpu"):
+    """(seq, dim) f32 sinusoidal embeddings: sin in the even columns, cos
+    in the odd ones (whisper's encoder and decoder positions)."""
+    pos = torch.arange(seq, dtype=torch.float32, device=device)[:, None]
+    div = torch.exp(torch.arange(0, dim, 2, dtype=torch.float32,
+                                 device=device) * (-math.log(10000.0) / dim))
+    pe = torch.zeros((seq, dim), dtype=torch.float32, device=device)
+    pe[:, 0::2] = torch.sin(pos * div)
+    pe[:, 1::2] = torch.cos(pos * div)
+    return pe
+
+
+def sinusoidal_position_at(pos: int, dim: int, device="cpu"):
+    """The (dim,) sinusoidal embedding of the single position ``pos``."""
+    div = torch.exp(torch.arange(0, dim, 2, dtype=torch.float32,
+                                 device=device) * (-math.log(10000.0) / dim))
+    ang = torch.tensor(float(pos), dtype=torch.float32, device=device) * div
+    pe = torch.zeros((dim,), dtype=torch.float32, device=device)
+    pe[0::2] = torch.sin(ang)
+    pe[1::2] = torch.cos(ang)
+    return pe
 
 
 # ---------------------------------------------------------------------------
@@ -223,10 +250,29 @@ def _scale_kw(cache):
     return {}
 
 
-def multi_head_attention(p, x, cfg: ModelConfig, *, window: int = 0,
-                         kv_cache=None, cache_index=None, block_tables=None,
+def cross_kv(p, enc_out, cfg: ModelConfig):
+    """Cross-attention K/V (B, T, Hkv, D) from the encoder's output:
+    f32-accumulated projections cast to the activation dtype, computed
+    once at prefill and cached so that decode steps skip them."""
+    b, t, _ = enc_out.shape
+    hk, hd = cfg.num_kv_heads, cfg.head_dim
+    k = matmul_f32(enc_out, p["wk"]).to(enc_out.dtype)
+    v = matmul_f32(enc_out, p["wv"]).to(enc_out.dtype)
+    return k.reshape(b, t, hk, hd), v.reshape(b, t, hk, hd)
+
+
+def multi_head_attention(p, x, cfg: ModelConfig, *, causal: bool = True,
+                         window: int = 0, kv_cache=None, cache_index=None,
+                         kv_source=None, use_rope: bool = True,
+                         precomputed_kv=None, block_tables=None,
                          write_tables=None, attend_cache: bool = False):
     """GQA attention with RoPE over an optional KV cache.
+
+    causal=False: bidirectional attention (the encoders).  Cross-attention
+    takes its keys from ``kv_source`` (B, T, D), projected here, or from
+    ``precomputed_kv`` ((B, T, Hkv, D) K and V, ``cross_kv``'s): then k
+    takes no RoPE and no causal mask applies, as in JAX.  ``use_rope``
+    False leaves q unrotated too.
 
     window > 0: sliding-window attention (a query attends keys less than
     ``window`` positions back), applied in every dense mode as JAX does;
@@ -238,7 +284,8 @@ def multi_head_attention(p, x, cfg: ModelConfig, *, window: int = 0,
     window raises, as JAX's does.
 
     Modes (as on the JAX side):
-      * no cache: full causal attention over x;
+      * no cache: full attention over x (causal unless ``causal`` is
+        False), or over the cross-attention keys;
       * dense cache ``{"k", "v"}: (B, W, Hkv, D)``, scalar ``cache_index``:
         prefill (x longer than one token, the tail written to the ring;
         with ``attend_cache`` a chunked-prefill continuation, whose
@@ -263,8 +310,15 @@ def multi_head_attention(p, x, cfg: ModelConfig, *, window: int = 0,
     dt = x.dtype
     dev = x.device
     q = torch.matmul(x, p["wq"]).reshape(b, s, h, hd)
-    k = torch.matmul(x, p["wk"]).reshape(b, s, hk, hd)
-    v = torch.matmul(x, p["wv"]).reshape(b, s, hk, hd)
+    if precomputed_kv is not None:
+        k, v = precomputed_kv
+        kv_source = k          # cross-attention: no rope on k, no causal
+    else:
+        kv_in = x if kv_source is None else kv_source
+        t = kv_in.shape[1]
+        k = torch.matmul(kv_in, p["wk"]).reshape(b, t, hk, hd)
+        v = torch.matmul(kv_in, p["wv"]).reshape(b, t, hk, hd)
+    rope = use_rope and cfg.rope_theta > 0
 
     per_slot = torch.is_tensor(cache_index) and cache_index.dim() == 1
     offset = 0 if cache_index is None else cache_index
@@ -274,22 +328,24 @@ def multi_head_attention(p, x, cfg: ModelConfig, *, window: int = 0,
     else:
         offset = int(offset)
     paged = kv_cache is not None and "k_pages" in kv_cache
-    fuse_decode = paged and s == 1 and per_slot and cfg.rope_theta > 0 \
-        and block_tables is not None
+    fuse_decode = paged and s == 1 and per_slot and rope \
+        and kv_source is None and block_tables is not None
     if per_slot:
         positions = pos_bs
     else:
         positions = (offset + torch.arange(s, device=dev))[None, :].expand(
             b, s)
-    if cfg.rope_theta > 0 and not fuse_decode:
+    if rope and not fuse_decode:
         q = apply_rope(q, positions, cfg.rope_theta)
-        k = apply_rope(k, positions, cfg.rope_theta)
+        if kv_source is None:
+            k = apply_rope(k, positions, cfg.rope_theta)
+    causal = causal and kv_source is None
     q_pos = pos_bs if per_slot else torch.arange(s, device=dev) + offset
 
     if kv_cache is None:
         out = _attend(q, k, v, cfg, q_pos=q_pos,
-                      k_pos=torch.arange(s, device=dev), k_valid=None,
-                      causal=True, window=window, dt=dt)
+                      k_pos=torch.arange(k.shape[1], device=dev),
+                      k_valid=None, causal=causal, window=window, dt=dt)
     elif paged:
         if window:
             raise NotImplementedError(
@@ -375,12 +431,12 @@ def multi_head_attention(p, x, cfg: ModelConfig, *, window: int = 0,
                     k_valid=torch.cat([k_valid_old,
                                        torch.ones((s,), dtype=torch.bool,
                                                   device=dev)]),
-                    causal=True, window=window, dt=dt)
+                    causal=causal, window=window, dt=dt)
             else:
                 # prefill: attend the fresh k/v
                 out = _attend(q, k, v, cfg, q_pos=q_pos,
                               k_pos=torch.arange(s, device=dev),
-                              k_valid=None, causal=True, window=window,
+                              k_valid=None, causal=causal, window=window,
                               dt=dt)
             # write the tail into the ring
             tail = min(s, W)
@@ -404,7 +460,7 @@ def multi_head_attention(p, x, cfg: ModelConfig, *, window: int = 0,
                 k_pos, k_valid = ring_k_positions((offset + s - 1)[:, None],
                                                   W)
                 out = _attend(q, kc, vc, cfg, q_pos=q_pos, k_pos=k_pos,
-                              k_valid=k_valid, causal=True, window=window,
+                              k_valid=k_valid, causal=causal, window=window,
                               dt=dt)
         else:
             # lock-step decode: ring write then attend over the cache
@@ -414,7 +470,8 @@ def multi_head_attention(p, x, cfg: ModelConfig, *, window: int = 0,
             k_pos, k_valid = ring_k_positions(
                 torch.full((), offset + s - 1, device=dev), W)
             out = _attend(q, kc, vc, cfg, q_pos=q_pos, k_pos=k_pos,
-                          k_valid=k_valid, causal=True, window=window, dt=dt)
+                          k_valid=k_valid, causal=causal, window=window,
+                          dt=dt)
 
     out = torch.matmul(out, p["wo"])
     return out, kv_cache

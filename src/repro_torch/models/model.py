@@ -2,12 +2,23 @@
 
 ``build_model(cfg, device)`` returns a ``Model`` whose methods are plain
 functions of (params, inputs), like the JAX facade's, for the dense and
-MoE GQA decoders and the attention + mamba hybrids the port serves.
-Params are nested dicts of tensors on ``model.device``: ``{"embed":
-{"table"}, "stack": [per-group block dicts], "final_norm": {"scale"}
-(and ``"bias"`` for LayerNorm), "head": {"w"}}``, without ``"head"`` when
-the config ties it to the embedding.  Inputs may be numpy arrays or
-tensors; they are moved to the model's device.
+MoE GQA decoders and the attention + mamba hybrids the port serves, the
+encoder-only ViTs (family ``vision``) and whisper's encoder-decoder
+(family ``audio``).  Params are nested dicts of tensors on
+``model.device``, under the JAX facade's names:
+  * LM families: ``{"embed": {"table"}, "stack": [per-group block dicts],
+    "final_norm": {"scale"} (and ``"bias"`` for LayerNorm), "head":
+    {"w"}}``, without ``"head"`` when the config ties it to the embedding;
+  * vision: ``{"pos_embed": (1, 256, D) f32, "cls": (1, 1, D) f32,
+    "stack", "final_norm", "head"}``;
+  * audio: ``{"enc_stack", "enc_norm", "embed", "stack"`` (blocks with
+    cross-attention), ``"final_norm"}``, the head the embedding's
+    transpose.
+Inputs may be numpy arrays or tensors; they are moved to the model's
+device.  As in JAX, the per-slot serving primitives (``prefill_one``,
+``prefill_suffix_paged``) serve token-LM families only: vision and audio
+raise NotImplementedError there, and run through ``forward``,
+``prefill`` and ``decode_step``.
 """
 from __future__ import annotations
 
@@ -20,6 +31,12 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
+
+
+def _embeds(x, device, dtype):
+    """Precomputed embeddings (the frontend stubs' input) on ``device`` in
+    the activation dtype."""
+    return torch.as_tensor(x).to(device=device).to(dtype)
 
 
 def _tokens(x, device):
@@ -44,6 +61,24 @@ class Model:
         The numbers differ from ``jax.random``'s: to run JAX's weights, use
         ``repro_torch.bridge.params_from_numpy``."""
         cfg, dev = self.cfg, self.device
+        if cfg.family == "audio":
+            return {"enc_stack": T.init_stack(generator, cfg, dev),
+                    "enc_norm": L.init_norm(cfg, dev),
+                    "embed": L.init_embedding(generator, cfg, dev),
+                    "stack": T.init_stack(generator, cfg, dev, cross=True),
+                    "final_norm": L.init_norm(cfg, dev)}
+        if cfg.family == "vision":
+            d = cfg.d_model
+            return {"pos_embed": 0.02 * torch.randn(
+                        (1, 256, d), generator=generator,
+                        dtype=torch.float32, device=dev),
+                    "cls": torch.zeros((1, 1, d), dtype=torch.float32,
+                                       device=dev),
+                    "stack": T.init_stack(generator, cfg, dev),
+                    "final_norm": L.init_norm(cfg, dev),
+                    "head": {"w": L.dense_init(
+                        generator, (d, cfg.vocab_size), d,
+                        getattr(torch, cfg.param_dtype), dev)}}
         params = {"embed": L.init_embedding(generator, cfg, dev),
                   "stack": T.init_stack(generator, cfg, dev),
                   "final_norm": L.init_norm(cfg, dev)}
@@ -63,27 +98,77 @@ class Model:
                                     write_tables=write_tables)
         return L.apply_norm(params["final_norm"], x, self.cfg), cache, aux
 
+    def _dtype(self):
+        return getattr(torch, self.cfg.dtype)
+
     def _embed(self, params, tokens):
-        dt = getattr(torch, self.cfg.dtype)
         return L.embed(params["embed"], _tokens(tokens, self.device),
-                       self.cfg).to(dt)
+                       self.cfg).to(self._dtype())
 
     def _head(self, params, x):
         return L.logits_head(params["embed"], params.get("head"), x,
                              self.cfg)
 
     def forward(self, params, batch):
-        """Full causal forward over ``batch["tokens"]`` (B, S) ->
-        (logits (B, S, V) f32, aux_loss: the MoE layers' summed
-        load-balance loss, 0 without them)."""
-        x = self._embed(params, batch["tokens"])
-        hidden, _, aux = self._lm_hidden(params, x)
-        return self._head(params, hidden), torch.as_tensor(
-            aux, dtype=torch.float32, device=x.device)
+        """Full forward -> (logits f32, aux_loss: the MoE layers' summed
+        load-balance loss, 0 without them).  LM families: causal over
+        ``batch["tokens"]`` (B, S), logits (B, S, V).  vision:
+        ``batch["embeds"]`` (B, S, D) patch embeddings, a cls token
+        prepended and learned positions added, bidirectional, logits
+        (B, V) of the cls token.  audio: ``batch["enc_embeds"]`` (B, T, D)
+        frame embeddings through the encoder, ``batch["dec_tokens"]``
+        (B, S) causally through the decoder, logits (B, S, V)."""
+        cfg = self.cfg
+        if cfg.family == "vision":
+            x = _embeds(batch["embeds"], self.device, self._dtype())
+            b, s, d = x.shape
+            x = torch.cat([params["cls"].to(x.dtype).expand(b, 1, d), x],
+                          dim=1)
+            x = x + params["pos_embed"][:, :s + 1].to(x.dtype)
+            x, _, aux = T.run_stack(params["stack"], x, cfg, causal=False)
+            x = L.apply_norm(params["final_norm"], x, cfg)
+            logits = L.matmul_f32(x[:, 0], params["head"]["w"])
+        elif cfg.family == "audio":
+            enc = self.encode(params, batch["enc_embeds"])
+            y = self._dec_in(params, batch["dec_tokens"])
+            y, _, aux = T.run_stack(params["stack"], y, cfg, causal=True,
+                                    enc_out=enc)
+            logits = self._head(params,
+                                L.apply_norm(params["final_norm"], y, cfg))
+        else:
+            x = self._embed(params, batch["tokens"])
+            hidden, _, aux = self._lm_hidden(params, x)
+            logits = self._head(params, hidden)
+        return logits, torch.as_tensor(aux, dtype=torch.float32,
+                                       device=logits.device)
+
+    def encode(self, params, enc_embeds):
+        """audio: frame embeddings (B, T, D) plus sinusoidal positions
+        through the bidirectional encoder and its final norm."""
+        cfg = self.cfg
+        x = _embeds(enc_embeds, self.device, self._dtype())
+        pos = L.sinusoidal_positions(x.shape[1], cfg.d_model, x.device)
+        x, _, _ = T.run_stack(params["enc_stack"], x + pos[None].to(x.dtype),
+                              cfg, causal=False)
+        return L.apply_norm(params["enc_norm"], x, cfg)
+
+    def _dec_in(self, params, tokens):
+        """audio: decoder token embeddings plus sinusoidal positions from
+        0."""
+        y = self._embed(params, tokens)
+        pos = L.sinusoidal_positions(y.shape[1], self.cfg.d_model, y.device)
+        return y + pos[None].to(y.dtype)
+
+    def _lm_only(self, what):
+        if self.cfg.family in ("vision", "audio", "vlm"):
+            raise NotImplementedError(
+                f"{what} serves token-LM families (dense/moe/hybrid), not "
+                f"{self.cfg.family} ({self.cfg.name})")
 
     # --------------------------------------------------------------- serving
-    def init_cache(self, batch: int, max_seq: int):
-        return T.make_cache(self.cfg, batch, max_seq, device=self.device)
+    def init_cache(self, batch: int, max_seq: int, enc_len: int = 0):
+        return T.make_cache(self.cfg, batch, max_seq, enc_len=enc_len,
+                            device=self.device)
 
     def init_paged_cache(self, batch: int, max_seq: int, *, page_size: int,
                          num_blocks: int, kv_dtype: str = "fp"):
@@ -93,7 +178,24 @@ class Model:
 
     def prefill(self, params, batch, max_seq: int):
         """Process the prompt into a fresh dense cache; returns
-        (logits at the last position (B, 1, V), cache)."""
+        (logits at the last position (B, 1, V), cache).  audio: the
+        encoder runs over ``batch["enc_embeds"]``, the decoder over
+        ``batch["dec_tokens"]``, and each decoder block's cross-attention
+        K/V land in the cache's ``cross_kv`` leaves."""
+        cfg = self.cfg
+        if cfg.family == "vision":
+            raise NotImplementedError(
+                f"{cfg.name} is encoder-only: no prefill or decode step")
+        if cfg.family == "audio":
+            enc = self.encode(params, batch["enc_embeds"])
+            y = self._dec_in(params, batch["dec_tokens"])
+            cache = self.init_cache(y.shape[0], max_seq,
+                                    enc_len=enc.shape[1])
+            y, cache, _ = T.run_stack(params["stack"], y, cfg, causal=True,
+                                      enc_out=enc, cache=cache,
+                                      cache_index=0)
+            y = L.apply_norm(params["final_norm"], y[:, -1:], cfg)
+            return self._head(params, y), cache
         x = self._embed(params, batch["tokens"])
         cache = self.init_cache(x.shape[0], max_seq)
         hidden, cache, _ = self._lm_hidden(params, x, cache=cache,
@@ -104,6 +206,7 @@ class Model:
         """Batch-1 prefill of a right-padded prompt (1, P) whose true
         length is ``length``; returns (logits at the last valid position
         (1, 1, V), the batch-1 dense cache)."""
+        self._lm_only("per-slot prefill")
         x = self._embed(params, tokens)
         cache = self.init_cache(x.shape[0], max_seq)
         hidden, cache, _ = self._lm_hidden(params, x, cache=cache,
@@ -129,6 +232,7 @@ class Model:
         ``block_tables`` (1, NB) maps every logical block for the gather,
         ``write_tables`` (1, NB) only the fresh ones (sentinel elsewhere).  Returns (logits at the last
         valid suffix position (1, 1, V), full_cache written in place)."""
+        self._lm_only("per-slot prefill")
         x = self._embed(params, tokens)
         view = T.combine_prefill_parts(
             full_cache, T.make_prefill_part(self.cfg, max_seq,
@@ -149,12 +253,25 @@ class Model:
         tokens per slot, scored in one step, at per-slot ``cache_index``).
         ``cache_index`` an int (all rows in lock-step) or a (B,) vector of
         per-slot positions; ``block_tables`` (B, NB) when ``cache`` is
-        pool-backed.  Returns (logits (B, S, V), cache written in place)."""
+        pool-backed.  Returns (logits (B, S, V), cache written in place).
+        audio: lock-step only (an int ``cache_index``), the token's
+        sinusoidal position added; cross-attention reads the cached
+        ``cross_kv``."""
+        cfg = self.cfg
+        if cfg.family == "vision":
+            raise NotImplementedError(
+                f"{cfg.name} is encoder-only: no prefill or decode step")
         x = self._embed(params, tokens)
         if not isinstance(cache_index, int):
             cache_index = torch.as_tensor(cache_index, device=self.device)
             if cache_index.dim() == 0:
                 cache_index = int(cache_index)
+        if cfg.family == "audio":
+            if not isinstance(cache_index, int):
+                raise ValueError("audio decode steps run in lock-step: "
+                                 "cache_index must be a scalar")
+            x = x + L.sinusoidal_position_at(cache_index, cfg.d_model,
+                                             x.device).to(x.dtype)
         if block_tables is not None:
             block_tables = torch.as_tensor(block_tables, device=self.device)
         hidden, cache, _ = self._lm_hidden(params, x, cache=cache,

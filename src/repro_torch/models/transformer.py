@@ -11,7 +11,11 @@ place.
 The port serves stacks of ``attn``, ``attn_global``, ``attn_local`` and
 ``mamba`` mixers with dense or MoE FFNs (the llama-style and nemotron
 decoders, qwen2-moe and granite-moe, jamba, gemma2 with its post-block
-norms); other block kinds raise.  A mamba block's cache is its recurrent
+norms), the encoder-only ViTs (``causal=False``), and whisper's encoder
+and decoder, whose blocks add cross-attention over the encoder's output
+(``init_stack(cross=True)``; its K/V cached at prefill as
+``{"cross_kv": {"k", "v"}}`` leaves of (num_groups, B, enc_len, Hkv,
+D)); other block kinds raise.  A mamba block's cache is its recurrent
 state, ``{"ssm_state": {"conv", "ssm"}}`` f32 leaves of shape
 (num_groups, B, ...); a local-window block's is a ring of
 ``min(max_seq, window_size)`` rows in the activation dtype.  Both stay
@@ -30,6 +34,9 @@ from repro_torch.models import ssm as SSM
 
 SERVED_MIXERS = ("attn", "attn_global", "attn_local", "mamba")
 SERVED_FFNS = ("dense", "moe")
+# family -> the frontend stub it takes ("": token ids)
+SERVED_FAMILIES = {"dense": "", "moe": "", "hybrid": "", "vision": "vision",
+                   "audio": "audio"}
 
 
 def check_supported(cfg: ModelConfig):
@@ -39,40 +46,51 @@ def check_supported(cfg: ModelConfig):
         raise NotImplementedError(
             f"{cfg.name}: the port serves {SERVED_MIXERS} mixers with "
             f"{SERVED_FFNS} FFNs only, got {cfg.block_pattern}")
-    if cfg.family not in ("dense", "moe", "hybrid") or cfg.mrope_sections \
-            or cfg.qk_norm or cfg.frontend \
+    if SERVED_FAMILIES.get(cfg.family) != cfg.frontend \
+            or cfg.mrope_sections or cfg.qk_norm \
             or cfg.norm_kind not in ("rmsnorm", "layernorm") \
             or cfg.mlp_activation not in ("silu", "relu2", "gelu"):
         raise NotImplementedError(
             f"{cfg.name}: the port serves GQA decoders (and attention + "
-            f"mamba hybrids) with RMSNorm or LayerNorm and a SiLU, GELU or "
-            f"squared-ReLU MLP, gated or not")
+            f"mamba hybrids), encoder-only ViTs and whisper's "
+            f"encoder-decoder, with RMSNorm or LayerNorm and a SiLU, GELU "
+            f"or squared-ReLU MLP, gated or not")
 
 
 # ---------------------------------------------------------------------------
 # per-block init / apply
 # ---------------------------------------------------------------------------
 
-def init_block(generator, cfg: ModelConfig, blk: BlockSpec, device):
+def init_block(generator, cfg: ModelConfig, blk: BlockSpec, device,
+               cross: bool = False):
     mixer = (SSM.init_mamba(generator, cfg, device) if blk.mixer == "mamba"
              else L.init_attention(generator, cfg, device))
-    p = {"norm1": L.init_norm(cfg, device),
-         "mixer": mixer,
-         "norm2": L.init_norm(cfg, device),
-         "ffn": (L.init_moe(generator, cfg, device) if blk.ffn == "moe"
-                 else L.init_mlp(generator, cfg, device))}
+    p = {"norm1": L.init_norm(cfg, device), "mixer": mixer}
+    if cross:
+        p["norm_x"] = L.init_norm(cfg, device)
+        p["cross"] = L.init_attention(generator, cfg, device, cross=True)
+    p["norm2"] = L.init_norm(cfg, device)
+    p["ffn"] = (L.init_moe(generator, cfg, device) if blk.ffn == "moe"
+                else L.init_mlp(generator, cfg, device))
     if cfg.post_block_norm:
         p["post_norm1"] = L.init_norm(cfg, device)
         p["post_norm2"] = L.init_norm(cfg, device)
     return p
 
 
-def apply_block(p, x, cfg: ModelConfig, blk: BlockSpec, *, state=None,
-                cache_index=None, block_tables=None, write_tables=None,
+def apply_block(p, x, cfg: ModelConfig, blk: BlockSpec, *, causal=True,
+                state=None, cache_index=None, enc_out=None,
+                block_tables=None, write_tables=None,
                 attend_cache: bool = False):
     """Returns (x, state, aux) -- ``state`` is the block's cache, written
     in place (None without a cache); ``aux`` the MoE FFN's load-balance
-    loss (0.0 for a dense FFN).  ``attend_cache``: see ``run_stack``."""
+    loss (0.0 for a dense FFN).  ``attend_cache``: see ``run_stack``.
+
+    A block with cross-attention (``"cross"`` in ``p``) attends the
+    encoder's output after its self-attention: with ``enc_out`` it
+    projects the K/V fresh (and, given a cache, writes them into its
+    ``cross_kv`` leaves: prefill); without, it reads the cached
+    ``cross_kv`` (decode); with neither it raises, as JAX's does."""
     h = L.apply_norm(p["norm1"], x, cfg)
     if blk.mixer == "mamba":
         st = state["ssm_state"] if state else None
@@ -82,7 +100,7 @@ def apply_block(p, x, cfg: ModelConfig, blk: BlockSpec, *, state=None,
             st["ssm"].copy_(new["ssm"])
     else:
         h, _ = L.multi_head_attention(
-            p["mixer"], h, cfg,
+            p["mixer"], h, cfg, causal=causal,
             window=cfg.window_size if blk.mixer == "attn_local" else 0,
             kv_cache=state.get("kv") if state else None,
             cache_index=cache_index, block_tables=block_tables,
@@ -90,6 +108,23 @@ def apply_block(p, x, cfg: ModelConfig, blk: BlockSpec, *, state=None,
     if cfg.post_block_norm:
         h = L.apply_norm(p["post_norm1"], h, cfg)
     x = x + h
+    if "cross" in p:
+        h = L.apply_norm(p["norm_x"], x, cfg)
+        if enc_out is not None:
+            ck, cv = L.cross_kv(p["cross"], enc_out, cfg)
+            if state is not None:
+                if "cross_kv" not in state:
+                    raise ValueError("a cross-attention block's cache needs "
+                                     "cross_kv leaves (make_cache(enc_len=))")
+                state["cross_kv"]["k"].copy_(ck)
+                state["cross_kv"]["v"].copy_(cv)
+        elif state is not None and "cross_kv" in state:
+            ck, cv = state["cross_kv"]["k"], state["cross_kv"]["v"]
+        else:
+            raise ValueError("cross-attention block needs enc_out or cache")
+        h, _ = L.multi_head_attention(p["cross"], h, cfg, causal=False,
+                                      use_rope=False, precomputed_kv=(ck, cv))
+        x = x + h
     h = L.apply_norm(p["norm2"], x, cfg)
     aux = 0.0
     if blk.ffn == "moe":
@@ -110,12 +145,17 @@ def group_view(cache, g: int):
 
 
 def run_stack(stack_params: List[Dict[str, Any]], x, cfg: ModelConfig, *,
-              cache=None, cache_index=None, block_tables=None,
-              write_tables=None, attend_cache: bool = False):
+              causal: bool = True, cache=None, cache_index=None,
+              enc_out=None, block_tables=None, write_tables=None,
+              attend_cache: bool = False):
     """Run every group of ``stack_params`` in order against the cache
     leaves' matching group entries (a plan stage passes its group slice of
     both).  Returns (x, cache, aux), aux the sum of the MoE layers'
     load-balance losses (the float 0.0 without MoE layers).
+
+    causal=False: bidirectional self-attention (the encoders).  enc_out:
+    the encoder's output, which cross-attention blocks attend (see
+    ``apply_block``).
 
     attend_cache: chunked-prefill continuation -- attention blocks attend
     the tokens already in a dense ``cache`` (scalar ``cache_index`` = their
@@ -127,9 +167,10 @@ def run_stack(stack_params: List[Dict[str, Any]], x, cfg: ModelConfig, *,
         gc = group_view(cache, g) if cache is not None else None
         for j, blk in enumerate(cfg.block_pattern):
             x, _, a = apply_block(
-                gp[f"b{j}"], x, cfg, blk,
+                gp[f"b{j}"], x, cfg, blk, causal=causal,
                 state=gc[f"b{j}"] if gc is not None else None,
-                cache_index=cache_index, block_tables=block_tables,
+                cache_index=cache_index, enc_out=enc_out,
+                block_tables=block_tables,
                 write_tables=write_tables, attend_cache=attend_cache)
             aux = aux + a
     return x, cache, aux
@@ -144,38 +185,49 @@ def _is_global_attn(mixer: str) -> bool:
 
 
 def block_state_shapes(cfg: ModelConfig, blk: BlockSpec, batch: int,
-                       max_seq: int):
-    """One pattern slot's cache leaf shapes, without the group axis."""
+                       max_seq: int, enc_len: int = 0):
+    """One pattern slot's cache leaf shapes, without the group axis; with
+    ``enc_len``, also the cross-attention K/V over that many encoder
+    frames."""
     if blk.mixer == "mamba":
-        return {"ssm_state": SSM.mamba_state_shape(cfg, batch)}
-    # a local-window block keeps a ring of its window's last rows
-    rows = (min(max_seq, cfg.window_size) if blk.mixer == "attn_local"
-            else max_seq)
-    shp = (batch, rows, cfg.num_kv_heads, cfg.head_dim)
-    return {"kv": {"k": shp, "v": shp}}
+        out = {"ssm_state": SSM.mamba_state_shape(cfg, batch)}
+    else:
+        # a local-window block keeps a ring of its window's last rows
+        rows = (min(max_seq, cfg.window_size) if blk.mixer == "attn_local"
+                else max_seq)
+        shp = (batch, rows, cfg.num_kv_heads, cfg.head_dim)
+        out = {"kv": {"k": shp, "v": shp}}
+    if enc_len:
+        shp = (batch, enc_len, cfg.num_kv_heads, cfg.head_dim)
+        out["cross_kv"] = {"k": shp, "v": shp}
+    return out
 
 
 def _dense_block_leaves(cfg: ModelConfig, blk: BlockSpec, batch: int,
-                        max_seq: int, dt, device):
+                        max_seq: int, dt, device, enc_len: int = 0):
     """One pattern slot's dense leaves, zero-filled, group axis leading:
-    K/V in ``dt``, recurrent state in f32 (as on the JAX side)."""
+    K/V (self and cross) in ``dt``, recurrent state in f32 (as on the JAX
+    side)."""
     return {key: {n: torch.zeros((cfg.num_groups,) + shp,
-                                 dtype=dt if key == "kv" else torch.float32,
+                                 dtype=(dt if key in ("kv", "cross_kv")
+                                        else torch.float32),
                                  device=device)
                   for n, shp in val.items()}
-            for key, val in block_state_shapes(cfg, blk, batch,
-                                               max_seq).items()}
+            for key, val in block_state_shapes(cfg, blk, batch, max_seq,
+                                               enc_len).items()}
 
 
-def make_cache(cfg: ModelConfig, batch: int, max_seq: int, *, dtype=None,
-               device="cuda"):
+def make_cache(cfg: ModelConfig, batch: int, max_seq: int, *,
+               enc_len: int = 0, dtype=None, device="cuda"):
     """Dense decode cache: per pattern slot ``{"kv": {"k", "v"}}`` leaves of
     shape (num_groups, batch, max_seq, Hkv, D) (a local-window slot's ring
     holds min(max_seq, window_size) rows), or a mamba slot's
-    ``{"ssm_state": {"conv", "ssm"}}``, zero-filled."""
+    ``{"ssm_state": {"conv", "ssm"}}``, zero-filled; with ``enc_len``
+    (whisper's decoder) also ``{"cross_kv": {"k", "v"}}`` of (num_groups,
+    batch, enc_len, Hkv, D)."""
     dt = getattr(torch, dtype or cfg.dtype)
     return {f"b{j}": _dense_block_leaves(cfg, blk, batch, max_seq, dt,
-                                         device)
+                                         device, enc_len)
             for j, blk in enumerate(cfg.block_pattern)}
 
 
@@ -344,7 +396,9 @@ def copy_cache_pages(full_cache, src: int, dst: int):
     return full_cache
 
 
-def init_stack(generator, cfg: ModelConfig, device):
-    return [{f"b{j}": init_block(generator, cfg, blk, device)
+def init_stack(generator, cfg: ModelConfig, device, cross: bool = False):
+    """One block dict a group (``cfg.num_groups`` of them); ``cross``:
+    with cross-attention (whisper's decoder)."""
+    return [{f"b{j}": init_block(generator, cfg, blk, device, cross=cross)
              for j, blk in enumerate(cfg.block_pattern)}
             for _ in range(cfg.num_groups)]

@@ -172,3 +172,53 @@ def test_search_on_the_h100_gives_a_different_finite_plan_cost():
     hl, ht, _ = P.ssr_dse(tg, acc_of, 8, n_batches=2, hw=H100)
     assert math.isfinite(hl) and math.isfinite(ht) and hl > 0
     assert hl != tl and ht != tt
+
+
+VIT_CASES = [(name, b, chip) for name in ("deit-t", "deit-160", "deit-256",
+                                          "lv-vit-t")
+             for b in (1, 3, 6) for chip in ("vck190", "h100-sxm")]
+
+
+@pytest.mark.parametrize("name,batch,chip", VIT_CASES)
+def test_paper_vit_graphs_simulate_and_strategy_points_equal(name, batch,
+                                                             chip):
+    """The paper's ViTs at ``vit_shape(1, 3, 6)`` on the VCK190 and the
+    H100: block- and op-granularity graphs, ``simulate`` of the sequential
+    (one accelerator of 1 and of 8 chips) and spatial assignments, and
+    ``strategy_points``, equal to JAX's on JAX's configs."""
+    from repro.configs import PAPER_MODELS as J_PAPER
+    from repro.configs import vit_shape as j_vit_shape
+    from repro_torch.configs import PAPER_MODELS as T_PAPER
+    from repro_torch.configs import vit_shape as t_vit_shape
+    from repro.core.hw import Chip as JChip
+    jc, tc = J_PAPER[name], T_PAPER[name]
+    # the H100 is the port's own chip: JAX prices it from the same fields
+    thw = CHIPS[chip]
+    jhw = J.CHIPS.get(chip) or JChip(**dataclasses.asdict(thw))
+    for gran in ("block", "op"):
+        jg = J.build_graph(jc, j_vit_shape(batch), granularity=gran)
+        tg = P.build_graph(tc, t_vit_shape(batch), granularity=gran)
+        assert [dataclasses.asdict(n) for n in jg.nodes] == \
+            [dataclasses.asdict(n) for n in tg.nodes]
+        for ja, ta in ((J.sequential_assignment(jg, 1),
+                        P.sequential_assignment(tg, 1)),
+                       (J.sequential_assignment(jg, 8),
+                        P.sequential_assignment(tg, 8)),
+                       (J.spatial_assignment(jg, 8),
+                        P.spatial_assignment(tg, 8))):
+            same_assignment(ja, ta)
+            jr = J.simulate(jg, ja, batch, hw=jhw)
+            tr = P.simulate(tg, ta, batch, hw=thw)
+            assert close(jr.latency, tr.latency)
+            assert close(jr.makespan, tr.makespan)
+            assert close(jr.throughput_flops, tr.throughput_flops)
+    kw = dict(hw=jhw, batches=(1, batch), hybrid_accs=(2, 3), ea_iters=2,
+              seed=0)
+    jp = J.strategy_points(jg, 8, **kw)
+    tp = P.strategy_points(tg, 8, **dict(kw, hw=thw))
+    assert [(p.strategy, p.n_acc, p.n_batches, p.detail, p.source)
+            for p in jp] == [(p.strategy, p.n_acc, p.n_batches, p.detail,
+                              p.source) for p in tp]
+    for a, b in zip(jp, tp):
+        assert close(a.latency, b.latency)
+        assert close(a.throughput_tops, b.throughput_tops)

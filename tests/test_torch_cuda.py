@@ -50,7 +50,7 @@ def _close(a, b, dtype):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("d", [64, 128, 256])
+@pytest.mark.parametrize("d", [40, 60, 64, 128, 256])
 def test_flash_kernel_matches_plain(cuda_device, dtype, d):
     g = torch.Generator(device=cuda_device).manual_seed(d)
     b, h, hk, sq, skv = 2, 8, 2, 100, 130
@@ -186,7 +186,7 @@ def test_paged_windows_that_split_match_plain(cuda_device, dtype, d, page,
     _close(out, ref, dtype)
 
 
-@pytest.mark.parametrize("d", [64, 128, 256])
+@pytest.mark.parametrize("d", [40, 60, 64, 128, 256])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_kernel_splits_and_fully_masked_rows(cuda_device, dtype, d):
     """Few query tiles over 1000 keys (the bf16 launch splits them), keys
@@ -212,13 +212,64 @@ def test_flash_kernel_splits_and_fully_masked_rows(cuda_device, dtype, d):
             assert not out[:, :, empty].any()
 
 
+# (name, B, H, Sq, Skv, causal, keys valid): the encoders' shapes, H = Hkv
+ENCODER_CASES = {
+    # a ViT layer: 197 positions, every key valid
+    "vit": (3, 4, 197, 197, False, "all"),
+    # whisper's cross decode: one query against 1500 cached frames (split)
+    "cross_decode": (4, 8, 1, 1500, False, "all"),
+    # whisper's dense self-decode: one query at position 20 against a
+    # 448-row cache, rows past 20 invalid
+    "self_decode": (4, 8, 1, 448, True, "prefix"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(ENCODER_CASES))
+@pytest.mark.parametrize("d", [40, 60])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_encoder_shapes_at_head_dims_40_and_60(cuda_device, dtype, d,
+                                                     case):
+    """DeiT-160's and LV-ViT-T's head dims at the encoders' shapes,
+    queries at std 4 (outputs of order 1, not the tolerance's size): the
+    bf16 tile pads 40 to 48 and 60 to 64 columns, and D=60's bf16 rows
+    of 120 bytes start 8 bytes off a 16-byte boundary every other row."""
+    b, h, sq, skv, causal, valid = ENCODER_CASES[case]
+    g = torch.Generator(device=cuda_device).manual_seed(d + sq)
+    q = (4 * torch.randn((b, h, sq, d), generator=g,
+                         device=cuda_device)).to(dtype)
+    k = torch.randn((b, h, skv, d), generator=g, device=cuda_device).to(dtype)
+    v = torch.randn((b, h, skv, d), generator=g, device=cuda_device).to(dtype)
+    qp = torch.arange(sq, device=cuda_device, dtype=torch.int32)
+    if sq == 1:
+        qp = qp + 20
+    kp = torch.arange(skv, device=cuda_device, dtype=torch.int32)
+    kv = torch.ones((skv,), dtype=torch.int32, device=cuda_device)
+    if valid == "prefix":
+        kv = (kp <= 20).to(torch.int32)
+    if dtype == torch.bfloat16 and sq == 1 and skv == 1500:
+        assert TF.flash_split(b, h, sq, skv)[0] > 1
+    out = TF.flash_attention_bhsd(q, k, v, qp, kp, kv, causal=causal)
+    ref = TR.flash_attention_ref(q, k, v, qp, kp, kv, causal=causal)
+    torch.cuda.synchronize()
+    _close(out, ref, dtype)
+    assert float(ref.abs().max()) > 0.5
+
+
+@pytest.mark.parametrize("d", [32, 48, 72, 96])
+def test_flash_kernel_raises_outside_its_head_dims(cuda_device, d):
+    z = torch.zeros((1, 2, 8, d), dtype=torch.bfloat16, device=cuda_device)
+    pos = torch.zeros((8,), dtype=torch.int32, device=cuda_device)
+    with pytest.raises(ValueError, match="head_dim"):
+        TF.flash_attention_bhsd(z, z, z, pos, pos, pos)
+
+
 def _bf16_ulp(x):
     """The spacing of bf16 values at |x| (x in f32)."""
     a = x.abs().clamp_min(2.0 ** -126)
     return torch.exp2(torch.floor(torch.log2(a)) - 7)
 
 
-@pytest.mark.parametrize("d", [64, 128, 256])
+@pytest.mark.parametrize("d", [40, 60, 64, 128, 256])
 def test_flash_bf16_keeps_p_in_f32(cuda_device, d):
     """Phase 3's flash shape in bf16: the kernel within one bf16 ulp of
     the plain version (which keeps P in f32, as JAX's kernel and ref do)

@@ -561,6 +561,9 @@ def _attn_view(cache):
 
 NOT_SERVED = ("xlstm-125m", "whisper-base", "qwen2-vl-72b", "deit-t",
               "lv-vit-t")
+# built by the port, but refused by per-slot serving, as JAX refuses them
+NOT_PER_SLOT = ("whisper-base", "deit-t", "lv-vit-t")
+PER_SLOT = "per-slot prefill"      # both packages' refusal names it
 
 
 def _port_config(jcfg):
@@ -584,12 +587,18 @@ def test_check_supported_lets_only_served_blocks_through(arch):
     with its MoE layers and gemma2 too; yi-6b with MoE FFNs, LayerNorm, a
     plain squared-ReLU MLP, a gated GELU MLP, a tied head, post-block
     norms, a final softcap or local-window mixers builds; xLSTM mixers,
-    M-RoPE and the JAX package's archs not ported yet (xlstm, whisper,
-    qwen2-vl, deit, lv-vit) raise."""
+    M-RoPE and the JAX package's archs not ported yet (xlstm, qwen2-vl)
+    raise.  whisper, deit and lv-vit build, and per-slot serving refuses
+    them with NotImplementedError, as JAX's does: ``prefill_one`` and the
+    dense and paged ``ServingEngine`` on the port's side, ``prefill_one``
+    and the engine on JAX's."""
     from repro_torch.configs.base import BlockSpec, MoEConfig
     from repro_torch.models import transformer as T
     for name in T_REGISTRY:
         T.check_supported(T_REGISTRY[name])
+    if arch in NOT_PER_SLOT:
+        _assert_per_slot_serving_refused(arch)
+        return
     if arch in NOT_SERVED:
         with pytest.raises(NotImplementedError):
             t_build(_port_config(J_REGISTRY[arch]), device="cpu")
@@ -616,3 +625,48 @@ def test_check_supported_lets_only_served_blocks_through(arch):
         for kw in (dict(mrope_sections=(16, 24, 24)),):
             with pytest.raises(NotImplementedError):
                 T.check_supported(dataclasses.replace(cfg, **kw))
+
+
+def _assert_per_slot_serving_refused(arch):
+    from repro.serving import Request as JRequest
+    from repro.serving import ServingEngine as JEngine
+    from repro_torch.serving import Request, ServingEngine
+    jc = j_reduced(J_REGISTRY[arch], layers=1)
+    tc = t_reduced(T_REGISTRY[arch], layers=1)
+    assert dataclasses.asdict(jc) == dataclasses.asdict(tc)
+    tm = t_build(T_REGISTRY[arch], device="cpu")
+    assert tm.cfg is T_REGISTRY[arch]
+    tm = t_build(tc, device="cpu")
+    tp = tm.init(torch.Generator().manual_seed(0))
+    jm = j_build(jc)
+    jp = jm.init(jax.random.key(0))
+    prompt = np.arange(1, 6, dtype=np.int32)
+    with pytest.raises(NotImplementedError, match=PER_SLOT):
+        tm.prefill_one(tp, prompt[None], 5, 16)
+    with pytest.raises(NotImplementedError, match=PER_SLOT):
+        jm.prefill_one(jp, jnp.asarray(prompt[None]), 5, 16)
+    for paged in (False, True):
+        eng = ServingEngine(tm, tp, slots=2, max_seq=16, paged=paged,
+                            page_size=8)
+        eng.submit(Request(0, prompt, 2))
+        with pytest.raises(NotImplementedError, match=PER_SLOT):
+            eng.run()
+    jeng = JEngine(jm, jp, slots=2, max_seq=16)
+    jeng.submit(JRequest(0, prompt, 2))
+    with pytest.raises(NotImplementedError, match=PER_SLOT):
+        jeng.run()
+
+
+@pytest.mark.parametrize("paged", [False, True])
+@pytest.mark.parametrize("arch", ["deit-t", "whisper-base"])
+def test_launcher_refuses_per_slot_serving_of_encoders(arch, paged):
+    """``repro_torch.launch.serve --arch deit-t|whisper-base`` (one layer,
+    on the CPU) fails with the per-slot prefill's NotImplementedError, not
+    with an unrelated error and not by serving something else."""
+    from repro_torch.launch import serve
+    argv = ["--arch", arch, "--layers", "1", "--device", "cpu",
+            "--requests", "1", "--slots", "1", "--new-tokens", "2",
+            "--max-seq", "16"] + (["--paged", "--page-size", "8"]
+                                  if paged else [])
+    with pytest.raises(NotImplementedError, match=PER_SLOT):
+        serve.main(argv)
