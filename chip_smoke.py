@@ -185,6 +185,27 @@ device it fails (it never runs on the CPU instead).  Phases, in order:
      prediction on ``hw.H100`` beside them) and whisper-base at B=4
      (encode, prefill, decode step, tok/s, peak memory), each time beside
      the card's name and power limit.
+  7. the last families: phase 3 adds qwen2-vl's flash shapes
+     (``VLM_FLASH``: the causal prefill at B=2, H=64, Hkv=8, Sq=Skv=512,
+     D=128 and one lock-step decode query over a 1024-row cache, 544 rows
+     valid), f32 and bf16, beside SDPA; phase 4 holds xlstm-125m (f32,
+     published size) through the dense, ``paged=True`` (running dense),
+     ``hybrid:2`` plan (chunks carrying the mLSTM/sLSTM state), overlapped
+     and re-planned (one migrated state row) engines to the one-shot
+     gold, with no speculation; qwen2-vl-72b (f32, published width, 2
+     layers; a 512-position prompt of text, a 16x24 image and text, on
+     distinct M-RoPE streams) to the host's plain forward within 1e-4 and
+     its 17-token greedy stream to the host's; and jamba's MoE period
+     (one period, 2 experts, f32) through the paged engine to the gold.
+     Phase 5 serves xlstm-125m in bf16 with serve-full's engine and
+     prompts (serve-xlstm: tok/s, TTFT, prefill phase, host and device ms
+     and kernels a tick, host syncs, and one 600-token prefill through an
+     mLSTM and an sLSTM layer alone), runs qwen2-vl at 32 of 80 layers
+     (run-vlm, ~61 GB: prefill and decode-step ms beside the weight-read
+     bound, tok/s, peak memory) and serves ``jamba-1.5-large-398b-8e`` at
+     one period (serve-jamba-moe, ~51.8 GB: serve-hybrid's engine and
+     prompts, the expert products' device share), each freeing its model
+     before the next.
 
 It prints a ``{"kernels": [...]}`` JSON line, then as its last line
 ``{"ok": true, "device": {...}}``.  Any failed check exits non-zero
@@ -3189,6 +3210,7 @@ def serve_run(label, model, params, prompts, kernels, new=64, max_seq=1024,
     peak = torch.cuda.max_memory_allocated() / 1e9
     launches = {name: fn.launches for name, fn in kernels.items()}
     st = eng.stats()
+    cs = st["cache"]           # a dense engine (xlstm) has no pool keys
     ttft = sorted(st["ttft_s"])
     # the first wave: the requests admitted into the 4 empty slots
     wave = sorted(done[u].t_first - done[u].t_submit for u in range(4))
@@ -3197,12 +3219,13 @@ def serve_run(label, model, params, prompts, kernels, new=64, max_seq=1024,
           f"tokens in {wall:.3f} s: {st['gen_tokens'] / wall:.2f} tok/s; "
           f"TTFT p50 {ttft[len(ttft) // 2]:.4f} s, max {ttft[-1]:.4f} s; "
           f"decode steps {st['decode_steps']}, tick {tick * 1e3:.2f} ms; "
-          f"warm admissions {st['cache']['prefill_compute_hits']} (reused "
-          f"{st['cache']['reused_prefill_tokens']} tokens)")
+          f"warm admissions {cs.get('prefill_compute_hits', 0)} (reused "
+          f"{cs.get('reused_prefill_tokens', 0)} tokens); layout "
+          f"{cs['layout']}")
     print(f"[serve] {label}: spec steps {st['spec_steps']}, "
           f"acceptance_rate {st['acceptance_rate']:.4f}, tokens_per_step "
-          f"{st['tokens_per_step']:.4f}, kv {st['cache']['kv_dtype']} "
-          f"kv_capacity_x {st['cache']['kv_capacity_x']:.4f}; drafting "
+          f"{st['tokens_per_step']:.4f}, kv {cs.get('kv_dtype', 'dense')} "
+          f"kv_capacity_x {cs.get('kv_capacity_x', 1.0):.4f}; drafting "
           f"{draft_s[0]:.4f} s of host time")
     print(f"[serve] {label}: phase_time_s {json.dumps(st['phase_time_s'])}; "
           f"runtime {'overlap' if eng._overlap else 'sync'}")
@@ -4197,6 +4220,591 @@ def encoder_run_phase(dev, kernels, card):
     return out
 
 
+# ---------------------------------------------------------------------------
+# the last families: xlstm-125m, qwen2-vl-72b, jamba's MoE period
+# ---------------------------------------------------------------------------
+
+XLSTM = "xlstm-125m"
+VLM = "qwen2-vl-72b"
+JAMBA_MOE = "jamba-1.5-large-398b-8e"
+VLM_TEXT = 64                  # text tokens before and after the image
+VLM_GRID = (16, 24)            # the image's patch grid (384 positions)
+VLM_RUN_LAYERS = 32            # of 80: 4.98 + 32 x 1.755 GB in bf16
+VLM_PARITY_LAYERS = 2          # ~17 GB in f32
+VLM_CTX = 1024                 # the decode's dense cache rows
+VLM_STEPS = 32
+# (row, B, H, Hkv, Sq, Skv, D, query position, valid keys): qwen2-vl's
+# causal prefill over the 512-position prompt, and its lock-step decode's
+# last step (position 543 after 32 steps) over the 1024-row cache
+VLM_FLASH = (
+    ("flash_attention_vlm_prefill", 2, 64, 8, 512, 512, 128, None, 512),
+    ("flash_attention_vlm_decode", 2, 64, 8, 1, 1024, 128, 543, 544),
+)
+
+
+def vlm_kernel_phase(dev, flush, results):
+    """Phase 3, qwen2-vl's flash shapes (``VLM_FLASH``), f32 and bf16,
+    against the plain version on the same CUDA tensors: the causal
+    prefill (B=2, H=64, Hkv=8, Sq=Skv=512, D=128) and one lock-step
+    decode query at position 543 over a 1024-row cache whose first 544
+    rows are valid.  Queries at std 4 (``QSTD``), K/V at std 1.  Each row
+    is timed beside its bound (the valid K/V rows read once; 4·D
+    operations an admissible pair), the plain version and SDPA on K/V
+    repeated to H heads beforehand (causal, or with the valid-key mask),
+    with device times and the bf16 key splits."""
+    from repro_torch.kernels import flash_attention as TF
+    from repro_torch.kernels import ref as TR
+    F = torch.nn.functional
+    gen = torch.Generator(device=dev).manual_seed(31)
+
+    def rnd(shape, dtype, std=1.0):
+        return (torch.randn(shape, generator=gen, device=dev)
+                * std).to(dtype)
+
+    for dtype in (torch.float32, torch.bfloat16):
+        el = torch.tensor([], dtype=dtype).element_size()
+        names = []
+        for name, b, h, hk, sq, skv, d, qpos, nvalid in VLM_FLASH:
+            q = rnd((b, h, sq, d), dtype, QSTD)
+            k, v = rnd((b, hk, skv, d), dtype), rnd((b, hk, skv, d), dtype)
+            kp = torch.arange(skv, dtype=torch.int32, device=dev)
+            qp = (kp[:sq] if qpos is None else
+                  torch.full((sq,), qpos, dtype=torch.int32, device=dev))
+            kv = (kp < nvalid).to(torch.int32)
+            args = (q, k, v, qp, kp, kv)
+            out = TF.flash_attention_bhsd(*args, causal=True)
+            ref = TR.flash_attention_ref(*args, causal=True)
+            torch.cuda.synchronize()
+            err = assert_close(name, out, ref, dtype)
+            kr = k.repeat_interleave(h // hk, 1).contiguous()
+            vr = v.repeat_interleave(h // hk, 1).contiguous()
+            if qpos is None:
+                sdpa = functools.partial(F.scaled_dot_product_attention, q,
+                                         kr, vr, is_causal=True)
+                pairs = sq * (sq + 1) // 2
+            else:
+                sdpa = functools.partial(
+                    F.scaled_dot_product_attention, q, kr, vr,
+                    attn_mask=(kp < nvalid)[None, None, None, :])
+                pairs = nvalid
+            bnd, by = bound_ms((2 * b * h * sq * d + 2 * b * hk * nvalid * d)
+                               * el + 4 * (sq + 2 * skv),
+                               4 * b * h * pairs * d, dtype)
+
+            def launch(args=args):
+                return TF.flash_attention_bhsd(*args, causal=True)
+
+            def plain(args=args):
+                return TR.flash_attention_ref(*args, causal=True)
+            results[(name, dtype)] = dict(
+                max_abs_err=err, ms=bench(launch, flush),
+                plain_ms=bench(plain, flush, iters=5, warmup=1),
+                library_ms=bench(sdpa, flush), bound_ms=bnd, bound_by=by,
+                device_ms=device_ms(launch, flush, bound=bnd),
+                library_device_ms=device_ms(sdpa, flush, bound=bnd),
+                splits=splits_of(dtype, TF.flash_split(b, h, sq, skv)),
+                key=(sq, skv, d),
+                shape=f"B={b} H={h} Hkv={hk} Sq={sq} Skv={skv} D={d} "
+                f"causal, {nvalid} keys valid")
+            names.append(name)
+            del q, k, v, kr, vr, args, out, ref
+        print_rows(results, dtype, names)
+        torch.cuda.empty_cache()
+
+
+def mrope_positions(before, grid_h, grid_w, after, batch=1):
+    """(3, B, S) M-RoPE positions as Qwen2-VL lays them out: ``before``
+    text tokens at t = h = w = index, a grid_h x grid_w image at t =
+    start, h = start + row, w = start + col, then ``after`` text tokens
+    from the largest position + 1."""
+    t = list(range(before))
+    h, w = list(t), list(t)
+    for row in range(grid_h):
+        for col in range(grid_w):
+            t.append(before)
+            h.append(before + row)
+            w.append(before + col)
+    nxt = max(t + h + w) + 1
+    for i in range(after):
+        for s in (t, h, w):
+            s.append(nxt + i)
+    pos = np.asarray([t, h, w], np.int64)[:, None]
+    return np.broadcast_to(pos, (3, batch, pos.shape[-1])).copy()
+
+
+def vlm_prompt(table, d, batch, seed):
+    """qwen2-vl's prompt: 64 text tokens through the embedding table
+    ``table``, a 16 x 24 grid of patch embeddings drawn from numpy
+    ``seed`` at the table's scale (N(0, 1/d)), 64 text tokens; f32
+    embeds (B, 512, d) on the table's device and the (3, B, 512)
+    positions."""
+    r = np.random.default_rng(seed)
+    gh, gw = VLM_GRID
+    ids = torch.from_numpy(r.integers(0, table.shape[0],
+                                      (batch, 2 * VLM_TEXT))).to(
+                                          table.device)
+    patches = torch.from_numpy((r.standard_normal((batch, gh * gw, d))
+                                / np.sqrt(d)).astype(np.float32)).to(
+                                    table.device)
+    text = table[ids].to(torch.float32)
+    emb = torch.cat([text[:, :VLM_TEXT], patches, text[:, VLM_TEXT:]], 1)
+    return emb, mrope_positions(VLM_TEXT, gh, gw, VLM_TEXT, batch)
+
+
+def vlm_parity_phase(dev, kernels):
+    """Phase 4, qwen2-vl-72b in f32 at published width and 2 layers
+    (~17 GB), random weights from ``torch.Generator`` seed 0 on the card
+    and the same weights copied to the host: B=1, the 512-position
+    prompt (``vlm_prompt``, M-RoPE positions on distinct streams).
+    ``forward``'s logits within 1e-4 of the host's plain forward,
+    relative to the largest logit; ``prefill`` + 16 ``decode_step``s
+    (positions (3, 1, 1), all three streams at the next text position)
+    give the host's 17 greedy tokens; swapping the h and w streams moves
+    the logits; flash launched once a layer a call."""
+    from repro_torch.configs import REGISTRY
+    from repro_torch.models import build_model
+    flash = kernels["flash_attention"]
+    cfg = dataclasses.replace(REGISTRY[VLM], num_layers=VLM_PARITY_LAYERS,
+                              dtype="float32", param_dtype="float32")
+    model, host = build_model(cfg, device=dev), build_model(cfg, "cpu")
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device=dev).manual_seed(0))
+    hp = params_to(params, "cpu")
+    nparam = model.param_count(params)
+    print(f"[parity] {VLM} f32, {cfg.num_layers} layers: {nparam / 1e9:.3f} "
+          f"B params, {nparam * 4 / 1e9:.1f} GB; init and host copy "
+          f"{time.perf_counter() - t0:.1f} s")
+    emb, pos = vlm_prompt(hp["embed"]["table"], cfg.d_model, 1, 0)
+    batch = {"embeds": emb, "positions": pos}
+    flash.launches = 0
+    got, _ = model.forward(params, batch)
+    torch.cuda.synchronize()
+    fwd_launches = flash.launches
+    swapped, _ = model.forward(params, {"embeds": emb,
+                                        "positions": pos[[0, 2, 1]]})
+    t0 = time.perf_counter()
+    want, _ = host.forward(hp, batch)
+    host_s = time.perf_counter() - t0
+    got, swapped = got.cpu(), swapped.cpu()
+    scale = float(want.abs().max())
+    err = float((got - want).abs().max()) / scale
+    moved = float((swapped - got).abs().max()) / scale
+    ok = bool(torch.isfinite(got).all())
+    print(f"[parity] {VLM} f32 forward (B=1, {emb.shape[1]} positions: "
+          f"{VLM_TEXT} text, a {VLM_GRID[0]}x{VLM_GRID[1]} image, "
+          f"{VLM_TEXT} text): max |card - host| / max |logit| {err:.3g} "
+          f"(max |logit| {scale:.3g}); h and w swapped move the logits by "
+          f"{moved:.3g} of it; flash launches {fwd_launches}; host "
+          f"forward {host_s:.1f} s")
+    check(ok, f"{VLM}: non-finite logits")
+    check(err <= 1e-4, f"{VLM}: f32 logits {err:.3g} from the host's")
+    check(moved > 1e-3, f"{VLM}: swapping the h and w streams moved the "
+                        f"logits by only {moved:.3g}")
+    check(fwd_launches == cfg.num_layers,
+          f"{VLM}: {fwd_launches} flash launches for {cfg.num_layers} "
+          f"layers")
+    del got, want, swapped
+
+    def greedy(m, p, n=16):
+        logits, cache = m.prefill(p, batch, VLM_CTX)
+        toks, gaps, fin = [], [], True
+        nxt = int(pos.max()) + 1
+        for i in range(n + 1):
+            last = logits[:, -1].float()
+            fin = fin and bool(torch.isfinite(last).all())
+            gaps.append(top2_gap(last[0]))
+            toks.append(int(last[0].argmax()))
+            if i == n:
+                break
+            logits, cache = m.decode_step(
+                p, cache, np.array([[toks[-1]]], np.int32),
+                emb.shape[1] + i,
+                positions=np.full((3, 1, 1), nxt + i, np.int64))
+        return toks, min(gaps), fin
+    flash.launches = 0
+    mine, _, fin = greedy(model, params)
+    torch.cuda.synchronize()
+    launches = flash.launches
+    t0 = time.perf_counter()
+    ref, gap, _ = greedy(host, hp)
+    host_s = time.perf_counter() - t0
+    same = mine == ref
+    print(f"[parity] {VLM} f32 prefill + 16 decode steps: 17 greedy tokens "
+          f"equal to the host's: {same} (host's smallest top-2 gap "
+          f"{gap:.3g}); flash launches {launches}; host {host_s:.1f} s")
+    check(fin, f"{VLM}: non-finite decode logits")
+    check(same, f"{VLM}: greedy stream differs from the host's: {mine} vs "
+                f"{ref}")
+    check(launches == 17 * cfg.num_layers,
+          f"{VLM}: {launches} flash launches for 17 calls of "
+          f"{cfg.num_layers} layers")
+    del model, params, hp, host
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(rel_err=err, hw_swap_rel=moved, max_logit=scale,
+                equal=same, min_gap=gap, tokens=mine,
+                launches=fwd_launches + launches)
+
+
+def xlstm_parity_phase(dev, kernels):
+    """Phase 4, xlstm-125m in f32 at published size (12 layers: 9 mLSTM,
+    3 sLSTM; d_model 768, tied head, ~0.3 GB), random weights from
+    ``torch.Generator`` seed 0: serve-full's first 4 prompts (300-600
+    tokens, a shared 256-token prefix), 32 greedy tokens each.  The
+    streams of the dense engine, a ``paged=True`` engine (which must run
+    dense: no KV to page), the ``hybrid:2`` plan engine (2 replicas,
+    chunk 128: the chunks carry the mLSTM and sLSTM state), the
+    overlapped engine and a forced re-plan that migrates one slot's state
+    row must each equal the one-shot gold; every engine prefills at the
+    exact prompt length, and the paged one, built with ``speculate=4``,
+    speculates nothing.  No
+    kernel is on this path: the recurrences are plain PyTorch, as JAX
+    keeps them jnp."""
+    from repro_torch.configs import REGISTRY
+    from repro_torch.launch.serve import _build_serving_plan
+    from repro_torch.models import build_model
+    from repro_torch.plan import lower_serving, uniform_plan
+    from repro_torch.serving import Request, ServingEngine
+    cfg = dataclasses.replace(REGISTRY[XLSTM], dtype="float32",
+                              param_dtype="float32")
+    model = build_model(cfg, device=dev)
+    params = model.init(torch.Generator(device=dev).manual_seed(0))
+    nparam = model.param_count(params)
+    print(f"[parity] {XLSTM} f32, {cfg.num_layers} layers: "
+          f"{nparam / 1e6:.1f} M params, {nparam * 4 / 1e9:.2f} GB")
+    prompts = serve_prompts(cfg, 0, repeat_segment=False)[:4]
+    max_seq, new = 1024, 32
+    sched = [(p, new, 0) for p in prompts]
+    t0 = time.perf_counter()
+    golds, gaps = {}, {}
+    for uid, p in enumerate(prompts):
+        golds[uid], lgs = gold_decode(model, params, p, new, max_seq)
+        gaps[uid] = [top2_gap(x) for x in lgs]
+    print(f"[parity] {XLSTM} gold: prompts {[len(p) for p in prompts]} "
+          f"tokens, {time.perf_counter() - t0:.1f} s")
+    splan = _build_serving_plan(cfg, "hybrid:2", 4, 2, 128, max_seq)
+    out = {}
+    for label, kw in (("dense", {}),
+                      ("paged speculate=4", dict(paged=True, page_size=16,
+                                                 speculate=4)),
+                      ("plan hybrid:2", dict(plan=splan)),
+                      ("overlap", dict(overlap=True))):
+        t0 = time.perf_counter()
+        eng, got, _ = run_engine(f"{XLSTM} f32 {label}", model, params,
+                                 sched, {}, max_seq, 4, **kw)
+        compare_streams(f"{XLSTM} f32 {label} vs one-shot gold", got, golds,
+                        gaps)
+        st = eng.cache_stats()
+        out[label] = dict(seconds=time.perf_counter() - t0,
+                          chunks=eng.prefill_chunk_counts,
+                          spec_steps=eng.stats()["spec_steps"])
+        print(f"[parity] {XLSTM} {label}: prefill_bucket "
+              f"{eng.prefill_bucket}, paged {eng.paged}, layout "
+              f"{st['layout']}, spec steps {out[label]['spec_steps']}, "
+              f"chunks per admission {eng.prefill_chunk_counts}, "
+              f"{out[label]['seconds']:.1f} s")
+        check(eng.prefill_bucket == 1, f"{XLSTM}: padded prefill")
+        check(not eng.paged and st["layout"] == "dense",
+              f"{XLSTM} {label}: the engine did not run dense")
+        if "plan" in kw:
+            check(all(c > 1 for c in eng.prefill_chunk_counts),
+                  f"{XLSTM}: the plan did not chunk the prompts")
+        if "speculate" in kw:
+            check(eng._spec_k == 0 and out[label]["spec_steps"] == 0,
+                  f"{XLSTM}: the engine speculated")
+        del eng
+
+    # a live re-plan: mono -> a 1-stage plan of 2 replicas while both
+    # active slots sit on replica 0 moves one slot, whose mLSTM and sLSTM
+    # state is a dense row that is copied
+    eng = ServingEngine(model, params, slots=4, max_seq=max_seq)
+    finite = watch_all(eng, model, max_seq)
+    for uid in (0, 1):
+        eng.submit(Request(uid, prompts[uid], new))
+    while eng.queue:
+        eng.tick()
+    active = [s for s in range(4) if eng._slot_req[s] is not None]
+    eng.replan(lower_serving(uniform_plan(cfg.num_groups, 1,
+                                          n_microbatches=2),
+                             slots=4, chunk=128))
+    moved = [s for s in range(4) if eng._slot_req[s] is not None]
+    got = {r.uid: r for r in eng.run()}
+    st = eng.stats()
+    print(f"[replan] {XLSTM} f32 rebalance: slots {active} -> {moved}; "
+          f"migrations {st['migrations']} (copies "
+          f"{st['migration_copies']})")
+    check(bool(torch.stack(finite).all()), f"{XLSTM} re-plan: non-finite "
+                                           f"logits")
+    check(active == [0, 1] and moved[1] >= 2 and st["replans"] == 1,
+          f"{XLSTM} re-plan: slots {active} -> {moved}")
+    check(st["migration_copies"] == st["migrations"] >= 1,
+          f"{XLSTM} re-plan: the migration did not copy its state row")
+    compare_streams(f"{XLSTM} f32 re-plan vs one-shot gold", got,
+                    {u: golds[u] for u in (0, 1)}, gaps)
+    out["replan"] = {k: st[k] for k in ("migrations", "migration_copies")}
+    del eng, params, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def mixer_prefill(model, params, cfg, j, s, card):
+    """One ``s``-token prompt through pattern slot ``j``'s mixer of group
+    0 alone, from a zeroed state (an admission's), bf16: ms (CUDA events,
+    median of 3), and the kernels a call launches (profiled)."""
+    from repro_torch.models import transformer as T
+    blk = cfg.block_pattern[j]
+    _, apply, shape = T.RECURRENT[blk.mixer]
+    x = torch.randn((1, s, cfg.d_model), device=params["embed"]["table"]
+                    .device).to(torch.bfloat16)
+    state = {n: torch.zeros(shp, device=x.device)
+             for n, shp in shape(cfg, 1).items()}
+    p = params["stack"][0][f"b{j}"]["mixer"]
+
+    def fn():
+        return apply(p, x, cfg, state=state)[0]
+    ms = event_ms(fn, iters=3, warmup=1)
+    prof = profile_forward(fn, reps=1)
+    print(f"[serve] serve-xlstm: one {s}-token prefill through a "
+          f"{blk.mixer} layer: {ms:.3f} ms, {prof['kernels']:.0f} kernels "
+          f"({prof['kernels'] / s:.1f} a step), device "
+          f"{prof['device_ms']:.3f} ms (busy share "
+          f"{prof['busy_share']:.3f}) ({card})")
+    return dict(ms=ms, kernels=prof["kernels"], device_ms=prof["device_ms"],
+                busy_share=prof["busy_share"])
+
+
+def serve_xlstm_phase(dev, kernels, card):
+    """Phase 5, serve-xlstm: xlstm-125m at published size (12 layers),
+    bf16, random weights from ``torch.Generator`` seed 0, serve-full's
+    engine settings and prompts (4 slots, max_seq 1024, 8 prompts of
+    100-600 tokens, 64 new tokens; ``paged=True`` runs dense: no KV to
+    page), then a profiled decode window (device ms and kernels a tick)
+    and the host syncs a tick; then one 600-token prefill through an
+    mLSTM and an sLSTM layer alone (ms and kernels a layer)."""
+    from repro_torch.configs import REGISTRY
+    from repro_torch.models import build_model
+    from repro_torch.serving import Request
+    cfg = REGISTRY[XLSTM]
+    model = build_model(cfg, device=dev)
+    params = model.init(torch.Generator(device=dev).manual_seed(0))
+    prompts = serve_prompts(cfg, 0, repeat_segment=False)
+    eng, r = serve_run("serve-xlstm", model, params, prompts, {})
+    check(not eng.paged and eng.prefill_bucket == 1,
+          "serve-xlstm: the engine must run dense at exact lengths")
+    r["profile"] = p = profile_decode(eng, prompts[4:], Request)
+    unwatch(eng)
+    r["syncs"] = syncs_per_tick("serve-xlstm", eng, prompts[4:], Request)
+    print(f"[serve] serve-xlstm: tok/s {r['tok_s']:.2f}; TTFT p50 "
+          f"{r['ttft_s'][len(r['ttft_s']) // 2]:.4f} s, max "
+          f"{r['ttft_s'][-1]:.4f} s; prefill phase "
+          f"{r['phase_time_s']['prefill']:.4f} s; host tick "
+          f"{r['tick_s'] * 1e3:.2f} ms; device {p['busy_ms_per_tick']:.4f} "
+          f"ms a tick (busy share {p['busy_share']:.3f}), "
+          f"{p['kernels_per_tick']:.0f} kernels a tick; host syncs a tick "
+          f"{r['syncs']['per_tick']:.2f}; peak memory "
+          f"{r['peak_memory_gb']:.3f} GB ({card})")
+    del eng
+    gc.collect()
+    r["mixers"] = {cfg.block_pattern[j].mixer: mixer_prefill(
+        model, params, cfg, j, 600, card) for j in (0, 3)}
+    del params, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return r
+
+
+def vlm_run_phase(dev, kernels, card):
+    """Phase 5, run-vlm: qwen2-vl-72b at published width, 32 of its 80
+    layers (~61 GB in bf16), random weights from ``torch.Generator`` seed
+    0; B=2, the 512-position prompt (``vlm_prompt``), ``prefill`` (ms:
+    CUDA events, median of 3) into a 1024-row dense cache, then 32
+    lock-step greedy ``decode_step``s at (3, 2, 1) positions (ms a step,
+    host clock to the device's completion), beside the weight-read bound
+    of a step (every weight but the embedding table once, at 3.35 TB/s);
+    tok/s, peak memory, finite logits, flash's launches sorted by
+    (Sq, Skv, D) for the kernel rows."""
+    from repro_torch.configs import REGISTRY
+    from repro_torch.models import build_model
+    flash = kernels["flash_attention"]
+    cfg = dataclasses.replace(REGISTRY[VLM], num_layers=VLM_RUN_LAYERS)
+    model = build_model(cfg, device=dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    nparam = model.param_count(params)
+    table = params["embed"]["table"]
+    step_bytes = (nparam - table.numel()) * 2
+    print(f"[run] {VLM} bf16, {cfg.num_layers} layers: {nparam / 1e9:.3f} B "
+          f"params, {nparam * 2 / 1e9:.2f} GB, init "
+          f"{time.perf_counter() - t0:.1f} s")
+    b = 2
+    emb, pos = vlm_prompt(table, cfg.d_model, b, 1)
+    batch = {"embeds": emb.to(torch.bfloat16), "positions": pos}
+    s = emb.shape[1]
+    nxt = int(pos.max()) + 1
+    with tally_calls("dispatch_flash_attention", flash_key) as tally:
+        flash.launches = 0
+        pre_ms = event_ms(lambda: model.prefill(params, batch, VLM_CTX),
+                          iters=3, warmup=1)
+        logits, cache = model.prefill(params, batch, VLM_CTX)
+        toks = [logits[:, -1].argmax(-1)]
+        finite = [torch.isfinite(logits).all()]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(VLM_STEPS):
+            logits, cache = model.decode_step(
+                params, cache, toks[-1][:, None], s + i,
+                positions=torch.full((3, b, 1), nxt + i, device=dev))
+            toks.append(logits[:, -1].argmax(-1))
+            finite.append(torch.isfinite(logits).all())
+        torch.cuda.synchronize()
+        dec_s = time.perf_counter() - t0
+        launches = flash.launches
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    # where a decode step's time goes: the last step again, profiled
+    prof = profile_forward(lambda: model.decode_step(
+        params, cache, toks[-1][:, None], s + VLM_STEPS - 1,
+        positions=torch.full((3, b, 1), nxt + VLM_STEPS - 1, device=dev)),
+        reps=3)
+    ok = bool(torch.stack(finite).all())
+    step_ms = dec_s * 1e3 / VLM_STEPS
+    bound = step_bytes / PEAK_BYTES * 1e3
+    pre_bound = 2 * b * s * (nparam - table.numel()) / PEAK_OPS[
+        torch.bfloat16] * 1e3
+    out = dict(prefill_ms=pre_ms, prefill_flop_bound_ms=pre_bound,
+               step_ms=step_ms, step_bound_ms=bound,
+               tok_s=b * VLM_STEPS / dec_s, peak_memory_gb=peak, finite=ok,
+               params=nparam, launches_total=launches, step_profile=prof,
+               tally={f"{k[0]}x{k[1]}xD{k[2]}": n
+                      for k, n in tally.items()})
+    out["launches"] = {row[0]: tally.get((row[4], row[5], row[6]), 0)
+                       for row in VLM_FLASH}
+    print(f"[run] run-vlm: {VLM} bf16, {cfg.num_layers} layers, B={b}, "
+          f"{s}-position prompt: prefill {pre_ms:.3f} ms (weight FLOP bound "
+          f"{pre_bound:.3f} ms), {step_ms:.3f} ms a decode step (weight-read "
+          f"bound {bound:.3f} ms: {step_bytes / 1e9:.2f} GB at 3.35 TB/s; "
+          f"{step_ms / bound:.2f}x; a profiled step: device "
+          f"{prof['device_ms']:.3f} ms, busy share {prof['busy_share']:.3f}, "
+          f"{prof['kernels']:.0f} kernels), {out['tok_s']:.2f} tok/s "
+          f"decoding, "
+          f"peak memory {peak:.3f} GB, finite logits {ok}; flash launches "
+          f"{json.dumps(out['tally'])} ({card})")
+    check(ok, f"{VLM}: non-finite logits")
+    check(all(out["launches"][row[0]] > 0 for row in VLM_FLASH)
+          and sum(tally.values()) == launches,
+          f"{VLM}: flash launches {out['tally']} (wrapper {launches})")
+    del model, params, cache, logits
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def jamba_moe_parity_phase(dev, kernels):
+    """Phase 4, jamba's published MoE period in f32: one period (8
+    layers: 7 mamba, 1 attention; MoE on 1, 3, 5, 7, top-2) with 2
+    experts (~45.6 GB), random weights from ``torch.Generator`` seed 1.
+    A staggered schedule through the paged engine must give the one-shot
+    gold's streams (the paged prefill, the unfused decode, the linear
+    scan and the selective scan all launched), at the exact prompt
+    length, without compute reuse or speculation."""
+    from repro_torch.configs import REGISTRY
+    from repro_torch.models import build_model
+    base = REGISTRY[JAMBA_MOE]
+    cfg = dataclasses.replace(base, num_layers=8, dtype="float32",
+                              param_dtype="float32",
+                              moe=dataclasses.replace(base.moe,
+                                                      num_experts=2))
+    model = build_model(cfg, device=dev)
+    params = model.init(torch.Generator(device=dev).manual_seed(1))
+    nparam = model.param_count(params)
+    print(f"[parity] {JAMBA_MOE} f32, 8 layers, 2 experts top-2: "
+          f"{nparam / 1e9:.3f} B params, {nparam * 4 / 1e9:.1f} GB")
+    rng = np.random.default_rng(2)
+    v = cfg.vocab_size
+
+    def toks(n):
+        return rng.integers(1, v, n).astype(np.int32)
+    sched = [(toks(50), 10, 0), (toks(120), 8, 0), (toks(33), 12, 1),
+             (toks(70), 9, 5)]
+    max_seq = 256
+    golds, gaps = {}, {}
+    for uid, (prompt, max_new, _) in enumerate(sched):
+        golds[uid], lgs = gold_decode(model, params, prompt, max_new,
+                                      max_seq)
+        gaps[uid] = [top2_gap(x) for x in lgs]
+    path = {k: kernels[k] for k in ("mamba_scan_fused", "linear_scan",
+                                    "paged_attention", "paged_prefill")}
+    eng, got, launches = run_engine(
+        f"{JAMBA_MOE} paged fp", model, params, sched, path, max_seq, 4,
+        paged=True, page_size=16, speculate=4)
+    compare_streams(f"{JAMBA_MOE} f32 paged vs one-shot gold", got, golds,
+                    gaps)
+    check(eng.prefill_bucket == 1 and not eng._suffix_reuse
+          and eng._spec_k == 0, f"{JAMBA_MOE}: the MoE hybrid must prefill "
+          f"at the exact length, without compute reuse or speculation")
+    del eng, params, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(launches=launches)
+
+
+def serve_jamba_moe_phase(dev, kernels, card):
+    """Phase 5, serve-jamba-moe: ``jamba-1.5-large-398b-8e`` (the
+    published MoE period with 8 of 16 experts) at full width and one
+    period (8 layers, ~51.8 GB in bf16), random weights from
+    ``torch.Generator`` seed 0, serve-hybrid's engine and prompts (paged,
+    4 slots, max_seq 1024, 8 prompts of 100-600 tokens, 64 new tokens),
+    then a profiled decode window (the expert products' device time from
+    the profile's bmm ops: ``expert_device_s``) and the host syncs a
+    tick.  The weights are freed before it returns."""
+    from repro_torch.configs import REGISTRY
+    from repro_torch.models import build_model
+    from repro_torch.serving import Request
+    cfg = dataclasses.replace(REGISTRY[JAMBA_MOE], num_layers=8)
+    model = build_model(cfg, device=dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    nparam = model.param_count(params)
+    print(f"[serve] serve-jamba-moe: {JAMBA_MOE} bf16, 8 layers, "
+          f"{cfg.moe.num_experts} experts top-{cfg.moe.experts_per_token}: "
+          f"{nparam / 1e9:.3f} B params, {nparam * 2 / 1e9:.2f} GB, init "
+          f"{time.perf_counter() - t0:.1f} s")
+    path = {k: kernels[k] for k in ("paged_attention", "linear_scan",
+                                    "mamba_scan_fused", "paged_prefill")}
+    prompts = serve_prompts(cfg, 0, repeat_segment=False)
+    eng, r = serve_run("serve-jamba-moe", model, params, prompts, path)
+    r["params"] = nparam
+    check(eng.prefill_bucket == 1 and not eng._suffix_reuse
+          and eng._spec_k == 0, "serve-jamba-moe: the MoE hybrid must "
+          "prefill at the exact length, without compute reuse or "
+          "speculation")
+    r["profile"] = p = profile_decode(eng, prompts[4:], Request,
+                                      experts=cfg.moe.num_experts)
+    unwatch(eng)
+    r["syncs"] = syncs_per_tick("serve-jamba-moe", eng, prompts[4:],
+                                Request)
+    print(f"[serve] serve-jamba-moe: tok/s {r['tok_s']:.2f}; TTFT p50 "
+          f"{r['ttft_s'][len(r['ttft_s']) // 2]:.4f} s, max "
+          f"{r['ttft_s'][-1]:.4f} s; host tick {r['tick_s'] * 1e3:.2f} ms; "
+          f"device {p['busy_ms_per_tick']:.4f} ms a tick (busy share "
+          f"{p['busy_share']:.3f}), MoE expert products "
+          f"{p['expert_ms_per_tick']:.4f} ms a tick "
+          f"({p['expert_share']:.3f} of the device time); peak memory "
+          f"{r['peak_memory_gb']:.3f} GB; host syncs a tick "
+          f"{r['syncs']['per_tick']:.2f} ({card})")
+    del eng, params, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return r
+
+
 def expert_device_s(prof, experts):
     """Device seconds of the MoE expert products in a profile recorded
     with input shapes: the kernels under every batched-matmul op whose
@@ -4238,11 +4846,12 @@ def profile_decode(eng, prompts, request_cls, experts=None):
         wall = time.perf_counter() - t0
     # device-side events only (kernels, copies): the CPU op that launched
     # a kernel is credited with the same device time and is skipped
-    by_kernel = {}
+    by_kernel, n_kernels = {}, 0
     for evt in prof.key_averages():
         if evt.device_type == DeviceType.CUDA and evt.self_device_time_total:
             by_kernel[evt.key] = (by_kernel.get(evt.key, 0.0)
                                   + evt.self_device_time_total / 1e6)
+            n_kernels += evt.count
     expert = expert_device_s(prof, experts) if experts else 0.0
     classes = {"fused_paged_decode": 0.0, "paged_verify": 0.0,
                "paged_attention": 0.0, "linear_scan": 0.0,
@@ -4282,7 +4891,8 @@ def profile_decode(eng, prompts, request_cls, experts=None):
     print(f"[profile] device seconds by class {json.dumps(classes)}")
     per_tick = {k: v * 1e3 / (ticks + 1) for k, v in classes.items()}
     print(f"[profile] device ms per decode tick: busy "
-          f"{busy * 1e3 / (ticks + 1):.4f}, by class "
+          f"{busy * 1e3 / (ticks + 1):.4f} over "
+          f"{n_kernels / (ticks + 1):.1f} kernels, by class "
           f"{json.dumps({k: round(v, 4) for k, v in per_tick.items()})}")
     for key, sec in top:
         print(f"[profile]   {sec:.5f} s  {key[:90]}")
@@ -4298,6 +4908,7 @@ def profile_decode(eng, prompts, request_cls, experts=None):
                 busy_share=busy / wall if wall else 0.0, classes=classes,
                 per_tick_ms=per_tick,
                 busy_ms_per_tick=busy * 1e3 / (ticks + 1),
+                kernels_per_tick=n_kernels / (ticks + 1),
                 expert_ms_per_tick=expert * 1e3 / (ticks + 1),
                 expert_share=expert / busy if busy else 0.0,
                 top=top, host_top=host[:10], waits=waits)
@@ -4354,6 +4965,9 @@ def main():
         t1 = time.perf_counter()
         encoder_kernel_phase(dev, flush, results)
         print(f"[kernels] encoders {time.perf_counter() - t1:.1f} s")
+        t1 = time.perf_counter()
+        vlm_kernel_phase(dev, flush, results)
+        print(f"[kernels] qwen2-vl {time.perf_counter() - t1:.1f} s")
         front_door_phase(dev, flush, results)
         repair = repair_phase(dev, flush)
         del flush
@@ -4382,6 +4996,12 @@ def main():
         t1 = time.perf_counter()
         parity["encoders"] = encoder_parity_phase(dev, kernels)
         print(f"[parity] encoders {time.perf_counter() - t1:.1f} s")
+        for label, fn in (("xlstm", xlstm_parity_phase),
+                          ("vlm", vlm_parity_phase),
+                          ("jamba_moe", jamba_moe_parity_phase)):
+            t1 = time.perf_counter()
+            parity[label] = fn(dev, kernels)
+            print(f"[parity] {label} {time.perf_counter() - t1:.1f} s")
         t1 = time.perf_counter()
         parity["replan"] = replan_parity_phase(dev, kernels)
         print(f"[replan] phase {time.perf_counter() - t1:.1f} s")
@@ -4403,6 +5023,12 @@ def main():
         t1 = time.perf_counter()
         served["encoders"] = encoder_run_phase(dev, kernels, card)
         print(f"[run] encoders {time.perf_counter() - t1:.1f} s")
+        for label, fn in (("serve-xlstm", serve_xlstm_phase),
+                          ("run-vlm", vlm_run_phase),
+                          ("serve-jamba-moe", serve_jamba_moe_phase)):
+            t1 = time.perf_counter()
+            served[label] = fn(dev, kernels, card)
+            print(f"[serve] {label} {time.perf_counter() - t1:.1f} s")
         print(f"[serve] front-door kernels launched by the serves (no model "
               f"calls them, as in JAX): yi-6b serves "
               f"{json.dumps(served['front_door_launches'])}, hybrid "
@@ -4457,7 +5083,7 @@ def main():
             "src/repro/models/layers.py:512"),
         **{row[0]: ("src/repro_torch/csrc/flash_attention.cu",
                     "src/repro/kernels/flash_attention.py:85")
-           for row in ENCODER_FLASH},
+           for row in ENCODER_FLASH + VLM_FLASH},
         "fused_paged_decode_b2": decode,
         "fused_paged_decode_int8_b2": decode,
         "paged_attention_b2": ("src/repro_torch/csrc/paged_attention.cu",
@@ -4483,10 +5109,11 @@ def main():
            for name in FRONT_DOOR_NORMS},
     }
     # launches: serve-full and serve-int8-spec for yi-6b's kernels,
-    # serve-hybrid for jamba's (the scan rows are one wrapper's count, the
-    # selective scan's another), the front-door run for the matmul and
-    # norm rows (one count each)
-    hy = served["hybrid"]["launches"]
+    # serve-hybrid and serve-jamba-moe for jamba's (the scan rows are one
+    # wrapper's count, the selective scan's another), the front-door run
+    # for the matmul and norm rows (one count each)
+    jm = served["serve-jamba-moe"]["launches"]
+    hy = {k: n + jm[k] for k, n in served["hybrid"]["launches"].items()}
     fam = parity["families"]
     g2 = served["serve-gemma2"]["launches"]
     gi8 = parity["gemma2"]["int8_launches"]
@@ -4552,8 +5179,10 @@ def main():
                 "paged_attention_ring_d256": g2["paged_attention"],
                 **{f"{k}_int8_d256": gi8[k]
                    for k in ("paged_prefill", "fused_paged_decode")},
-                # the encoders' rows: the bf16 ViT and whisper runs
-                **served["encoders"]["launches"]}
+                # the encoders' rows: the bf16 ViT and whisper runs;
+                # qwen2-vl's: run-vlm
+                **served["encoders"]["launches"],
+                **served["run-vlm"]["launches"]}
     low = [f"{n} {str(dt)[6:]}: {r['device_ms']:.4f} < {r['bound_ms']:.4f}"
            for (n, dt), r in results.items()
            if r.get("device_ms") is not None

@@ -13,6 +13,9 @@ default.
         --arch qwen2-moe-a2.7b --paged
     PYTHONPATH=src python -m repro_torch.launch.serve \\
         --arch gemma2-9b --paged --max-seq 8192
+    PYTHONPATH=src python -m repro_torch.launch.serve \\
+        --arch jamba-1.5-large-398b-8e --layers 8 --paged
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch xlstm-125m
     PYTHONPATH=src python -m repro_torch.launch.serve --paged \\
         --strategy hybrid:2 --replicas 2 --chunk 128 --max-seq 1024
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \\
@@ -29,7 +32,9 @@ granite-moe-1b-a400m; gemma2-9b with its alternating local (window 4096)
 and global layers, attention and final logit softcaps, post-block norms
 and GeGLU at head_dim 256; the jamba hybrid with dense FFNs: d_model
 8192, 64 heads, 8 KV heads, mamba d_inner 16384, or with its MoE
-layers), with
+layers, published or cut to 8 experts; xlstm-125m's mLSTM and sLSTM
+stack, which has no KV to page: ``--paged`` falls back to the dense
+layout), with
 random weights from a seeded ``torch.Generator``; ``--layers N`` cuts
 the depth to N layers (a multiple of the block pattern's period: 8 for
 jamba).
@@ -143,11 +148,11 @@ def _adaptive_ladder(cfg, splan, slots: int, chunk: int):
 
 
 def ffn_kind(cfg) -> str:
-    """The FFN kinds of the block pattern: ``dense``, ``moe E×top-k``, or
-    both joined by ``+`` (jamba)."""
+    """The FFN kinds of the block pattern: ``dense``, ``moe E×top-k``,
+    ``none`` (xLSTM's blocks), or several joined by ``+`` (jamba)."""
     kinds = []
     for b in cfg.block_pattern:
-        kind = ("dense" if b.ffn == "dense" else
+        kind = (b.ffn if b.ffn != "moe" else
                 f"moe {cfg.moe.num_experts}×top-{cfg.moe.experts_per_token}")
         if kind not in kinds:
             kinds.append(kind)

@@ -4,9 +4,10 @@ Counterparts of the JAX package's ``models/layers.py`` for the serving
 path of the GQA decoders (llama-style yi, nemotron's LayerNorm and
 squared-ReLU MLP, gemma2's sliding windows, softcaps and GeGLU), of the
 MoE decoders (qwen2-moe, granite-moe), of the attention layers of the
-jamba hybrid (rope-free), and of the encoders (the paper's ViTs and
-whisper's encoder: non-causal, rope-free) and whisper's cross-attention
-over encoder K/V: RMSNorm and LayerNorm, RoPE and sinusoidal positions,
+jamba hybrid (rope-free) and qwen2-vl (M-RoPE), and of the encoders (the
+paper's ViTs and whisper's encoder: non-causal, rope-free) and whisper's
+cross-attention over encoder K/V: RMSNorm and LayerNorm (also per head,
+qk-norm), RoPE, M-RoPE and sinusoidal positions,
 GQA attention over a dense cache or ring or a paged KV cache, the gated
 or plain MLP, the top-k routed MoE FFN, embedding and the LM head (its
 own weight or the embedding's transpose, with an optional final softcap).
@@ -26,6 +27,7 @@ cache tensors it is given, IN PLACE, and returns the same dict.
 """
 from __future__ import annotations
 
+import itertools
 import math
 
 import torch
@@ -49,24 +51,30 @@ def dense_init(generator, shape, in_axis_size, dtype, device):
     return (w * scale).to(dtype)
 
 
-def init_norm(cfg: ModelConfig, device):
-    p = {"scale": torch.ones((cfg.d_model,), dtype=torch.float32,
-                             device=device)}
+def init_norm(cfg: ModelConfig, device, dim: int = 0):
+    """Norm params of width ``dim`` (default ``d_model``; qk-norm's are
+    ``head_dim`` wide)."""
+    dim = dim or cfg.d_model
+    p = {"scale": torch.ones((dim,), dtype=torch.float32, device=device)}
     if cfg.norm_kind == "layernorm":
-        p["bias"] = torch.zeros((cfg.d_model,), dtype=torch.float32,
-                                device=device)
+        p["bias"] = torch.zeros((dim,), dtype=torch.float32, device=device)
     return p
 
 
 def init_attention(generator, cfg: ModelConfig, device, cross: bool = False):
     """wq, wk, wv, wo; a cross-attention layer (``cross``) has the same
-    weights, its wk/wv applied to the encoder's output."""
+    weights, its wk/wv applied to the encoder's output.  With
+    ``cfg.qk_norm``, also ``q_norm``/``k_norm`` of width ``head_dim``."""
     d, qd, kvd = cfg.d_model, cfg.q_dim, cfg.kv_dim
     dt = getattr(torch, cfg.param_dtype)
-    return {"wq": dense_init(generator, (d, qd), d, dt, device),
-            "wk": dense_init(generator, (d, kvd), d, dt, device),
-            "wv": dense_init(generator, (d, kvd), d, dt, device),
-            "wo": dense_init(generator, (qd, d), qd, dt, device)}
+    p = {"wq": dense_init(generator, (d, qd), d, dt, device),
+         "wk": dense_init(generator, (d, kvd), d, dt, device),
+         "wv": dense_init(generator, (d, kvd), d, dt, device),
+         "wo": dense_init(generator, (qd, d), qd, dt, device)}
+    if cfg.qk_norm:
+        p["q_norm"] = init_norm(cfg, device, cfg.head_dim)
+        p["k_norm"] = init_norm(cfg, device, cfg.head_dim)
+    return p
 
 
 def init_mlp(generator, cfg: ModelConfig, device):
@@ -127,11 +135,35 @@ def rope_freqs(head_dim: int, theta: float, device):
     return 1.0 / (theta ** exps)
 
 
-def apply_rope(x, positions, theta: float):
-    """x: (B, S, H, D); positions: (B, S).  Standard RoPE (no M-RoPE)."""
+def apply_rope(x, positions, theta: float, mrope_sections=()):
+    """x: (B, S, H, D); positions: (B, S), or (3, B, S) for M-RoPE.
+
+    M-RoPE (``mrope_sections``, e.g. qwen2-vl's (16, 24, 24), summing to
+    D/2): frequency f rotates by position stream ``sec[f]`` (temporal,
+    height, width), so it needs (3, B, S) positions and raises without
+    them, as JAX asserts.  Without sections a (3, B, S) input rotates by
+    its stream 0."""
     d = x.shape[-1]
     inv = rope_freqs(d, theta, x.device)
-    angles = positions.to(torch.float32)[..., None] * inv       # (B,S,d/2)
+    if mrope_sections:
+        if positions.dim() != 3:
+            raise ValueError("M-RoPE needs (3, B, S) positions")
+        if sum(mrope_sections) != d // 2:
+            raise ValueError(f"M-RoPE sections {mrope_sections} must sum "
+                             f"to head_dim / 2 = {d // 2}")
+        # the stream of each frequency, (d/2,), built on the device from
+        # the sections' bounds (no host-to-device copy)
+        f = torch.arange(d // 2, device=x.device)
+        sec = torch.zeros_like(f)
+        for bound in itertools.accumulate(mrope_sections[:-1]):
+            sec = sec + (f >= bound).long()
+        # each frequency's position stream, (B, S, d/2)
+        pos = positions.to(torch.float32)[sec].permute(1, 2, 0)
+        angles = pos * inv
+    else:
+        if positions.dim() == 3:
+            positions = positions[0]
+        angles = positions.to(torch.float32)[..., None] * inv   # (B,S,d/2)
     cos = torch.cos(angles)[:, :, None, :]
     sin = torch.sin(angles)[:, :, None, :]
     x1, x2 = torch.chunk(x.to(torch.float32), 2, dim=-1)
@@ -261,12 +293,20 @@ def cross_kv(p, enc_out, cfg: ModelConfig):
     return k.reshape(b, t, hk, hd), v.reshape(b, t, hk, hd)
 
 
-def multi_head_attention(p, x, cfg: ModelConfig, *, causal: bool = True,
-                         window: int = 0, kv_cache=None, cache_index=None,
+def multi_head_attention(p, x, cfg: ModelConfig, *, positions=None,
+                         causal: bool = True, window: int = 0,
+                         kv_cache=None, cache_index=None,
                          kv_source=None, use_rope: bool = True,
                          precomputed_kv=None, block_tables=None,
                          write_tables=None, attend_cache: bool = False):
     """GQA attention with RoPE over an optional KV cache.
+
+    positions: explicit RoPE positions, (B, S), or (3, B, S) for M-RoPE
+    (qwen2-vl).  They rotate q and k only: every mask keeps the query
+    positions the cache offset gives (``q_pos``), as JAX's does.  None:
+    the positions ``cache_index`` gives.  With ``q_norm``/``k_norm`` in
+    ``p`` (qk-norm), q and k are normed per head after the head reshape
+    and before RoPE.
 
     causal=False: bidirectional attention (the encoders).  Cross-attention
     takes its keys from ``kv_source`` (B, T, D), projected here, or from
@@ -296,9 +336,10 @@ def multi_head_attention(p, x, cfg: ModelConfig, *, causal: bool = True,
       * paged cache ``{"k_pages", "v_pages"}: (N, P, Hkv, D)`` (int8
         pools add ``k_scales``/``v_scales`` (N, P, Hkv)) with
         ``block_tables``: one-token per-slot decode through the fused
-        RoPE + page-write + attention kernel (rope-free attention, which
-        cannot fuse, writes the fresh row and then runs the unfused paged
-        decode kernel); a per-slot window of S > 1
+        RoPE + page-write + attention kernel (rope-free attention, M-RoPE
+        and explicit positions cannot fuse: they write the fresh row and
+        then run the unfused paged decode kernel); a per-slot window of
+        S > 1
         tokens (the speculative verify: written at each slot's positions,
         then attended causally over the slot's pages); or batch-1 suffix
         prefill (scalar ``cache_index`` = tokens already cached; K/V
@@ -318,6 +359,9 @@ def multi_head_attention(p, x, cfg: ModelConfig, *, causal: bool = True,
         t = kv_in.shape[1]
         k = torch.matmul(kv_in, p["wk"]).reshape(b, t, hk, hd)
         v = torch.matmul(kv_in, p["wv"]).reshape(b, t, hk, hd)
+    if "q_norm" in p:
+        q = apply_norm(p["q_norm"], q, cfg)
+        k = apply_norm(p["k_norm"], k, cfg)
     rope = use_rope and cfg.rope_theta > 0
 
     per_slot = torch.is_tensor(cache_index) and cache_index.dim() == 1
@@ -329,16 +373,16 @@ def multi_head_attention(p, x, cfg: ModelConfig, *, causal: bool = True,
         offset = int(offset)
     paged = kv_cache is not None and "k_pages" in kv_cache
     fuse_decode = paged and s == 1 and per_slot and rope \
-        and kv_source is None and block_tables is not None
-    if per_slot:
-        positions = pos_bs
-    else:
-        positions = (offset + torch.arange(s, device=dev))[None, :].expand(
-            b, s)
+        and kv_source is None and block_tables is not None \
+        and not cfg.mrope_sections and positions is None
+    if positions is None:
+        positions = pos_bs if per_slot else (
+            offset + torch.arange(s, device=dev))[None, :].expand(b, s)
     if rope and not fuse_decode:
-        q = apply_rope(q, positions, cfg.rope_theta)
+        q = apply_rope(q, positions, cfg.rope_theta, cfg.mrope_sections)
         if kv_source is None:
-            k = apply_rope(k, positions, cfg.rope_theta)
+            k = apply_rope(k, positions, cfg.rope_theta,
+                           cfg.mrope_sections)
     causal = causal and kv_source is None
     q_pos = pos_bs if per_slot else torch.arange(s, device=dev) + offset
 

@@ -1,12 +1,15 @@
 """Model facade of the port: init / forward / prefill / decode.
 
 ``build_model(cfg, device)`` returns a ``Model`` whose methods are plain
-functions of (params, inputs), like the JAX facade's, for the dense and
-MoE GQA decoders and the attention + mamba hybrids the port serves, the
-encoder-only ViTs (family ``vision``) and whisper's encoder-decoder
-(family ``audio``).  Params are nested dicts of tensors on
-``model.device``, under the JAX facade's names:
-  * LM families: ``{"embed": {"table"}, "stack": [per-group block dicts],
+functions of (params, inputs), like the JAX facade's, for every family of
+the JAX package: the dense and MoE GQA decoders, the attention + mamba
+hybrids, xLSTM (family ``ssm``), qwen2-vl (family ``vlm``: merged text +
+patch ``embeds`` and M-RoPE ``positions`` of (3, B, S); its vision tower
+a stub, as in JAX), the encoder-only ViTs (family ``vision``) and
+whisper's encoder-decoder (family ``audio``).  Params are nested dicts
+of tensors on ``model.device``, under the JAX facade's names:
+  * LM families (vlm too): ``{"embed": {"table"}, "stack": [per-group
+    block dicts],
     "final_norm": {"scale"} (and ``"bias"`` for LayerNorm), "head":
     {"w"}}``, without ``"head"`` when the config ties it to the embedding;
   * vision: ``{"pos_embed": (1, 256, D) f32, "cls": (1, 1, D) f32,
@@ -16,9 +19,9 @@ encoder-only ViTs (family ``vision``) and whisper's encoder-decoder
     transpose.
 Inputs may be numpy arrays or tensors; they are moved to the model's
 device.  As in JAX, the per-slot serving primitives (``prefill_one``,
-``prefill_suffix_paged``) serve token-LM families only: vision and audio
-raise NotImplementedError there, and run through ``forward``,
-``prefill`` and ``decode_step``.
+``prefill_suffix_paged``) serve token-LM families only: vision, audio,
+vlm and any M-RoPE config raise NotImplementedError there, and run
+through ``forward``, ``prefill`` and ``decode_step``.
 """
 from __future__ import annotations
 
@@ -37,6 +40,14 @@ def _embeds(x, device, dtype):
     """Precomputed embeddings (the frontend stubs' input) on ``device`` in
     the activation dtype."""
     return torch.as_tensor(x).to(device=device).to(dtype)
+
+
+def _positions(x, device):
+    """Explicit positions ((B, S), or (3, B, S) for M-RoPE) as an int64
+    tensor on ``device``, or None."""
+    if x is None:
+        return None
+    return torch.as_tensor(x, device=device).long()
 
 
 def _tokens(x, device):
@@ -89,14 +100,27 @@ class Model:
         return params
 
     # --------------------------------------------------------------- forward
-    def _lm_hidden(self, params, x, *, cache=None, cache_index=None,
-                   block_tables=None, write_tables=None):
+    def _lm_hidden(self, params, x, *, positions=None, cache=None,
+                   cache_index=None, block_tables=None, write_tables=None):
         """Returns (final-normed hidden, cache, aux)."""
         x, cache, aux = T.run_stack(params["stack"], x, self.cfg,
-                                    cache=cache, cache_index=cache_index,
+                                    positions=positions, cache=cache,
+                                    cache_index=cache_index,
                                     block_tables=block_tables,
                                     write_tables=write_tables)
         return L.apply_norm(params["final_norm"], x, self.cfg), cache, aux
+
+    def _lm_inputs(self, params, batch):
+        """An LM batch's stack input and positions: ``batch["embeds"]``
+        (B, S, D) in place of the embedded ``batch["tokens"]`` when given
+        (qwen2-vl's merged text + patch embeddings), and
+        ``batch.get("positions")`` on the device (None: from the cache
+        offset)."""
+        if "embeds" in batch:
+            x = _embeds(batch["embeds"], self.device, self._dtype())
+        else:
+            x = self._embed(params, batch["tokens"])
+        return x, _positions(batch.get("positions"), self.device)
 
     def _dtype(self):
         return getattr(torch, self.cfg.dtype)
@@ -112,7 +136,9 @@ class Model:
     def forward(self, params, batch):
         """Full forward -> (logits f32, aux_loss: the MoE layers' summed
         load-balance loss, 0 without them).  LM families: causal over
-        ``batch["tokens"]`` (B, S), logits (B, S, V).  vision:
+        ``batch["tokens"]`` (B, S), or ``batch["embeds"]`` (B, S, D) in
+        their place, at ``batch.get("positions")`` (vlm: (3, B, S)
+        M-RoPE positions, required), logits (B, S, V).  vision:
         ``batch["embeds"]`` (B, S, D) patch embeddings, a cls token
         prepended and learned positions added, bidirectional, logits
         (B, V) of the cls token.  audio: ``batch["enc_embeds"]`` (B, T, D)
@@ -136,8 +162,8 @@ class Model:
             logits = self._head(params,
                                 L.apply_norm(params["final_norm"], y, cfg))
         else:
-            x = self._embed(params, batch["tokens"])
-            hidden, _, aux = self._lm_hidden(params, x)
+            x, positions = self._lm_inputs(params, batch)
+            hidden, _, aux = self._lm_hidden(params, x, positions=positions)
             logits = self._head(params, hidden)
         return logits, torch.as_tensor(aux, dtype=torch.float32,
                                        device=logits.device)
@@ -160,10 +186,11 @@ class Model:
         return y + pos[None].to(y.dtype)
 
     def _lm_only(self, what):
-        if self.cfg.family in ("vision", "audio", "vlm"):
+        if self.cfg.family in ("vision", "audio", "vlm") \
+                or self.cfg.mrope_sections:
             raise NotImplementedError(
-                f"{what} serves token-LM families (dense/moe/hybrid), not "
-                f"{self.cfg.family} ({self.cfg.name})")
+                f"{what} serves token-LM families (dense/moe/hybrid/ssm), "
+                f"not {self.cfg.family} ({self.cfg.name})")
 
     # --------------------------------------------------------------- serving
     def init_cache(self, batch: int, max_seq: int, enc_len: int = 0):
@@ -178,7 +205,9 @@ class Model:
 
     def prefill(self, params, batch, max_seq: int):
         """Process the prompt into a fresh dense cache; returns
-        (logits at the last position (B, 1, V), cache).  audio: the
+        (logits at the last position (B, 1, V), cache).  LM families take
+        ``batch["embeds"]`` and ``batch["positions"]`` as ``forward``
+        does.  audio: the
         encoder runs over ``batch["enc_embeds"]``, the decoder over
         ``batch["dec_tokens"]``, and each decoder block's cross-attention
         K/V land in the cache's ``cross_kv`` leaves."""
@@ -196,10 +225,10 @@ class Model:
                                       cache_index=0)
             y = L.apply_norm(params["final_norm"], y[:, -1:], cfg)
             return self._head(params, y), cache
-        x = self._embed(params, batch["tokens"])
+        x, positions = self._lm_inputs(params, batch)
         cache = self.init_cache(x.shape[0], max_seq)
-        hidden, cache, _ = self._lm_hidden(params, x, cache=cache,
-                                           cache_index=0)
+        hidden, cache, _ = self._lm_hidden(params, x, positions=positions,
+                                           cache=cache, cache_index=0)
         return self._head(params, hidden[:, -1:]), cache
 
     def prefill_one(self, params, tokens, length: int, max_seq: int):
@@ -247,13 +276,16 @@ class Model:
             full_cache, view, int(slot))
 
     def decode_step(self, params, cache, tokens, cache_index,
-                    block_tables=None):
+                    block_tables=None, positions=None):
         """One decode step.  tokens (B, S): S = 1 for plain decode, or
         S = K+1 for a speculative-verify window (current token + K drafted
         tokens per slot, scored in one step, at per-slot ``cache_index``).
         ``cache_index`` an int (all rows in lock-step) or a (B,) vector of
         per-slot positions; ``block_tables`` (B, NB) when ``cache`` is
-        pool-backed.  Returns (logits (B, S, V), cache written in place).
+        pool-backed; ``positions`` explicit RoPE positions ((3, B, S) for
+        M-RoPE: qwen2-vl's next text position on all three streams), which
+        rotate q and k only.  Returns (logits (B, S, V), cache written in
+        place).
         audio: lock-step only (an int ``cache_index``), the token's
         sinusoidal position added; cross-attention reads the cached
         ``cross_kv``."""
@@ -274,9 +306,9 @@ class Model:
                                              x.device).to(x.dtype)
         if block_tables is not None:
             block_tables = torch.as_tensor(block_tables, device=self.device)
-        hidden, cache, _ = self._lm_hidden(params, x, cache=cache,
-                                           cache_index=cache_index,
-                                           block_tables=block_tables)
+        hidden, cache, _ = self._lm_hidden(
+            params, x, positions=_positions(positions, self.device),
+            cache=cache, cache_index=cache_index, block_tables=block_tables)
         return self._head(params, hidden), cache
 
     def param_count(self, params) -> int:

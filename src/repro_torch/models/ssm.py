@@ -1,16 +1,20 @@
-"""The Mamba-1 selective SSM mixer of the port (jamba's mamba layers).
+"""The recurrent mixers of the port: Mamba-1 (jamba) and xLSTM's mLSTM and
+sLSTM (xlstm-125m).
 
-Counterpart of the mamba half of the JAX package's ``models/ssm.py``:
+Counterpart of the JAX package's ``models/ssm.py``:
 
   init_mamba(generator, cfg, device)        -> params
   apply_mamba(p, x, cfg, state=None)        -> (y, new_state)
+  init_mlstm / apply_mlstm, init_slstm / apply_slstm: the same contract
 
-``state`` is the O(1) recurrent state a slot carries between steps,
-``{"conv": (B, d_conv - 1, d_inner), "ssm": (B, d_inner, d_state)}``
-(both f32 in the caches); ``state=None`` starts from zeros.  The
-selective SSM ``h_t = exp(delta_t A) h_{t-1} + delta_t B_t x_t``,
-``y_t = C_t . h_t`` takes the path the JAX package takes with
-``REPRO_MAMBA`` unset (the port reads no environment variable for it):
+``state`` is the O(1) recurrent state a slot carries between steps, f32
+in the caches: mamba's ``{"conv": (B, d_conv - 1, d_inner), "ssm": (B,
+d_inner, d_state)}``, mLSTM's ``{"C": (B, H, hd, hd), "n": (B, H, hd),
+"m": (B, H)}`` (hd = d_inner // H, mLSTM's own head width), sLSTM's
+``{"c", "n", "h", "m"}``, each (B, d).  Mamba's selective SSM
+``h_t = exp(delta_t A) h_{t-1} + delta_t B_t x_t``, ``y_t = C_t . h_t``
+takes the path the JAX package takes with ``REPRO_MAMBA`` unset (the
+port reads no environment variable for it):
 
   * S > 1 (prefill): ``mamba_scan_fused``, the fused selective scan
     (``kernels/selective_scan.py``: the Hopper kernel on CUDA, its plain
@@ -20,11 +24,21 @@ selective SSM ``h_t = exp(delta_t A) h_{t-1} + delta_t B_t x_t``,
     d_inner * d_state) f32, through ``dispatch_linear_scan`` with the
     slot's state as h0, then the C contraction.
 
+The xLSTM recurrences reach no kernel, in either package: JAX runs them
+as a sequential ``lax.scan`` in jnp, the port as a Python loop over time
+in plain PyTorch (batch and heads vectorized), one step's state at a
+time (the state history is never stored).  With ``state=None`` their
+stabilizer ``m`` starts at -1e30, as JAX's does; from a cache it starts
+at the cache's leaves (zeros from ``make_cache``): the two give close,
+not identical, values, and the port mirrors both.
+
 Dtypes as on the JAX side: the in/x/out projections take the activation
 dtype; the in and out projections are cast back to it, and the x
 projection keeps its f32 accumulator (``matmul_f32``).  ``conv_w``,
 ``conv_b``, ``dt_proj``, ``dt_bias``, ``A_log`` and ``D`` are f32 and
-the scan runs in f32.
+the scan runs in f32.  mLSTM's q, k and v keep their f32 accumulators,
+its gate weights ``w_i``/``w_f``, ``f_bias`` and ``out_norm`` are f32;
+sLSTM's ``w_h``, ``bias`` and ``f_bias`` are f32, its recurrence f32.
 """
 from __future__ import annotations
 
@@ -152,3 +166,166 @@ def mamba_state_shape(cfg: ModelConfig, batch: int):
     d_inner, _ = mamba_dims(cfg)
     return {"conv": (batch, cfg.ssm.d_conv - 1, d_inner),
             "ssm": (batch, d_inner, cfg.ssm.d_state)}
+
+
+# ---------------------------------------------------------------------------
+# mLSTM (matrix memory)
+# ---------------------------------------------------------------------------
+
+def mlstm_dims(cfg: ModelConfig):
+    d_inner = int(cfg.xlstm.mlstm_proj_factor * cfg.d_model)
+    return d_inner, d_inner // cfg.num_heads
+
+
+def init_mlstm(generator, cfg: ModelConfig, device):
+    """Random mLSTM weights with the JAX init constants (dense
+    N(0,1)/sqrt(fan_in), the gate weights f32, f_bias = 3)."""
+    d, h = cfg.d_model, cfg.num_heads
+    d_inner, _ = mlstm_dims(cfg)
+    dt = getattr(torch, cfg.param_dtype)
+    f32 = torch.float32
+    return {
+        "up_proj": dense_init(generator, (d, 2 * d_inner), d, dt, device),
+        "wq": dense_init(generator, (d_inner, d_inner), d_inner, dt, device),
+        "wk": dense_init(generator, (d_inner, d_inner), d_inner, dt, device),
+        "wv": dense_init(generator, (d_inner, d_inner), d_inner, dt, device),
+        "w_i": dense_init(generator, (d_inner, h), d_inner, f32, device),
+        "w_f": dense_init(generator, (d_inner, h), d_inner, f32, device),
+        "f_bias": torch.full((h,), 3.0, dtype=f32, device=device),
+        "out_norm": {"scale": torch.ones((d_inner,), dtype=f32,
+                                         device=device)},
+        "down_proj": dense_init(generator, (d_inner, d), d_inner, dt,
+                                device),
+    }
+
+
+def apply_mlstm(p, x, cfg: ModelConfig, state: Optional[dict] = None):
+    """Stabilized exponential-gating mLSTM, step by step over the
+    sequence as JAX's ``lax.scan``.  x: (B, S, d); state: {"C", "n", "m"}
+    or None.  Returns (out (B, S, d) in x's dtype, the last state)."""
+    b, s, _ = x.shape
+    h = cfg.num_heads
+    d_inner, hd = mlstm_dims(cfg)
+    dt_ = x.dtype
+    f32 = torch.float32
+
+    up = torch.matmul(x, p["up_proj"]).to(dt_)
+    xin, z = torch.split(up, d_inner, dim=-1)
+    q = matmul_f32(xin, p["wq"]).reshape(b, s, h, hd) / math.sqrt(hd)
+    k = matmul_f32(xin, p["wk"]).reshape(b, s, h, hd)
+    v = matmul_f32(xin, p["wv"]).reshape(b, s, h, hd)
+    xf = xin.to(f32)
+    i_gate = torch.matmul(xf, p["w_i"])                          # (B,S,H)
+    log_f = F.logsigmoid(torch.matmul(xf, p["w_f"]) + p["f_bias"])
+
+    if state is None:
+        c = torch.zeros((b, h, hd, hd), dtype=f32, device=x.device)
+        n = torch.zeros((b, h, hd), dtype=f32, device=x.device)
+        m = torch.full((b, h), -1e30, dtype=f32, device=x.device)
+    else:
+        c, n, m = state["C"], state["n"], state["m"]
+    hs = torch.empty((b, s, h, hd), dtype=f32, device=x.device)
+    for t in range(s):
+        q_t, k_t, v_t = q[:, t], k[:, t], v[:, t]
+        i_t, lf_t = i_gate[:, t], log_f[:, t]
+        m_new = torch.maximum(lf_t + m, i_t)
+        f_eff = torch.exp(lf_t + m - m_new)
+        i_eff = torch.exp(i_t - m_new)
+        c = f_eff[..., None, None] * c \
+            + i_eff[..., None, None] * (k_t[..., :, None] * v_t[..., None, :])
+        n = f_eff[..., None] * n + i_eff[..., None] * k_t
+        num = torch.matmul(q_t[..., None, :], c)[..., 0, :]      # (B,H,hd)
+        den = torch.abs((q_t * n).sum(dim=-1))
+        den = torch.maximum(den, torch.exp(-m_new))
+        hs[:, t] = num / den[..., None]
+        m = m_new
+
+    # per-head RMS output norm, then the z gate and the down projection
+    var = hs.square().mean(dim=-1, keepdim=True)
+    hn = (hs * torch.rsqrt(var + 1e-6)).reshape(b, s, d_inner)
+    hn = hn * p["out_norm"]["scale"]
+    hn = (hn * F.silu(z.to(f32))).to(dt_)
+    out = torch.matmul(hn, p["down_proj"]).to(dt_)
+    return out, {"C": c, "n": n, "m": m}
+
+
+def mlstm_state_shape(cfg: ModelConfig, batch: int):
+    _, hd = mlstm_dims(cfg)
+    h = cfg.num_heads
+    return {"C": (batch, h, hd, hd), "n": (batch, h, hd), "m": (batch, h)}
+
+
+# ---------------------------------------------------------------------------
+# sLSTM (scalar memory, recurrent mixing)
+# ---------------------------------------------------------------------------
+
+def init_slstm(generator, cfg: ModelConfig, device):
+    """Random sLSTM weights with the JAX init constants: the input weights
+    of the four gates (i, f, z, o), block-diagonal recurrent weights a
+    head (H, hd, 4 hd) in f32, bias 0, f_bias 3, the GLU's up and down
+    projections."""
+    d, h = cfg.d_model, cfg.num_heads
+    hd = d // h
+    d_ff = int(cfg.xlstm.slstm_proj_factor * d)
+    dt = getattr(torch, cfg.param_dtype)
+    f32 = torch.float32
+    return {
+        "w_x": dense_init(generator, (d, 4 * d), d, dt, device),
+        "w_h": dense_init(generator, (h, hd, 4 * hd), hd, f32, device),
+        "bias": torch.zeros((4 * d,), dtype=f32, device=device),
+        "f_bias": torch.full((d,), 3.0, dtype=f32, device=device),
+        "up": dense_init(generator, (d, 2 * d_ff), d, dt, device),
+        "down": dense_init(generator, (d_ff, d), d_ff, dt, device),
+    }
+
+
+def apply_slstm(p, x, cfg: ModelConfig, state: Optional[dict] = None):
+    """Strictly sequential scalar-memory LSTM with exponential gating.
+    x: (B, S, d); state: {"c", "n", "h", "m"}, each (B, d), or None.
+    Returns (out (B, S, d) in x's dtype, the last state).
+
+    The recurrent product is per head, ``(B, H, hd) @ (H, hd, 4 hd)``,
+    laid out (B, 4 d); ``gx + rec`` is then cut into four contiguous
+    chunks of d for i, f, z and o, as JAX cuts it (so a gate's chunk
+    takes the recurrent outputs of every head)."""
+    b, s, d = x.shape
+    h = cfg.num_heads
+    hd = d // h
+    dt_ = x.dtype
+    f32 = torch.float32
+
+    gates_x = matmul_f32(x, p["w_x"]) + p["bias"]               # (B,S,4d)
+    if state is None:
+        c = torch.zeros((b, d), dtype=f32, device=x.device)
+        n, hh = torch.zeros_like(c), torch.zeros_like(c)
+        m = torch.full((b, d), -1e30, dtype=f32, device=x.device)
+    else:
+        c, n, hh, m = state["c"], state["n"], state["h"], state["m"]
+    w_h = p["w_h"]                                              # (H,hd,4hd)
+    hs = torch.empty((b, s, d), dtype=f32, device=x.device)
+    for t in range(s):
+        rec = torch.matmul(hh.reshape(b, h, hd).transpose(0, 1), w_h)
+        g = gates_x[:, t] + rec.transpose(0, 1).reshape(b, 4 * d)
+        i_r, f_r, z_r, o_r = torch.split(g, d, dim=-1)
+        lsf = F.logsigmoid(f_r + p["f_bias"])
+        m_new = torch.maximum(lsf + m, i_r)
+        i_e = torch.exp(i_r - m_new)
+        f_e = torch.exp(lsf + m - m_new)
+        c = f_e * c + i_e * torch.tanh(z_r)
+        n = f_e * n + i_e
+        hh = torch.sigmoid(o_r) * c / torch.clamp(n, min=1e-6)
+        m = m_new
+        hs[:, t] = hh
+
+    # post up/down projection: a GLU with JAX's default (tanh) GELU
+    up = matmul_f32(hs.to(dt_), p["up"])
+    a, gate = torch.chunk(up, 2, dim=-1)
+    y = (F.gelu(a, approximate="tanh") * gate).to(dt_)
+    out = torch.matmul(y, p["down"]).to(dt_)
+    return out, {"c": c, "n": n, "h": hh, "m": m}
+
+
+def slstm_state_shape(cfg: ModelConfig, batch: int):
+    d = cfg.d_model
+    return {"c": (batch, d), "n": (batch, d), "h": (batch, d),
+            "m": (batch, d)}

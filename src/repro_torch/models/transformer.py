@@ -8,19 +8,23 @@ dense ``(num_groups, B, W, Hkv, D)``, paged ``(num_groups, num_blocks + 1,
 page, Hkv, D)`` -- and each layer reads and writes its group's slice in
 place.
 
-The port serves stacks of ``attn``, ``attn_global``, ``attn_local`` and
-``mamba`` mixers with dense or MoE FFNs (the llama-style and nemotron
-decoders, qwen2-moe and granite-moe, jamba, gemma2 with its post-block
-norms), the encoder-only ViTs (``causal=False``), and whisper's encoder
-and decoder, whose blocks add cross-attention over the encoder's output
-(``init_stack(cross=True)``; its K/V cached at prefill as
+The port serves every block kind of the JAX package: the ``attn``,
+``attn_global``, ``attn_local``, ``mamba``, ``mlstm`` and ``slstm``
+mixers with dense, MoE or no FFN (``ffn="none"``: xLSTM's blocks carry
+their own projections, and such a block has no ``norm2``/``ffn``), in
+the llama-style and nemotron decoders, qwen2-moe and granite-moe, jamba,
+gemma2 (post-block norms), xlstm-125m, qwen2-vl (M-RoPE, through
+``positions``), the encoder-only ViTs (``causal=False``), and whisper's
+encoder and decoder, whose blocks add cross-attention over the encoder's
+output (``init_stack(cross=True)``; its K/V cached at prefill as
 ``{"cross_kv": {"k", "v"}}`` leaves of (num_groups, B, enc_len, Hkv,
-D)); other block kinds raise.  A mamba block's cache is its recurrent
-state, ``{"ssm_state": {"conv", "ssm"}}`` f32 leaves of shape
-(num_groups, B, ...); a local-window block's is a ring of
-``min(max_seq, window_size)`` rows in the activation dtype.  Both stay
-dense per slot in either layout (a paged cache pages only the global
-attention K/V).
+D)); unknown mixers, FFNs and activations raise.  A recurrent block's
+cache is its state, ``{"ssm_state": ...}`` f32 leaves of shape
+(num_groups, B, ...): mamba's ``{"conv", "ssm"}``, mLSTM's ``{"C", "n",
+"m"}``, sLSTM's ``{"c", "n", "h", "m"}``; a local-window block's is a
+ring of ``min(max_seq, window_size)`` rows in the activation dtype.
+Both stay dense per slot in either layout (a paged cache pages only the
+global attention K/V).
 """
 from __future__ import annotations
 
@@ -32,29 +36,37 @@ from repro_torch.configs.base import BlockSpec, ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.models import ssm as SSM
 
-SERVED_MIXERS = ("attn", "attn_global", "attn_local", "mamba")
-SERVED_FFNS = ("dense", "moe")
+SERVED_MIXERS = ("attn", "attn_global", "attn_local", "mamba", "mlstm",
+                 "slstm")
+SERVED_FFNS = ("dense", "moe", "none")
 # family -> the frontend stub it takes ("": token ids)
-SERVED_FAMILIES = {"dense": "", "moe": "", "hybrid": "", "vision": "vision",
-                   "audio": "audio"}
+SERVED_FAMILIES = {"dense": "", "moe": "", "hybrid": "", "ssm": "",
+                   "vlm": "vision", "vision": "vision", "audio": "audio"}
+RECURRENT = {"mamba": (SSM.init_mamba, SSM.apply_mamba,
+                       SSM.mamba_state_shape),
+             "mlstm": (SSM.init_mlstm, SSM.apply_mlstm,
+                       SSM.mlstm_state_shape),
+             "slstm": (SSM.init_slstm, SSM.apply_slstm,
+                       SSM.slstm_state_shape)}
 
 
 def check_supported(cfg: ModelConfig):
-    """Raise NotImplementedError for what this port does not serve yet."""
+    """Raise NotImplementedError for a config this port cannot build (an
+    unknown mixer, FFN, family, norm or activation)."""
     if any(b.mixer not in SERVED_MIXERS or b.ffn not in SERVED_FFNS
            for b in cfg.block_pattern):
         raise NotImplementedError(
             f"{cfg.name}: the port serves {SERVED_MIXERS} mixers with "
             f"{SERVED_FFNS} FFNs only, got {cfg.block_pattern}")
     if SERVED_FAMILIES.get(cfg.family) != cfg.frontend \
-            or cfg.mrope_sections or cfg.qk_norm \
             or cfg.norm_kind not in ("rmsnorm", "layernorm") \
             or cfg.mlp_activation not in ("silu", "relu2", "gelu"):
         raise NotImplementedError(
-            f"{cfg.name}: the port serves GQA decoders (and attention + "
-            f"mamba hybrids), encoder-only ViTs and whisper's "
-            f"encoder-decoder, with RMSNorm or LayerNorm and a SiLU, GELU "
-            f"or squared-ReLU MLP, gated or not")
+            f"{cfg.name}: the port serves GQA decoders (with qk-norm or "
+            f"M-RoPE too), attention + mamba hybrids, xLSTM stacks, "
+            f"encoder-only ViTs and whisper's encoder-decoder, with "
+            f"RMSNorm or LayerNorm and a SiLU, GELU or squared-ReLU MLP, "
+            f"gated or not")
 
 
 # ---------------------------------------------------------------------------
@@ -63,28 +75,33 @@ def check_supported(cfg: ModelConfig):
 
 def init_block(generator, cfg: ModelConfig, blk: BlockSpec, device,
                cross: bool = False):
-    mixer = (SSM.init_mamba(generator, cfg, device) if blk.mixer == "mamba"
+    mixer = (RECURRENT[blk.mixer][0](generator, cfg, device)
+             if blk.mixer in RECURRENT
              else L.init_attention(generator, cfg, device))
     p = {"norm1": L.init_norm(cfg, device), "mixer": mixer}
     if cross:
         p["norm_x"] = L.init_norm(cfg, device)
         p["cross"] = L.init_attention(generator, cfg, device, cross=True)
-    p["norm2"] = L.init_norm(cfg, device)
-    p["ffn"] = (L.init_moe(generator, cfg, device) if blk.ffn == "moe"
-                else L.init_mlp(generator, cfg, device))
+    if blk.ffn != "none":
+        p["norm2"] = L.init_norm(cfg, device)
+        p["ffn"] = (L.init_moe(generator, cfg, device) if blk.ffn == "moe"
+                    else L.init_mlp(generator, cfg, device))
     if cfg.post_block_norm:
         p["post_norm1"] = L.init_norm(cfg, device)
-        p["post_norm2"] = L.init_norm(cfg, device)
+        if blk.ffn != "none":
+            p["post_norm2"] = L.init_norm(cfg, device)
     return p
 
 
-def apply_block(p, x, cfg: ModelConfig, blk: BlockSpec, *, causal=True,
-                state=None, cache_index=None, enc_out=None,
+def apply_block(p, x, cfg: ModelConfig, blk: BlockSpec, *, positions=None,
+                causal=True, state=None, cache_index=None, enc_out=None,
                 block_tables=None, write_tables=None,
                 attend_cache: bool = False):
     """Returns (x, state, aux) -- ``state`` is the block's cache, written
-    in place (None without a cache); ``aux`` the MoE FFN's load-balance
-    loss (0.0 for a dense FFN).  ``attend_cache``: see ``run_stack``.
+    in place (None without a cache; a recurrent mixer's every state leaf
+    overwritten); ``aux`` the MoE FFN's load-balance loss (0.0 for a
+    dense FFN or none).  ``positions``, ``attend_cache``: see
+    ``run_stack``.
 
     A block with cross-attention (``"cross"`` in ``p``) attends the
     encoder's output after its self-attention: with ``enc_out`` it
@@ -92,15 +109,15 @@ def apply_block(p, x, cfg: ModelConfig, blk: BlockSpec, *, causal=True,
     ``cross_kv`` leaves: prefill); without, it reads the cached
     ``cross_kv`` (decode); with neither it raises, as JAX's does."""
     h = L.apply_norm(p["norm1"], x, cfg)
-    if blk.mixer == "mamba":
+    if blk.mixer in RECURRENT:
         st = state["ssm_state"] if state else None
-        h, new = SSM.apply_mamba(p["mixer"], h, cfg, state=st)
+        h, new = RECURRENT[blk.mixer][1](p["mixer"], h, cfg, state=st)
         if st is not None:
-            st["conv"].copy_(new["conv"])
-            st["ssm"].copy_(new["ssm"])
+            for name, leaf in new.items():
+                st[name].copy_(leaf)
     else:
         h, _ = L.multi_head_attention(
-            p["mixer"], h, cfg, causal=causal,
+            p["mixer"], h, cfg, positions=positions, causal=causal,
             window=cfg.window_size if blk.mixer == "attn_local" else 0,
             kv_cache=state.get("kv") if state else None,
             cache_index=cache_index, block_tables=block_tables,
@@ -125,8 +142,10 @@ def apply_block(p, x, cfg: ModelConfig, blk: BlockSpec, *, causal=True,
         h, _ = L.multi_head_attention(p["cross"], h, cfg, causal=False,
                                       use_rope=False, precomputed_kv=(ck, cv))
         x = x + h
-    h = L.apply_norm(p["norm2"], x, cfg)
     aux = 0.0
+    if blk.ffn == "none":
+        return x, state, aux
+    h = L.apply_norm(p["norm2"], x, cfg)
     if blk.ffn == "moe":
         h, aux = L.apply_moe(p["ffn"], h, cfg)
     else:
@@ -145,17 +164,20 @@ def group_view(cache, g: int):
 
 
 def run_stack(stack_params: List[Dict[str, Any]], x, cfg: ModelConfig, *,
-              causal: bool = True, cache=None, cache_index=None,
-              enc_out=None, block_tables=None, write_tables=None,
-              attend_cache: bool = False):
+              positions=None, causal: bool = True, cache=None,
+              cache_index=None, enc_out=None, block_tables=None,
+              write_tables=None, attend_cache: bool = False):
     """Run every group of ``stack_params`` in order against the cache
     leaves' matching group entries (a plan stage passes its group slice of
     both).  Returns (x, cache, aux), aux the sum of the MoE layers'
     load-balance losses (the float 0.0 without MoE layers).
 
-    causal=False: bidirectional self-attention (the encoders).  enc_out:
-    the encoder's output, which cross-attention blocks attend (see
-    ``apply_block``).
+    positions: explicit RoPE positions, (B, S) or M-RoPE's (3, B, S)
+    (qwen2-vl); they rotate q and k only, and every mask keeps the
+    positions the cache offset gives.  None: positions from
+    ``cache_index``.  causal=False: bidirectional self-attention (the
+    encoders).  enc_out: the encoder's output, which cross-attention
+    blocks attend (see ``apply_block``).
 
     attend_cache: chunked-prefill continuation -- attention blocks attend
     the tokens already in a dense ``cache`` (scalar ``cache_index`` = their
@@ -167,7 +189,8 @@ def run_stack(stack_params: List[Dict[str, Any]], x, cfg: ModelConfig, *,
         gc = group_view(cache, g) if cache is not None else None
         for j, blk in enumerate(cfg.block_pattern):
             x, _, a = apply_block(
-                gp[f"b{j}"], x, cfg, blk, causal=causal,
+                gp[f"b{j}"], x, cfg, blk, positions=positions,
+                causal=causal,
                 state=gc[f"b{j}"] if gc is not None else None,
                 cache_index=cache_index, enc_out=enc_out,
                 block_tables=block_tables,
@@ -189,8 +212,8 @@ def block_state_shapes(cfg: ModelConfig, blk: BlockSpec, batch: int,
     """One pattern slot's cache leaf shapes, without the group axis; with
     ``enc_len``, also the cross-attention K/V over that many encoder
     frames."""
-    if blk.mixer == "mamba":
-        out = {"ssm_state": SSM.mamba_state_shape(cfg, batch)}
+    if blk.mixer in RECURRENT:
+        out = {"ssm_state": RECURRENT[blk.mixer][2](cfg, batch)}
     else:
         # a local-window block keeps a ring of its window's last rows
         rows = (min(max_seq, cfg.window_size) if blk.mixer == "attn_local"
@@ -221,8 +244,9 @@ def make_cache(cfg: ModelConfig, batch: int, max_seq: int, *,
                enc_len: int = 0, dtype=None, device="cuda"):
     """Dense decode cache: per pattern slot ``{"kv": {"k", "v"}}`` leaves of
     shape (num_groups, batch, max_seq, Hkv, D) (a local-window slot's ring
-    holds min(max_seq, window_size) rows), or a mamba slot's
-    ``{"ssm_state": {"conv", "ssm"}}``, zero-filled; with ``enc_len``
+    holds min(max_seq, window_size) rows), or a recurrent slot's
+    ``{"ssm_state": ...}`` f32 leaves, zero-filled (an xLSTM stabilizer
+    ``m`` too, as JAX's ``jnp.zeros`` cache has it); with ``enc_len``
     (whisper's decoder) also ``{"cross_kv": {"k", "v"}}`` of (num_groups,
     batch, enc_len, Hkv, D)."""
     dt = getattr(torch, dtype or cfg.dtype)

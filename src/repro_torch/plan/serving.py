@@ -19,7 +19,8 @@ JAX plan engine's stream.  (1) A stage walk runs the same per-group ops
 in the same order as the whole stack; (2) a chunk's first pass
 (``cont=False``) is the one-shot prefill branch, and continuation chunks
 attend the position-ordered cache (``layers.multi_head_attention(
-attend_cache=True)``); (3) mamba state threads between chunks exactly.
+attend_cache=True)``); (3) recurrent state (mamba, mLSTM, sLSTM)
+threads between chunks exactly.
 Chunking turns itself off where exactness cannot hold (``split_chunks``).
 
 On one card every stage and replica runs on ``model.device``,
@@ -151,6 +152,10 @@ class PlanRuntime:
     def __init__(self, model, splan: ServingPlan, max_seq: int):
         cfg = model.cfg
         T.check_supported(cfg)
+        if cfg.family in ("audio", "vision", "vlm") or cfg.mrope_sections:
+            raise NotImplementedError(
+                "plan-driven serving covers token-LM families "
+                "(dense/moe/hybrid/ssm)")
         self.model = model
         self.splan = splan
         self.max_seq = max_seq

@@ -559,52 +559,50 @@ def _attn_view(cache):
     return {"b0": cache["b3"]}
 
 
-NOT_SERVED = ("xlstm-125m", "whisper-base", "qwen2-vl-72b", "deit-t",
-              "lv-vit-t")
+# the encoder, vision and recurrent families: each builds
+LATER_FAMILIES = ("xlstm-125m", "whisper-base", "qwen2-vl-72b", "deit-t",
+                  "lv-vit-t")
 # built by the port, but refused by per-slot serving, as JAX refuses them
-NOT_PER_SLOT = ("whisper-base", "deit-t", "lv-vit-t")
+NOT_PER_SLOT = ("whisper-base", "qwen2-vl-72b", "deit-t", "lv-vit-t")
 PER_SLOT = "per-slot prefill"      # both packages' refusal names it
 
 
-def _port_config(jcfg):
-    """The JAX package's config as the port's dataclass (field for
-    field), for the archs the port's registry does not list."""
-    from repro_torch.configs import base as B
-    d = {f.name: getattr(jcfg, f.name) for f in dataclasses.fields(jcfg)}
-    d["block_pattern"] = tuple(B.BlockSpec(b.mixer, b.ffn)
-                               for b in jcfg.block_pattern)
-    d["moe"] = (None if jcfg.moe is None
-                else B.MoEConfig(**dataclasses.asdict(jcfg.moe)))
-    d["ssm"] = B.SSMConfig(**dataclasses.asdict(jcfg.ssm))
-    d["xlstm"] = B.XLSTMConfig(**dataclasses.asdict(jcfg.xlstm))
-    return B.ModelConfig(**d)
-
-
 @pytest.mark.parametrize("arch", ["jamba-1.5-large-398b", "yi-6b",
-                                  "gemma2-9b", *NOT_SERVED])
+                                  "gemma2-9b", *LATER_FAMILIES])
 def test_check_supported_lets_only_served_blocks_through(arch):
     """Every config of the port's registry builds, the published jamba
-    with its MoE layers and gemma2 too; yi-6b with MoE FFNs, LayerNorm, a
-    plain squared-ReLU MLP, a gated GELU MLP, a tied head, post-block
-    norms, a final softcap or local-window mixers builds; xLSTM mixers,
-    M-RoPE and the JAX package's archs not ported yet (xlstm, qwen2-vl)
-    raise.  whisper, deit and lv-vit build, and per-slot serving refuses
-    them with NotImplementedError, as JAX's does: ``prefill_one`` and the
-    dense and paged ``ServingEngine`` on the port's side, ``prefill_one``
-    and the engine on JAX's."""
+    with its MoE layers, gemma2, xlstm-125m and qwen2-vl too; yi-6b with
+    MoE FFNs, LayerNorm, a plain squared-ReLU MLP, a gated GELU MLP, a
+    tied head, post-block norms, a final softcap, local-window mixers,
+    xLSTM mixers, blocks without an FFN, M-RoPE or qk-norm builds; an
+    unknown mixer, FFN, family or activation raises.  xlstm-125m's
+    engine constructs and serves.  whisper, qwen2-vl, deit and lv-vit
+    build, and per-slot serving refuses them with NotImplementedError, as
+    JAX's does: ``prefill_one`` and the dense and paged
+    ``ServingEngine`` on the port's side, ``prefill_one`` and the engine
+    on JAX's."""
+    from types import SimpleNamespace
+
     from repro_torch.configs.base import BlockSpec, MoEConfig
     from repro_torch.models import transformer as T
+    from repro_torch.serving import Request, ServingEngine
     for name in T_REGISTRY:
         T.check_supported(T_REGISTRY[name])
+    assert set(J_REGISTRY) <= set(T_REGISTRY)
     if arch in NOT_PER_SLOT:
         _assert_per_slot_serving_refused(arch)
         return
-    if arch in NOT_SERVED:
-        with pytest.raises(NotImplementedError):
-            t_build(_port_config(J_REGISTRY[arch]), device="cpu")
-        return
     cfg = T_REGISTRY[arch]
     t_build(cfg, device="cpu")
+    if arch == "xlstm-125m":
+        tm = t_build(t_reduced(cfg, layers=4), device="cpu")
+        tp = tm.init(torch.Generator().manual_seed(0))
+        for paged in (False, True):
+            eng = ServingEngine(tm, tp, slots=2, max_seq=16, paged=paged,
+                                page_size=8)
+            eng.submit(Request(0, np.arange(1, 6, dtype=np.int32), 2))
+            assert not eng.paged
+            assert [len(r.out_tokens) for r in eng.run()] == [2]
     if arch == "yi-6b":
         for kw in (dict(block_pattern=(BlockSpec("attn", "moe"),),
                         moe=MoEConfig(num_experts=4, expert_d_ff=64)),
@@ -619,10 +617,16 @@ def test_check_supported_lets_only_served_blocks_through(arch):
             T.check_supported(dataclasses.replace(cfg, **kw))
         for blk in (BlockSpec("mlstm", "dense"), BlockSpec("slstm", "dense"),
                     BlockSpec("attn", "none")):
-            with pytest.raises(NotImplementedError):
-                T.check_supported(dataclasses.replace(cfg,
-                                                      block_pattern=(blk,)))
-        for kw in (dict(mrope_sections=(16, 24, 24)),):
+            T.check_supported(dataclasses.replace(cfg, block_pattern=(blk,)))
+        for kw in (dict(mrope_sections=(16, 24, 24)), dict(qk_norm=True)):
+            T.check_supported(dataclasses.replace(cfg, **kw))
+        # BlockSpec itself asserts its kinds: stand-ins carry unknown ones
+        for kw in (dict(block_pattern=(SimpleNamespace(mixer="rwkv",
+                                                       ffn="dense"),)),
+                   dict(block_pattern=(SimpleNamespace(mixer="attn",
+                                                       ffn="glu"),)),
+                   dict(mlp_activation="tanh"), dict(family="vlm"),
+                   dict(norm_kind="batchnorm")):
             with pytest.raises(NotImplementedError):
                 T.check_supported(dataclasses.replace(cfg, **kw))
 
