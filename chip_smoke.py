@@ -189,7 +189,8 @@ device it fails (it never runs on the CPU instead).  Phases, in order:
      (``VLM_FLASH``: the causal prefill at B=2, H=64, Hkv=8, Sq=Skv=512,
      D=128 and one lock-step decode query over a 1024-row cache, 544 rows
      valid), f32 and bf16, beside SDPA; phase 4 holds xlstm-125m (f32,
-     published size) through the dense, ``paged=True`` (running dense),
+     published width, one period: 4 of 12 layers) through
+     the dense, ``paged=True`` (running dense),
      ``hybrid:2`` plan (chunks carrying the mLSTM/sLSTM state), overlapped
      and re-planned (one migrated state row) engines to the one-shot
      gold, with no speculation; qwen2-vl-72b (f32, published width, 2
@@ -206,6 +207,24 @@ device it fails (it never runs on the CPU instead).  Phases, in order:
      one period (serve-jamba-moe, ~51.8 GB: serve-hybrid's engine and
      prompts, the expert products' device share), each freeing its model
      before the next.
+  8. training: the gradient routes of the kernels a training forward
+     reaches -- flash (``GRAD_FLASH``: train-yi's B=4, H=32, Hkv=4,
+     S=512, D=128 causal; gemma2's D=256 with a window and softcap 50;
+     deit-t's non-causal D=64) and the selective scan (N=1, S=128,
+     d_inner 16,384), each an ``autograd.Function`` of the kernel
+     forward and the plain version's backward, against autograd through
+     the plain version on the same CUDA tensors (f32 and bf16; forward +
+     backward timed beside the plain version's and SDPA's), and
+     ``matmul_f32``/``bmm_f32``'s backward against the f32 products;
+     model gradients on the card against the host's plain path (yi-6b at
+     published width, 2 layers, f32, and a reduced-width jamba period:
+     every leaf within 1e-4 of its largest; yi's bf16 gradients at cosine
+     >= 0.99 to the f32 ones); train-yi (yi-6b at published width, 8
+     layers, bf16, remat, B=4, S=512, ``SyntheticLM`` seed 0, AdamW at
+     the CLI's settings, 12 steps: step ms, tokens/s, model TFLOP/s and
+     its share of 989, peak memory, the loss curve, flash launches a
+     step = 16), the training CLI on the card, and a ``CheckpointManager``
+     save and restore of the trained params, bit-equal.
 
 It prints a ``{"kernels": [...]}`` JSON line, then as its last line
 ``{"ok": true, "device": {...}}``.  Any failed check exits non-zero
@@ -219,8 +238,10 @@ import contextlib
 import dataclasses
 import functools
 import gc
+import io
 import json
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -4225,6 +4246,7 @@ def encoder_run_phase(dev, kernels, card):
 # ---------------------------------------------------------------------------
 
 XLSTM = "xlstm-125m"
+XLSTM_PARITY_LAYERS = 4        # one period of 12, for the smoke's time
 VLM = "qwen2-vl-72b"
 JAMBA_MOE = "jamba-1.5-large-398b-8e"
 VLM_TEXT = 64                  # text tokens before and after the image
@@ -4447,8 +4469,9 @@ def vlm_parity_phase(dev, kernels):
 
 
 def xlstm_parity_phase(dev, kernels):
-    """Phase 4, xlstm-125m in f32 at published size (12 layers: 9 mLSTM,
-    3 sLSTM; d_model 768, tied head, ~0.3 GB), random weights from
+    """Phase 4, xlstm-125m in f32 at published width and one period of
+    depth (``XLSTM_PARITY_LAYERS``: 3 mLSTM and 1 sLSTM layers of its 12;
+    d_model 768, tied head; the smoke's time), random weights from
     ``torch.Generator`` seed 0: serve-full's first 4 prompts (300-600
     tokens, a shared 256-token prefix), 32 greedy tokens each.  The
     streams of the dense engine, a ``paged=True`` engine (which must run
@@ -4466,7 +4489,8 @@ def xlstm_parity_phase(dev, kernels):
     from repro_torch.plan import lower_serving, uniform_plan
     from repro_torch.serving import Request, ServingEngine
     cfg = dataclasses.replace(REGISTRY[XLSTM], dtype="float32",
-                              param_dtype="float32")
+                              param_dtype="float32",
+                              num_layers=XLSTM_PARITY_LAYERS)
     model = build_model(cfg, device=dev)
     params = model.init(torch.Generator(device=dev).manual_seed(0))
     nparam = model.param_count(params)
@@ -4916,6 +4940,470 @@ def profile_decode(eng, prompts, request_cls, experts=None):
 
 # ---------------------------------------------------------------------------
 
+# ---------------------------------------------------------------------------
+# phase 8: training
+# ---------------------------------------------------------------------------
+
+TRAIN_ARCH = "yi-6b"
+TRAIN_LAYERS = 8           # of 32: 1.91 B params, 22.9 GB with grads and m, v
+TRAIN_BATCH, TRAIN_SEQ = 4, 512
+TRAIN_STEPS, TRAIN_WARMUP = 12, 2
+GRAD_LAYERS = 2            # yi-6b's f32 gradient parity (~0.96 B params)
+GRAD_TOL = 1e-4            # of a leaf's largest: the CPU tests' tolerance
+COSINE_MIN = 0.99          # bf16 gradients against the f32 ones, per leaf
+# flash gradient rows: name, B, H, Hkv, S, D, causal, window, softcap
+GRAD_FLASH = (
+    ("flash_attention_train", 4, 32, 4, 512, 128, True, 0, 0.0),
+    # gemma2's D=256 with a window (its 4096 cut to 128, to bite at S=512)
+    # and its softcap 50
+    ("flash_attention_train_d256", 1, 16, 8, 512, 256, True, 128, 50.0),
+    ("flash_attention_train_vit", 6, 3, 3, 197, 64, False, 0, 0.0),
+)
+GRAD_SCAN = (1, 128, 16384, 16)    # N, S, d_inner, d_state
+# the kernels a training forward reaches on CUDA, and how each gets its
+# gradient (every other kernel raises when asked for one)
+GRAD_ROUTE = {
+    "src/repro_torch/csrc/flash_attention.cu":
+        "autograd.Function: kernel forward, backward through the plain "
+        "version (ref.flash_attention_ref)",
+    "src/repro_torch/csrc/selective_scan.cu":
+        "autograd.Function: kernel forward, backward through the plain "
+        "version (ref.mamba_scan_fused_ref)"}
+# the f32-output products: yi-6b's MLP at train-yi's tokens, and an
+# expert stack
+GRAD_MATMULS = (("matmul_f32", (2048, 4096), (4096, 11008)),
+                ("bmm_f32", (8, 512, 2048), (8, 2048, 1408)))
+
+
+def grad_err(got, ref):
+    """Largest |got - ref| over the largest |ref| (0 when both are 0)."""
+    scale = float(ref.float().abs().max())
+    return max_err(got, ref) / scale if scale else max_err(got, ref)
+
+
+def _grads_of(fn, ins, g):
+    out = fn(*ins)
+    return out, torch.autograd.grad(out, ins, g)
+
+
+def flash_grad_rows(dev, flush, results):
+    """Flash's gradient route at the training shapes, f32 and bf16: the
+    kernel forward inside ``_FlashAttention`` and its plain backward
+    against autograd through the plain version on the same CUDA tensors;
+    the forward within ``TOL``, each gradient within ``TOL`` of its
+    largest.  Timed forward + backward (CUDA events, L2 flushed) beside
+    the plain version's and SDPA's (K/V repeated to H heads beforehand,
+    the window as a mask, no softcap; timed only)."""
+    from repro_torch.kernels import flash_attention as TF
+    from repro_torch.kernels import ref as TR
+    F = torch.nn.functional
+    for name, b, h, hk, s, d, causal, window, cap in GRAD_FLASH:
+        for dt in (torch.float32, torch.bfloat16):
+            gen = torch.Generator(device=dev).manual_seed(21 + d)
+            q, k, v = (torch.randn((b, n, s, d), generator=gen, device=dev)
+                       .to(dt).requires_grad_()
+                       for n in (h, hk, hk))
+            g = torch.randn((b, h, s, d), generator=gen, device=dev).to(dt)
+            pos = torch.arange(s, dtype=torch.int32, device=dev)
+            ones = torch.ones((s,), dtype=torch.int32, device=dev)
+            kw = dict(causal=causal, window=window, softcap=cap)
+
+            def kern():
+                return _grads_of(lambda *t: TF.flash_attention_bhsd(
+                    *t, pos, pos, ones, **kw), (q, k, v), g)
+
+            def plain():
+                return _grads_of(lambda *t: TR.flash_attention_ref(
+                    *t, pos, pos, ones, **kw), (q, k, v), g)
+            n0 = TF.flash_attention_bhsd.launches
+            (out, grads), (pout, pgrads) = kern(), plain()
+            torch.cuda.synchronize()
+            check(TF.flash_attention_bhsd.launches == n0 + 1,
+                  f"{name}: the gradient route must launch the kernel once")
+            err = assert_close(name, out, pout, dt)
+            gerr = max(grad_err(a, r) for a, r in zip(grads, pgrads))
+            check(gerr <= TOL[dt], f"{name} {dt}: gradients {gerr:.3g} of "
+                                   f"their largest from the plain version's")
+            rel = pos[:, None] - pos[None, :]
+            ok = (rel >= 0) if causal else torch.ones_like(rel, dtype=bool)
+            if window:
+                ok = ok & (rel < window)
+            mask = ok if (window or not causal) else None
+            g_rep = h // hk
+
+            def lib():
+                kr, vr = (t.repeat_interleave(g_rep, 1) for t in (k, v))
+                return _grads_of(
+                    lambda q_, k_, v_: F.scaled_dot_product_attention(
+                        q_, k_, v_, attn_mask=mask,
+                        is_causal=causal and mask is None),
+                    (q, kr, vr), g)
+            ms = bench(kern, flush)
+            fwd_ms = bench(lambda: TF.flash_attention_bhsd(
+                q.detach(), k.detach(), v.detach(), pos, pos, ones, **kw),
+                flush)
+            plain_ms = bench(plain, flush, iters=5, warmup=1)
+            lib_ms = bench(lib, flush)
+            pairs = int(ok.sum()) * b * h
+            esz = q.element_size()
+            nbytes = esz * (2 * q.numel() + 2 * g.numel()
+                            + 2 * (k.numel() + v.numel()))
+            bound, by = bound_ms(nbytes, 12 * d * pairs, dt)
+            results[(name, dt)] = dict(
+                max_abs_err=err, grad_err=gerr, ms=ms, fwd_ms=fwd_ms,
+                plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+                library_ms=lib_ms)
+            print(f"[train] {name} {str(dt)[6:]} (B={b} H={h} Hkv={hk} "
+                  f"S={s} D={d} causal={causal} window={window} "
+                  f"softcap={cap}): forward + backward {ms:.4f} ms "
+                  f"(kernel forward {fwd_ms:.4f}), plain {plain_ms:.4f}, "
+                  f"sdpa {lib_ms:.4f}, bound {bound:.4f} ms ({by}); "
+                  f"gradients {gerr:.3g} of their largest from the "
+                  f"plain version's")
+            del q, k, v, g, out, grads, pout, pgrads
+
+
+def scan_grad_rows(dev, flush, results):
+    """The selective scan's gradient route (mamba's training prefill):
+    the kernel forward inside ``_SelectiveScan`` and its plain backward
+    against autograd through ``ref.mamba_scan_fused_ref``, f32."""
+    from repro_torch.kernels import ref as TR
+    from repro_torch.kernels import selective_scan as TS
+    n_, s, di, n = GRAD_SCAN
+    gen = torch.Generator(device=dev).manual_seed(5)
+
+    def t(*shape, scale=1.0):
+        return scale * torch.randn(shape, generator=gen, device=dev)
+    ins = [(0.05 * t(n_, s, di)).abs(), t(n_, s, di), t(n_, s, n),
+           t(n_, s, n), -t(di, n).abs()]
+    ins = [x.requires_grad_() for x in ins]
+    gy, gh = t(n_, s, di), t(n_, di, n)
+
+    def run(fn):
+        y, hl = fn(*ins)
+        return (y, hl), torch.autograd.grad((y, hl), ins, (gy, gh))
+    n0 = TS.mamba_scan_fused.launches
+    (outs, grads), (pouts, pgrads) = run(TS.mamba_scan_fused), \
+        run(TR.mamba_scan_fused_ref)
+    torch.cuda.synchronize()
+    check(TS.mamba_scan_fused.launches == n0 + 1,
+          "the scan's gradient route must launch the kernel once")
+    err = max(max_err(a, r) for a, r in zip(outs, pouts))
+    gerr = max(grad_err(a, r) for a, r in zip(grads, pgrads))
+    check(err <= 1e-5 and gerr <= 1e-5,
+          f"selective scan gradient route: outputs {err:.3g}, gradients "
+          f"{gerr:.3g} of their largest")
+    ms = bench(lambda: run(TS.mamba_scan_fused), flush, iters=5, warmup=1)
+    fwd_ms = bench(lambda: TS.mamba_scan_fused(
+        *[x.detach() for x in ins]), flush)
+    plain_ms = bench(lambda: run(TR.mamba_scan_fused_ref), flush, iters=5,
+                     warmup=1)
+    nbytes = 4 * (6 * n_ * s * di + 6 * n_ * s * n + 2 * di * n
+                  + 2 * n_ * di * n)
+    bound, by = bound_ms(nbytes, 21 * n_ * s * di * n, torch.float32)
+    results[("mamba_scan_fused_train", torch.float32)] = dict(
+        max_abs_err=err, grad_err=gerr, ms=ms, fwd_ms=fwd_ms,
+        plain_ms=plain_ms, bound_ms=bound, bound_by=by, library_ms=None)
+    print(f"[train] mamba_scan_fused_train f32 (N={n_} S={s} "
+          f"d_inner={di} d_state={n}): forward + backward {ms:.4f} ms "
+          f"(kernel forward {fwd_ms:.4f}), plain {plain_ms:.4f}, bound "
+          f"{bound:.4f} ms ({by}); outputs {err:.3g}, gradients {gerr:.3g} "
+          f"of their largest from the plain version's")
+
+
+def matmul_grad_rows(dev, flush):
+    """``matmul_f32``/``bmm_f32`` on bf16 operands (the ``_MatmulF32``
+    Function around cuBLAS's f32-output products; its backward keeps the
+    f32 cotangent as three bf16 terms) against autograd through the f32
+    plain products on the widened operands: the output within 1e-5 of its
+    largest; each gradient equal to the bf16 cast of the plain f32 one
+    but for flips of the cast's last bit (at most 1% of the elements, each
+    at most one bf16 step of the largest; a cotangent rounded to bf16
+    before the products differs on about 40%).  cuBLAS is no kernel of
+    the port; timed beside the bf16 ``torch.matmul`` (fwd + bwd, bf16
+    output)."""
+    from repro_torch.models import layers as TL
+    rows = {}
+    for name, xs, ws in GRAD_MATMULS:
+        gen = torch.Generator(device=dev).manual_seed(9)
+        x = torch.randn(xs, generator=gen, device=dev).to(
+            torch.bfloat16).requires_grad_()
+        w = (torch.randn(ws, generator=gen, device=dev)
+             / ws[-2] ** 0.5).to(torch.bfloat16).requires_grad_()
+        g = torch.randn(xs[:-1] + ws[-1:], generator=gen, device=dev)
+        fn = getattr(TL, name)
+        out, grads = _grads_of(fn, (x, w), g)
+        xf, wf = (t.detach().float().requires_grad_() for t in (x, w))
+        pout, pgrads = _grads_of(torch.matmul, (xf, wf), g)
+        err = grad_err(out, pout)
+        gerr = max(grad_err(a.float(), r) for a, r in zip(grads, pgrads))
+        cast = [r.to(torch.bfloat16) for r in pgrads]
+        flips = max(float((a != c).float().mean())
+                    for a, c in zip(grads, cast))
+        step = max(grad_err(a.float(), c.float())
+                   for a, c in zip(grads, cast))
+        check(out.dtype == torch.float32
+              and all(a.dtype == torch.bfloat16 for a in grads),
+              f"{name}: f32 output, gradients in the operands' bf16")
+        check(err <= 1e-5 and flips <= 0.01 and step <= 2.0 ** -7,
+              f"{name}: output {err:.3g} of its largest from the f32 "
+              f"product's; gradients differ from the bf16 cast of the f32 "
+              f"ones on {flips:.3g} of their elements, by up to {step:.3g} "
+              f"of their largest")
+        ms = bench(lambda: _grads_of(fn, (x, w), g), flush)
+        plain_ms = bench(lambda: _grads_of(torch.matmul, (xf, wf), g), flush)
+        lib_ms = bench(lambda: _grads_of(torch.matmul, (x, w),
+                                         g.to(torch.bfloat16)), flush)
+        rows[name] = dict(err=err, grad_err=gerr, cast_flips=flips, ms=ms,
+                          plain_ms=plain_ms, library_ms=lib_ms)
+        print(f"[train] {name} x{tuple(xs)} w{tuple(ws)} bf16: forward + "
+              f"backward {ms:.4f} ms, f32 plain products {plain_ms:.4f}, "
+              f"bf16 torch.matmul {lib_ms:.4f}; output {err:.3g}, gradients "
+              f"{gerr:.3g} of their largest from the f32 products', "
+              f"{flips:.3g} of their elements off the bf16 cast of those")
+    return rows
+
+
+def model_grad_phase(dev, kernels):
+    """Model gradients on the card against the host's plain path on the
+    same weights: yi-6b at published width with ``GRAD_LAYERS`` layers in
+    f32 (remat on the card, none on the host) and a reduced-width jamba
+    hybrid period (one attention and seven mamba layers, head_dim 64) in
+    f32, loss within 1e-5 relative and every leaf within ``GRAD_TOL`` of
+    its largest; then yi's bf16 gradients against the card's f32 ones,
+    cosine similarity >= ``COSINE_MIN`` leaf by leaf."""
+    from repro_torch import tree as TT
+    from repro_torch.configs import REGISTRY, ShapeConfig, reduced
+    from repro_torch.data import SyntheticLM
+    from repro_torch.models import build_model
+    from repro_torch.training.trainer import value_and_grad
+    out = {}
+    yi = dataclasses.replace(REGISTRY[TRAIN_ARCH], num_layers=GRAD_LAYERS,
+                             dtype="float32", param_dtype="float32")
+    hy = dataclasses.replace(
+        reduced(REGISTRY["jamba-1.5-large-398b-dense-ffn"], layers=8,
+                d_model=256, vocab=1024), head_dim=64)
+    for label, cfg, (b, s) in ((TRAIN_ARCH, yi, (2, 128)),
+                               ("jamba-hybrid-reduced", hy, (2, 64))):
+        gpu = build_model(cfg, dev)
+        params = gpu.init(torch.Generator(device=dev).manual_seed(0))
+        batch = SyntheticLM(cfg, ShapeConfig("t", s, b, "train")).batch_at(0)
+        counts0 = {k: f.launches for k, f in kernels.items()}
+        loss, grads = value_and_grad(gpu, params, batch, remat=True)
+        torch.cuda.synchronize()
+        launched = {k: f.launches - counts0[k] for k, f in kernels.items()
+                    if f.launches != counts0[k]}
+        host = build_model(cfg, "cpu")
+        t0 = time.perf_counter()
+        hloss, hgrads = value_and_grad(host, params_to(params, "cpu"),
+                                       batch, remat=False)
+        host_s = time.perf_counter() - t0
+        lerr = abs(float(loss) - float(hloss)) / abs(float(hloss))
+        worst = max(grad_err(a.cpu(), r)
+                    for a, r in zip(TT.leaves(grads), TT.leaves(hgrads)))
+        print(f"[train] {label} f32 ({cfg.num_layers} layers, d_model "
+              f"{cfg.d_model}, B={b} S={s}) gradients on the card (remat) "
+              f"vs the host's plain path: loss {float(loss):.6f} vs "
+              f"{float(hloss):.6f} (rel {lerr:.3g}), worst leaf "
+              f"{worst:.3g} of its largest over "
+              f"{len(TT.leaves(grads))} leaves; kernels launched "
+              f"{json.dumps(launched)}; host {host_s:.1f} s")
+        check(np.isfinite(float(loss)) and lerr <= 1e-5,
+              f"{label}: card loss {float(loss)} vs host {float(hloss)}")
+        check(worst <= GRAD_TOL, f"{label}: a gradient leaf is {worst:.3g} "
+                                 f"of its largest from the host's")
+        need = {"flash_attention"} | ({"mamba_scan_fused"}
+                                      if cfg.family == "hybrid" else set())
+        check(need <= set(launched), f"{label}: the training forward must "
+                                     f"launch {sorted(need)}: {launched}")
+        out[label] = dict(loss=float(loss), host_loss=float(hloss),
+                          loss_rel_err=lerr, worst_leaf=worst,
+                          launches=launched, host_s=host_s)
+        if label == TRAIN_ARCH:
+            bcfg = dataclasses.replace(cfg, dtype="bfloat16",
+                                       param_dtype="bfloat16")
+            # the bf16 config's layout: matrices in bf16, norms in f32
+            bparams = TT.tree_map(lambda t: t.to(torch.bfloat16)
+                                  if t.dim() >= 2 else t, params)
+            bloss, bgrads = value_and_grad(build_model(bcfg, dev), bparams,
+                                           batch, remat=True)
+            cos = [float(torch.nn.functional.cosine_similarity(
+                       a.float().flatten(), r.flatten(), dim=0))
+                   for a, r in zip(TT.leaves(bgrads), TT.leaves(grads))]
+            print(f"[train] {label} bf16 gradients vs the card's f32: loss "
+                  f"{float(bloss):.6f}, cosine similarity min "
+                  f"{min(cos):.5f}, median {float(np.median(cos)):.5f} over "
+                  f"{len(cos)} leaves")
+            check(min(cos) >= COSINE_MIN,
+                  f"bf16 gradients: cosine {min(cos):.4f} < {COSINE_MIN}")
+            out["bf16_cosine_min"] = min(cos)
+            out["bf16_loss"] = float(bloss)
+            del bparams, bgrads
+        del gpu, params, grads, hgrads
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def train_yi_flops(cfg, b, s):
+    """Model FLOPs a step: 6 x multiplying params x tokens, plus causal
+    attention's 6 * S^2 * H * D a layer and sequence (half of the full
+    score and value products, forward and backward)."""
+    attn = 2 * cfg.d_model * cfg.q_dim + 2 * cfg.d_model * cfg.kv_dim
+    mlp = 3 * cfg.d_model * cfg.d_ff
+    mult = cfg.num_layers * (attn + mlp) + cfg.d_model * cfg.vocab_size
+    return (6 * mult * b * s
+            + 6 * s * s * cfg.num_heads * cfg.head_dim * cfg.num_layers * b)
+
+
+def train_yi_phase(dev, kernels, card):
+    """train-yi: yi-6b at published width, ``TRAIN_LAYERS`` layers, bf16,
+    remat, B x S tokens of ``SyntheticLM`` (seed 0), AdamW at the CLI's
+    settings, ``TRAIN_STEPS`` steps through ``make_train_step``: step ms
+    (median after the warm-up), tokens/s, model TFLOP/s and its share of
+    989, peak memory, the loss at every step (finite); flash launches a
+    step must be layers x 2 (the forward and remat's recompute).  Then a
+    profiled step (device time, busy share, kernels), one step split into
+    loss + gradients and the AdamW update (CUDA events), the training
+    CLI on the card (``--layers 1``), and a ``CheckpointManager`` save and
+    restore of the trained params and step, bit-equal."""
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.configs import REGISTRY, ShapeConfig
+    from repro_torch.data import SyntheticLM
+    from repro_torch.launch import train as train_cli
+    from repro_torch.models import build_model
+    from repro_torch.training import AdamW, make_train_step
+    from repro_torch.training.trainer import value_and_grad
+    flash = kernels["flash_attention"]
+    cfg = dataclasses.replace(REGISTRY[TRAIN_ARCH], num_layers=TRAIN_LAYERS)
+    model = build_model(cfg, dev)
+    params = model.init(torch.Generator(device=dev).manual_seed(0))
+    opt = AdamW(warmup_steps=10, total_steps=max(TRAIN_STEPS, 100))
+    state = opt.init(params)
+    data = SyntheticLM(cfg, ShapeConfig("train", TRAIN_SEQ, TRAIN_BATCH,
+                                        "train"), seed=0)
+    step_fn = make_train_step(model, opt, remat=True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, times, per_step = [], [], []
+    launches0 = flash.launches
+    for i in range(TRAIN_STEPS):
+        n0 = flash.launches
+        t0 = time.perf_counter()
+        params, state, met = step_fn(params, state, data.batch_at(i))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        per_step.append(flash.launches - n0)
+        losses.append(float(met["loss"]))
+    launches = flash.launches - launches0
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    step_s = float(np.median(times[TRAIN_WARMUP:]))
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    flops = train_yi_flops(cfg, TRAIN_BATCH, TRAIN_SEQ)
+    bound = flops / PEAK_OPS[torch.bfloat16]
+    check(all(np.isfinite(losses)), f"train-yi: losses {losses}")
+    check(all(n == 2 * TRAIN_LAYERS for n in per_step),
+          f"train-yi: flash launches a step {per_step}, expected "
+          f"{2 * TRAIN_LAYERS} (forward + remat's recompute)")
+    batch = data.batch_at(TRAIN_STEPS)
+    prof = profile_forward(lambda: step_fn(params, state, batch), reps=2)
+    s, m, e = (torch.cuda.Event(enable_timing=True) for _ in range(3))
+    s.record()
+    _, grads = value_and_grad(model, params, batch, remat=True)
+    m.record()
+    opt.update(grads, state, params)
+    e.record()
+    torch.cuda.synchronize()
+    del grads
+    res = dict(step_ms=step_s * 1e3, tokens_per_s=tokens / step_s,
+               model_tflops=flops / step_s / 1e12,
+               mfu=flops / step_s / PEAK_OPS[torch.bfloat16],
+               bound_ms=bound * 1e3, peak_gb=peak, losses=losses,
+               step_times_ms=[t * 1e3 for t in times],
+               flash_launches_per_step=per_step[0], flash_launches=launches,
+               grad_ms=s.elapsed_time(m), update_ms=m.elapsed_time(e),
+               **{f"profile_{k}": v for k, v in prof.items()},
+               model_tflop_a_step=flops / 1e12, card=card)
+    print(f"[train] train-yi ({card}): yi-6b at published width, "
+          f"{TRAIN_LAYERS} layers, bf16, remat, B={TRAIN_BATCH} "
+          f"S={TRAIN_SEQ}: step {res['step_ms']:.2f} ms (median of "
+          f"{TRAIN_STEPS - TRAIN_WARMUP} after {TRAIN_WARMUP} warm-up), "
+          f"{res['tokens_per_s']:.1f} tokens/s, {res['model_tflops']:.2f} "
+          f"model TFLOP/s ({100 * res['mfu']:.2f}% of 989; "
+          f"{flops / 1e12:.2f} TFLOP a step, bound {bound * 1e3:.2f} ms), "
+          f"peak {peak:.3f} GB")
+    print(f"[train] train-yi losses: "
+          f"{', '.join(f'{x:.4f}' for x in losses)}")
+    print(f"[train] train-yi step: loss + gradients {res['grad_ms']:.2f} ms, "
+          f"AdamW update {res['update_ms']:.2f} ms (events); profiled: "
+          f"device {prof['device_ms']:.2f} ms of {prof['wall_ms']:.2f} "
+          f"(busy {prof['busy_share']:.3f}), {prof['kernels']:.0f} kernels "
+          f"a step; flash launches {per_step[0]} a step ({launches} in "
+          f"{TRAIN_STEPS} steps)")
+    # the CLI on the card, published width at one layer
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        train_cli.main(["--arch", TRAIN_ARCH, "--layers", "1", "--steps",
+                        "2", "--seq", "128", "--batch", "2", "--device",
+                        dev])
+    lines = buf.getvalue().splitlines()
+    check(lines and lines[-1] == "[train] done",
+          f"the training CLI on the card: {lines}")
+    print(f"[train] launch.train --layers 1 on the card: "
+          f"{' | '.join(lines)} ({time.perf_counter() - t0:.1f} s)")
+    # checkpoint the trained params and step
+    ckpt = os.path.join(HERE, "build", "train_smoke_ckpt")
+    shutil.rmtree(ckpt, ignore_errors=True)
+    mgr = CheckpointManager(ckpt, keep=1)
+    tree = {"params": params, "step": state.step, "data_step": TRAIN_STEPS}
+    t0 = time.perf_counter()
+    mgr.save(tree, TRAIN_STEPS)
+    mgr.wait()
+    save_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    back, step = mgr.restore_latest(tree)
+    restore_s = time.perf_counter() - t0
+    from repro_torch import tree as TT
+    same = all(torch.equal(a, b) for a, b in zip(TT.leaves(back["params"]),
+                                                 TT.leaves(params)))
+    check(step == TRAIN_STEPS and same and torch.equal(back["step"],
+                                                       state.step)
+          and int(back["data_step"]) == TRAIN_STEPS,
+          "train-yi checkpoint: restored state differs")
+    gb = sum(t.numel() * t.element_size() for t in TT.leaves(params)) / 1e9
+    print(f"[train] checkpoint of train-yi's params ({gb:.2f} GB) and step: "
+          f"save {save_s:.1f} s, restore {restore_s:.1f} s, bit-equal")
+    shutil.rmtree(ckpt, ignore_errors=True)
+    res.update(ckpt_gb=gb, ckpt_save_s=save_s, ckpt_restore_s=restore_s)
+    del model, params, state, back, tree
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def train_phase(dev, kernels, card):
+    """Phase 8: the kernels' gradient routes, model gradients, train-yi."""
+    t0 = time.perf_counter()
+    flush = torch.empty(64 * 2**20, dtype=torch.int8, device=dev)
+    results = {}
+    flash_grad_rows(dev, flush, results)
+    scan_grad_rows(dev, flush, results)
+    matmuls = matmul_grad_rows(dev, flush)
+    del flush
+    torch.cuda.empty_cache()
+    print(f"[train] kernel gradients {time.perf_counter() - t0:.1f} s")
+    t1 = time.perf_counter()
+    grads = model_grad_phase(dev, kernels)
+    print(f"[train] model gradients {time.perf_counter() - t1:.1f} s")
+    t1 = time.perf_counter()
+    run = train_yi_phase(dev, kernels, card)
+    print(f"[train] train-yi {time.perf_counter() - t1:.1f} s")
+    print(f"[train] phase {time.perf_counter() - t0:.1f} s")
+    return dict(kernels=results, matmuls=matmuls, model_grads=grads,
+                train_yi=run)
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke test runs only "
@@ -5034,6 +5522,8 @@ def main():
               f"{json.dumps(served['front_door_launches'])}, hybrid "
               f"{json.dumps(served['hybrid']['front_door_launches'])}")
         print(f"[serve] phase {time.perf_counter() - t0:.1f} s")
+        training = train_phase(dev, kernels, card)
+        results.update(training.pop("kernels"))
     except CheckFailed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -5101,6 +5591,12 @@ def main():
                              "src/repro/models/ssm.py:31"),
         "mamba_scan_fused_b4": ("src/repro_torch/csrc/selective_scan.cu",
                                 "src/repro/models/ssm.py:31"),
+        # phase 8: the gradient routes at training shapes
+        **{row[0]: ("src/repro_torch/csrc/flash_attention.cu",
+                    "src/repro/kernels/flash_attention.py:85")
+           for row in GRAD_FLASH},
+        "mamba_scan_fused_train": ("src/repro_torch/csrc/selective_scan.cu",
+                                   "src/repro/models/ssm.py:31"),
         **{name: ("src/repro_torch/csrc/fused_matmul.cu",
                   "src/repro/kernels/fused_matmul.py:59")
            for name in FRONT_DOOR_MATMULS},
@@ -5182,7 +5678,17 @@ def main():
                 # the encoders' rows: the bf16 ViT and whisper runs;
                 # qwen2-vl's: run-vlm
                 **served["encoders"]["launches"],
-                **served["run-vlm"]["launches"]}
+                **served["run-vlm"]["launches"],
+                # phase 8: train-yi's steps (forward + remat's recompute);
+                # the hybrid's gradient check for the scan; no training
+                # path runs the D=256 or ViT shapes
+                "flash_attention_train":
+                    training["train_yi"]["flash_launches"],
+                "flash_attention_train_d256": 0,
+                "flash_attention_train_vit": 0,
+                "mamba_scan_fused_train":
+                    training["model_grads"]["jamba-hybrid-reduced"][
+                        "launches"]["mamba_scan_fused"]}
     low = [f"{n} {str(dt)[6:]}: {r['device_ms']:.4f} < {r['bound_ms']:.4f}"
            for (n, dt), r in results.items()
            if r.get("device_ms") is not None
@@ -5203,7 +5709,10 @@ def main():
                      "splits": r.get("splits", 1),
                      **({"library": r["library"]} if "library" in r else {}),
                      **({"path": r["path"]} if "path" in r else {}),
-                     **({"was_ms": r["was_ms"]} if "was_ms" in r else {})})
+                     **({"was_ms": r["was_ms"]} if "was_ms" in r else {}),
+                     **{k: r[k] for k in ("fwd_ms", "grad_err") if k in r},
+                     "grad": GRAD_ROUTE.get(src, "none: raises when asked "
+                                                 "for a gradient")})
     out_dir = os.path.join(HERE, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as f:
@@ -5211,6 +5720,7 @@ def main():
                    "kernels": {f"{n} {str(dt)[6:]}": r
                                for (n, dt), r in results.items()},
                    "parity": parity, "repair": repair, "serve": served,
+                   "training": training,
                    "build": _build.last_build,
                    "seconds": time.perf_counter() - t_start}, f, indent=1,
                   default=str)

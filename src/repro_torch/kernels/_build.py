@@ -220,3 +220,18 @@ def dtype_code(dtype) -> int:
     if dtype not in codes:
         raise ValueError(f"kernels take float32 or bfloat16, got {dtype}")
     return codes[dtype]
+
+
+def refuse_grad(name: str, tensors):
+    """Raise where a kernel without a backward would be asked for one:
+    its ctypes launch writes an output that autograd cannot see, so the
+    gradient would be dropped with no error.  Called on every non-CPU
+    input before the launch (the plain versions on CPU tensors are
+    differentiable)."""
+    import torch
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name} has no backward: its kernel was asked for a gradient "
+            f"(an input requires grad under grad mode); run it under "
+            f"torch.no_grad() or on CPU tensors")

@@ -6,6 +6,18 @@
 (``ref.flash_attention_ref``); on CUDA tensors it launches
 ``csrc/flash_attention.cu`` or raises -- there is no fallback.
 
+Gradients.  The JAX kernel has no backward of its own (no ``custom_vjp``
+in the JAX package), so none is ported: ``_FlashAttention``, a
+``torch.autograd.Function``, runs the hand-written kernel forward and
+recomputes the attention in its backward through the plain version's
+differentiable math (``ref.flash_attention_ref``), returning the
+gradients of q, k and v.  That backward forms the (B, H, Sq, Skv) f32
+scores; a Hopper flash backward from a saved row logsumexp is later
+kernel work.  Every CUDA call goes through the Function: under
+``torch.no_grad()``, as in serving, it records nothing and is the same
+launch, with no extra copy and no host sync.  ``launches`` counts
+forward launches (a remat recompute is one).
+
 bf16 runs on the tensor cores, f32 on the CUDA cores.  In bf16 the
 wrapper may split the keys (``flash_split``, from shapes alone): the
 kernel then writes per-split partial rows into an f32 workspace
@@ -77,6 +89,12 @@ def flash_attention_bhsd(q, k, v, q_pos, k_pos, k_valid, *, causal=True,
                                      softcap=softcap)
     if q.device.type != "cuda":
         raise ValueError(f"no flash attention kernel for {q.device}")
+    return _FlashAttention.apply(q, k, v, q_pos, k_pos, k_valid, causal,
+                                 window, softcap)
+
+
+def _launch(q, k, v, q_pos, k_pos, k_valid, causal, window, softcap):
+    """One launch of ``csrc/flash_attention.cu`` on CUDA tensors."""
     b, h, hkv, sq, skv, d = check_flash_contract(q, k, v, q_pos, k_pos,
                                                  k_valid)
     lib = _build.load_library()
@@ -98,6 +116,32 @@ def flash_attention_bhsd(q, k, v, q_pos, k_pos, k_valid, *, causal=True,
     _build.check(err, "flash_attention_bhsd")
     flash_attention_bhsd.launches += 1
     return out
+
+
+class _FlashAttention(torch.autograd.Function):
+    """The kernel forward; the backward recomputes through the plain
+    version and differentiates it (no backward kernel: see the module
+    docstring)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, q_pos, k_pos, k_valid, causal, window,
+                softcap):
+        ctx.save_for_backward(q, k, v, q_pos, k_pos, k_valid)
+        ctx.flags = (causal, window, softcap)
+        return _launch(q, k, v, q_pos, k_pos, k_valid, causal, window,
+                       softcap)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        q, k, v, q_pos, k_pos, k_valid = ctx.saved_tensors
+        causal, window, softcap = ctx.flags
+        with torch.enable_grad():
+            qkv = [t.detach().requires_grad_() for t in (q, k, v)]
+            out = R.flash_attention_ref(*qkv, q_pos, k_pos, k_valid,
+                                        causal=causal, window=window,
+                                        softcap=softcap)
+            grads = torch.autograd.grad(out, qkv, grad_out)
+        return (*grads, None, None, None, None, None, None)
 
 
 flash_attention_bhsd.launches = 0

@@ -5,8 +5,9 @@ computes ``act(x @ w + bias)`` with an f32 accumulator and one cast to
 ``out_dtype`` (default ``x.dtype``), as the JAX kernel of the same name
 does.  On CPU tensors it runs the plain version (``ref.matmul_fused_ref``);
 on CUDA tensors it launches ``csrc/fused_matmul.cu`` or raises -- there is
-no fallback.  It is reached through ``dispatch_matmul`` and the
-``kernels.ops.matmul_fused`` alias; no model calls it, as in JAX.
+no fallback.  It has no backward: asked for a gradient on a non-CPU
+input, it raises (``_build.refuse_grad``).  It is reached through
+``dispatch_matmul`` and the ``kernels.ops.matmul_fused`` alias; no model calls it, as in JAX.
 
 The kernel has five paths, picked by ``matmul_plan`` from shapes and
 alignment alone (a dispatch by shape, not a fallback: a failed build or
@@ -102,6 +103,7 @@ def matmul_fused(x, w, bias=None, *, activation="none", out_dtype=None):
     if x.device.type == "cpu":
         return R.matmul_fused_ref(x, w, bias, activation=activation,
                                   out_dtype=out_dtype)
+    _build.refuse_grad("matmul_fused", (x, w, bias))
     if x.device.type != "cuda":
         raise ValueError(f"no fused matmul kernel for {x.device}")
     m, k, n = check_matmul_contract(x, w, bias, activation=activation,

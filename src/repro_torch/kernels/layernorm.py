@@ -6,7 +6,9 @@ layernorm (variance ``mean((x - mu)^2)``, then scale and bias) when
 ``kind == "layernorm"``, rmsnorm for any other kind (bias unused), as the
 JAX kernel of the same name does.  On CPU tensors it runs the plain
 version (``ref.norm_onepass_ref``); on CUDA tensors it launches
-``csrc/layernorm.cu`` or raises -- there is no fallback.  It is reached
+``csrc/layernorm.cu`` or raises -- there is no fallback.  It has no
+backward: asked for a gradient on a non-CPU input, it raises
+(``_build.refuse_grad``).  It is reached
 through ``dispatch_layernorm`` and the ``kernels.ops.norm_onepass``
 alias; the models normalize in plain PyTorch, as JAX's do in jnp.
 
@@ -86,6 +88,7 @@ def norm_onepass(x, scale, bias=None, *, kind="rmsnorm", eps=1e-6):
     """x (R, D) row-normalized -> (R, D) in x's dtype."""
     if x.device.type == "cpu":
         return R.norm_onepass_ref(x, scale, bias, kind=kind, eps=eps)
+    _build.refuse_grad("norm_onepass", (x, scale, bias))
     if x.device.type != "cuda":
         raise ValueError(f"no norm kernel for {x.device}")
     r, d = check_norm_contract(x, scale, bias)

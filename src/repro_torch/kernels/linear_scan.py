@@ -5,7 +5,9 @@
 ``h0`` (N, F) (zeros when None), as the JAX kernel of the same name
 does.  On CPU tensors it runs the plain version
 (``ref.linear_scan_ref``); on CUDA tensors it launches
-``csrc/linear_scan.cu`` or raises -- there is no fallback.  The model
+``csrc/linear_scan.cu`` or raises -- there is no fallback.  It has no
+backward: asked for a gradient on a non-CPU input, it raises
+(``_build.refuse_grad``).  The model
 reaches it through mamba (``models/ssm.py``): every decode step at S = 1
 with the slot's state as ``h0`` (prefill, S > 1, takes the fused
 selective scan, ``kernels/selective_scan.py``).
@@ -69,6 +71,7 @@ def linear_scan(a, b, h0=None):
     """a, b: (N, S, F); h0: (N, F) or None.  Returns h_all (N, S, F)."""
     if a.device.type == "cpu":
         return R.linear_scan_ref(a, b, h0)
+    _build.refuse_grad("linear_scan", (a, b, h0))
     if a.device.type != "cuda":
         raise ValueError(f"no linear scan kernel for {a.device}")
     n, s, f = check_linear_scan_contract(a, b, h0)

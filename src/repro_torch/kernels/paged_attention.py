@@ -34,10 +34,12 @@ on int8 pools per-row scales ``(N, P, Hkv)`` f32):
     combine pass of the same C call merges them.
 
 On CPU tensors each runs its plain version from ``kernels/ref.py``; on
-CUDA tensors it launches its kernel or raises.  Unlike the JAX kernel,
-which returns fresh pool buffers through input/output aliasing, the fused
-decode writes the fresh rows (and scales) into the pools IN PLACE (both
-paths).
+CUDA tensors it launches its kernel or raises.  None has a backward: a
+non-CPU input that requires grad under grad mode raises
+(``_build.refuse_grad``) rather than losing its gradient.  Unlike the
+JAX kernel, which returns fresh pool buffers through input/output
+aliasing, the fused decode writes the fresh rows (and scales) into the
+pools IN PLACE (both paths).
 
 Shape contract on CUDA (checked before every launch): every operand
 contiguous and on one device; q and the fresh rows share one activation
@@ -216,6 +218,8 @@ def fused_paged_decode_grouped(q, k_new, v_new, k_pages, v_pages,
                                         theta=theta, softcap=softcap,
                                         k_scales=k_scales,
                                         v_scales=v_scales)
+    _build.refuse_grad("fused_paged_decode_grouped",
+                       (q, k_new, v_new, k_pages, v_pages))
     if q.device.type != "cuda":
         raise ValueError(f"no fused paged decode kernel for {q.device}")
     b, hk, g, d, page, nb = check_fused_decode_contract(
@@ -250,6 +254,7 @@ def paged_attention_grouped(q, k_pages, v_pages, block_tables, lengths, *,
         return R.paged_attention_ref(q, k_pages, v_pages, block_tables,
                                      lengths, softcap=softcap,
                                      k_scales=k_scales, v_scales=v_scales)
+    _build.refuse_grad("paged_attention_grouped", (q, k_pages, v_pages))
     if q.device.type != "cuda":
         raise ValueError(f"no paged attention kernel for {q.device}")
     b, hk, g, d, page, nb = check_paged_decode_contract(
@@ -311,6 +316,8 @@ def paged_prefill_attention_grouped(q, k_pages, v_pages, block_tables,
         return R.paged_prefill_attention_ref(
             q, k_pages, v_pages, block_tables, offset, softcap=softcap,
             k_scales=k_scales, v_scales=v_scales)
+    _build.refuse_grad("paged_prefill_attention_grouped",
+                       (q, k_pages, v_pages))
     if q.device.type != "cuda":
         raise ValueError(f"no paged prefill kernel for {q.device}")
     out = _launch_paged_prefill("paged_prefill_attention_grouped", q,
@@ -331,6 +338,8 @@ def paged_verify_attention_grouped(q, k_pages, v_pages, block_tables,
         return R.paged_verify_attention_ref(
             q, k_pages, v_pages, block_tables, offset, softcap=softcap,
             k_scales=k_scales, v_scales=v_scales)
+    _build.refuse_grad("paged_verify_attention_grouped",
+                       (q, k_pages, v_pages))
     if q.device.type != "cuda":
         raise ValueError(f"no paged verify kernel for {q.device}")
     out = _launch_paged_prefill("paged_verify_attention_grouped", q,

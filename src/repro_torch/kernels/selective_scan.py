@@ -11,6 +11,15 @@ launches ``csrc/selective_scan.cu`` or raises -- there is no fallback.
 Neither forms a (N, S, d_inner, d_state) tensor.  The model reaches it
 through ``models/ssm.py::apply_mamba`` at S > 1 (prefill).
 
+Gradients.  JAX's function is jnp, differentiated by JAX, and has no
+kernel or backward of its own, so none is ported: ``_SelectiveScan``, a
+``torch.autograd.Function``, runs the kernel forward and recomputes the
+scan in its backward through ``ref.mamba_scan_fused_ref``,
+differentiating that loop for the gradients of delta, xi, bm, cm, a_mat
+and h0.  Every CUDA call goes through it; under ``torch.no_grad()`` it
+records nothing and is the same launch.  A selective-scan backward
+kernel is later work.
+
 ``selective_scan_plan`` picks, from shapes and alignment alone, how many
 threads share a channel's states (``lanes``) and how many states each
 holds, and whether the kernel stages its chunks in 16-byte or 4-byte
@@ -90,8 +99,14 @@ def mamba_scan_fused(delta, xi, bm, cm, a_mat, h0=None):
         return R.mamba_scan_fused_ref(delta, xi, bm, cm, a_mat, h0)
     if delta.device.type != "cuda":
         raise ValueError(f"no selective scan kernel for {delta.device}")
+    return _SelectiveScan.apply(delta, xi, bm, cm, a_mat, h0)
+
+
+def _launch(delta, xi, bm, cm, a_mat, h0):
+    """One launch of ``csrc/selective_scan.cu`` on CUDA tensors."""
     n_, s, d, n = check_selective_scan_contract(delta, xi, bm, cm, a_mat,
                                                 h0)
+    operands = [t for t in (delta, xi, bm, cm, a_mat, h0) if t is not None]
     lib = _build.load_library()
     y = torch.empty_like(delta)
     h_last = torch.empty((n_, d, n), dtype=torch.float32,
@@ -110,6 +125,28 @@ def mamba_scan_fused(delta, xi, bm, cm, a_mat, h0=None):
     mamba_scan_fused.launches += 1
     mamba_scan_fused.last_plan = plan
     return y, h_last
+
+
+class _SelectiveScan(torch.autograd.Function):
+    """The kernel forward; the backward recomputes through the plain
+    version and differentiates it (see the module docstring)."""
+
+    @staticmethod
+    def forward(ctx, delta, xi, bm, cm, a_mat, h0):
+        ctx.save_for_backward(delta, xi, bm, cm, a_mat, h0)
+        return _launch(delta, xi, bm, cm, a_mat, h0)
+
+    @staticmethod
+    def backward(ctx, grad_y, grad_h):
+        saved = ctx.saved_tensors
+        with torch.enable_grad():
+            ins = [None if t is None else t.detach().requires_grad_()
+                   for t in saved]
+            outs = R.mamba_scan_fused_ref(*ins)
+            live = [t for t in ins if t is not None]
+            grads = iter(torch.autograd.grad(outs, live, (grad_y, grad_h),
+                                             allow_unused=True))
+        return tuple(None if t is None else next(grads) for t in ins)
 
 
 mamba_scan_fused.launches = 0

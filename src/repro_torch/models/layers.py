@@ -10,7 +10,8 @@ cross-attention over encoder K/V: RMSNorm and LayerNorm (also per head,
 qk-norm), RoPE, M-RoPE and sinusoidal positions,
 GQA attention over a dense cache or ring or a paged KV cache, the gated
 or plain MLP, the top-k routed MoE FFN, embedding and the LM head (its
-own weight or the embedding's transpose, with an optional final softcap).
+own weight or the embedding's transpose, with an optional final softcap),
+and the head fused with cross-entropy over vocab chunks for the loss.
 
 Conventions, as on the JAX side:
   * params are nested dicts of tensors, weights laid out (in, out) so the
@@ -530,12 +531,12 @@ def matmul_f32(x, w):
     """x (..., K) @ w (K, N) accumulated in f32 and returned in f32: the
     counterpart of ``jnp.einsum(..., preferred_element_type=jnp.float32)``
     with no cast after it.  On CUDA, bf16 operands go to the dtype
-    overload of ``torch.mm`` (f32 output, no widened weight copy); on the
-    CPU both operands are widened first, which gives the same product
-    because bf16 values are exact in f32."""
+    overload of ``torch.mm`` (f32 output, no widened weight copy) inside
+    ``_MatmulF32``; on the CPU both operands are widened first, which
+    gives the same product because bf16 values are exact in f32 (and is
+    differentiable as it stands)."""
     if x.device.type == "cuda" and x.dtype != torch.float32:
-        out = torch.mm(x.reshape(-1, x.shape[-1]), w,
-                       out_dtype=torch.float32)
+        out = _MatmulF32.apply(x.reshape(-1, x.shape[-1]), w)
         return out.reshape(*x.shape[:-1], w.shape[-1])
     return torch.matmul(x.to(torch.float32), w.to(torch.float32))
 
@@ -545,8 +546,63 @@ def bmm_f32(x, w):
     the batched counterpart of ``matmul_f32`` (JAX's expert einsums with
     ``preferred_element_type=jnp.float32``)."""
     if x.device.type == "cuda" and x.dtype != torch.float32:
-        return torch.bmm(x, w, out_dtype=torch.float32)
+        return _MatmulF32.apply(x, w)
     return torch.bmm(x.to(torch.float32), w.to(torch.float32))
+
+
+def _mm_f32(a, b):
+    """a @ b (2-D or batched 3-D) accumulated and returned in f32: the
+    dtype overload of ``torch.mm``/``torch.bmm`` on CUDA; widened operands
+    elsewhere."""
+    if a.device.type == "cuda":
+        mm = torch.mm if a.dim() == 2 else torch.bmm
+        return mm(a, b, out_dtype=torch.float32)
+    return torch.matmul(a.to(torch.float32), b.to(torch.float32))
+
+
+def _split_bf16(g):
+    """f32 ``g`` as three bf16 terms whose sum is ``g`` to within 2^-27
+    of each value (8 significant bits a term; f32 holds 24)."""
+    hi = g.to(torch.bfloat16)
+    rest = g - hi.to(torch.float32)
+    mid = rest.to(torch.bfloat16)
+    return hi, mid, (rest - mid.to(torch.float32)).to(torch.bfloat16)
+
+
+def matmul_f32_grads(x, w, g, needs=(True, True)):
+    """The gradients of the f32-output product ``x @ w`` (2-D, or batched
+    3-D) for the f32 cotangent ``g``, by JAX's transpose rule for
+    ``preferred_element_type=f32`` products: the cotangent stays f32, each
+    product accumulates in f32, and each gradient is cast to its operand's
+    dtype -- what autograd through the CPU path's widened product gives.
+    For bf16 operands ``g`` enters as its three bf16 terms
+    (``_split_bf16``), summed after their products, so that the products
+    stay on the tensor cores with the f32 cotangent's precision."""
+    parts = (g,) if x.dtype == torch.float32 else _split_bf16(g)
+
+    def summed(mm):                           # the smallest terms first
+        out = mm(parts[-1])
+        for part in parts[-2::-1]:
+            out = out + mm(part)
+        return out
+    gx = summed(lambda p: _mm_f32(p, w.mT)).to(x.dtype) if needs[0] else None
+    gw = summed(lambda p: _mm_f32(x.mT, p)).to(w.dtype) if needs[1] else None
+    return gx, gw
+
+
+class _MatmulF32(torch.autograd.Function):
+    """``torch.mm``/``torch.bmm`` with ``out_dtype=float32`` (which has no
+    derivative of its own) and ``matmul_f32_grads`` as its backward."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        return _mm_f32(x, w)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        return matmul_f32_grads(x, w, g, ctx.needs_input_grad)
 
 
 _ACTS = {"silu": torch.nn.functional.silu,
@@ -644,6 +700,53 @@ def embed(p, ids, cfg: ModelConfig):
         out = out * torch.sqrt(torch.tensor(float(cfg.d_model))).to(
             out.dtype)
     return out
+
+
+def _xent_chunk(m, l, tgt, xf, w_c, labels, start: int, cap: float):
+    """One vocab chunk of ``chunked_softmax_xent``: its f32 logits, the
+    running max and sum moved on, and the target logit picked up where
+    the label falls in the chunk."""
+    chunk = w_c.shape[1]
+    logits = torch.matmul(xf, w_c.to(torch.float32))          # (N, chunk)
+    if cap > 0:
+        logits = cap * torch.tanh(logits / cap)
+    m_new = torch.maximum(m, logits.max(dim=-1).values)
+    l = l * torch.exp(m - m_new) + torch.exp(
+        logits - m_new[:, None]).sum(dim=-1)
+    local = labels - start
+    in_chunk = (local >= 0) & (local < chunk)
+    got = torch.gather(logits, 1, local.clamp(0, chunk - 1)[:, None])[:, 0]
+    return m_new, l, torch.where(in_chunk, got, tgt)
+
+
+def chunked_softmax_xent(x, w, labels, cfg: ModelConfig, *,
+                         chunk: int = 8192):
+    """Cross-entropy fused with the LM head over vocab chunks, as JAX's
+    function of that name: an online logsumexp runs across the chunks, so
+    the (tokens, vocab) logits never exist at once.  A vocabulary that
+    ``chunk`` does not divide runs as one chunk.  The final softcap
+    applies inside.  Each chunk runs under ``torch.utils.checkpoint``
+    (non-reentrant), so the backward recomputes its logits, as JAX's
+    ``jax.checkpoint(body)`` does.  Plain PyTorch, as JAX's is jnp.
+
+    x: (N, D) final hidden; w: (D, V); labels: (N,) int (< 0 is masked by
+    the caller: such a row's target stays 0).  Returns the per-token nll
+    (N,) in f32."""
+    from torch.utils.checkpoint import checkpoint
+    n = x.shape[0]
+    v = w.shape[1]
+    if v % chunk:
+        chunk = v
+    xf = x.to(torch.float32)
+    dev = x.device
+    m = torch.full((n,), NEG_INF, dtype=torch.float32, device=dev)
+    l = torch.zeros((n,), dtype=torch.float32, device=dev)
+    tgt = torch.zeros((n,), dtype=torch.float32, device=dev)
+    for start in range(0, v, chunk):
+        m, l, tgt = checkpoint(_xent_chunk, m, l, tgt, xf,
+                               w[:, start:start + chunk], labels, start,
+                               cfg.final_logit_softcap, use_reentrant=False)
+    return m + torch.log(l) - tgt
 
 
 def logits_head(p_embed, p_head, x, cfg: ModelConfig):

@@ -1,9 +1,10 @@
-"""Model facade of the port: init / forward / prefill / decode.
+"""Model facade of the port: init / forward / loss / prefill / decode.
 
 ``build_model(cfg, device)`` returns a ``Model`` whose methods are plain
-functions of (params, inputs), like the JAX facade's, for every family of
-the JAX package: the dense and MoE GQA decoders, the attention + mamba
-hybrids, xLSTM (family ``ssm``), qwen2-vl (family ``vlm``: merged text +
+functions of (params, inputs), like the JAX facade's (``loss`` too, with
+the head fused with cross-entropy for large vocabularies, and
+``remat``), for every family of the JAX package: the dense and MoE GQA
+decoders, the attention + mamba hybrids, xLSTM (family ``ssm``), qwen2-vl (family ``vlm``: merged text +
 patch ``embeds`` and M-RoPE ``positions`` of (3, B, S); its vision tower
 a stub, as in JAX), the encoder-only ViTs (family ``vision``) and
 whisper's encoder-decoder (family ``audio``).  Params are nested dicts
@@ -25,6 +26,7 @@ through ``forward``, ``prefill`` and ``decode_step``.
 """
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass
 from typing import Any, Dict
 
@@ -101,13 +103,14 @@ class Model:
 
     # --------------------------------------------------------------- forward
     def _lm_hidden(self, params, x, *, positions=None, cache=None,
-                   cache_index=None, block_tables=None, write_tables=None):
+                   cache_index=None, block_tables=None, write_tables=None,
+                   remat=False):
         """Returns (final-normed hidden, cache, aux)."""
         x, cache, aux = T.run_stack(params["stack"], x, self.cfg,
                                     positions=positions, cache=cache,
                                     cache_index=cache_index,
                                     block_tables=block_tables,
-                                    write_tables=write_tables)
+                                    write_tables=write_tables, remat=remat)
         return L.apply_norm(params["final_norm"], x, self.cfg), cache, aux
 
     def _lm_inputs(self, params, batch):
@@ -133,7 +136,23 @@ class Model:
         return L.logits_head(params["embed"], params.get("head"), x,
                              self.cfg)
 
-    def forward(self, params, batch):
+    def _head_weight(self, params):
+        """The LM head's (D, V) weight: its own, or the embedding table's
+        transpose (a view) when tied."""
+        if self.cfg.tie_embeddings or params.get("head") is None:
+            return params["embed"]["table"].t()
+        return params["head"]["w"]
+
+    def _use_chunked_ce(self) -> bool:
+        """Whether ``loss`` takes the fused head + cross-entropy: a
+        vocabulary of at least ``REPRO_CHUNKED_CE`` (default 65,536; 0
+        turns it off), outside the vision family -- the variable JAX's
+        loss reads, so that one setting drives both packages."""
+        thresh = int(os.environ.get("REPRO_CHUNKED_CE", 65536))
+        return bool(thresh) and self.cfg.vocab_size >= thresh \
+            and self.cfg.family not in ("vision",)
+
+    def forward(self, params, batch, *, remat: bool = False):
         """Full forward -> (logits f32, aux_loss: the MoE layers' summed
         load-balance loss, 0 without them).  LM families: causal over
         ``batch["tokens"]`` (B, S), or ``batch["embeds"]`` (B, S, D) in
@@ -143,7 +162,9 @@ class Model:
         prepended and learned positions added, bidirectional, logits
         (B, V) of the cls token.  audio: ``batch["enc_embeds"]`` (B, T, D)
         frame embeddings through the encoder, ``batch["dec_tokens"]``
-        (B, S) causally through the decoder, logits (B, S, V)."""
+        (B, S) causally through the decoder, logits (B, S, V).  remat:
+        each layer group's activations are recomputed in the backward
+        pass (``run_stack``)."""
         cfg = self.cfg
         if cfg.family == "vision":
             x = _embeds(batch["embeds"], self.device, self._dtype())
@@ -151,32 +172,78 @@ class Model:
             x = torch.cat([params["cls"].to(x.dtype).expand(b, 1, d), x],
                           dim=1)
             x = x + params["pos_embed"][:, :s + 1].to(x.dtype)
-            x, _, aux = T.run_stack(params["stack"], x, cfg, causal=False)
+            x, _, aux = T.run_stack(params["stack"], x, cfg, causal=False,
+                                    remat=remat)
             x = L.apply_norm(params["final_norm"], x, cfg)
             logits = L.matmul_f32(x[:, 0], params["head"]["w"])
-        elif cfg.family == "audio":
-            enc = self.encode(params, batch["enc_embeds"])
-            y = self._dec_in(params, batch["dec_tokens"])
-            y, _, aux = T.run_stack(params["stack"], y, cfg, causal=True,
-                                    enc_out=enc)
-            logits = self._head(params,
-                                L.apply_norm(params["final_norm"], y, cfg))
         else:
-            x, positions = self._lm_inputs(params, batch)
-            hidden, _, aux = self._lm_hidden(params, x, positions=positions)
+            hidden, aux = self._hidden_for_loss(params, batch, remat=remat)
             logits = self._head(params, hidden)
-        return logits, torch.as_tensor(aux, dtype=torch.float32,
-                                       device=logits.device)
+        return logits, self._aux(aux, logits.device)
 
-    def encode(self, params, enc_embeds):
+    @staticmethod
+    def _aux(aux, device):
+        return torch.as_tensor(aux, dtype=torch.float32, device=device)
+
+    def encode(self, params, enc_embeds, *, remat: bool = False):
         """audio: frame embeddings (B, T, D) plus sinusoidal positions
         through the bidirectional encoder and its final norm."""
         cfg = self.cfg
         x = _embeds(enc_embeds, self.device, self._dtype())
         pos = L.sinusoidal_positions(x.shape[1], cfg.d_model, x.device)
         x, _, _ = T.run_stack(params["enc_stack"], x + pos[None].to(x.dtype),
-                              cfg, causal=False)
+                              cfg, causal=False, remat=remat)
         return L.apply_norm(params["enc_norm"], x, cfg)
+
+    # ------------------------------------------------------------------ loss
+    def loss(self, params, batch, *, remat: bool = False):
+        """The training loss, as JAX's: the mean cross-entropy of
+        ``batch["labels"]`` plus ``0.01 * aux`` (the MoE load-balance
+        loss), a 0-d f32 tensor.  vision: labels (B,) against the cls
+        logits.  Otherwise labels (B, S), a label < 0 masked out of the
+        mean, through the full logits or, when ``_use_chunked_ce``, the
+        fused head + cross-entropy ``L.chunked_softmax_xent`` over the
+        final hidden states (the logits never materialize).  No host
+        sync."""
+        cfg = self.cfg
+        labels = _tokens(batch["labels"], self.device)
+        if cfg.family == "vision":
+            logits, aux = self.forward(params, batch, remat=remat)
+            lp = torch.log_softmax(logits, dim=-1)
+            nll = -torch.gather(lp, -1, labels[:, None])
+            return nll.mean() + 0.01 * aux
+        if self._use_chunked_ce():
+            hidden, aux = self._hidden_for_loss(params, batch, remat=remat)
+            n = hidden.shape[0] * hidden.shape[1]
+            flat = labels.reshape(n)
+            nll = L.chunked_softmax_xent(hidden.reshape(n, cfg.d_model),
+                                         self._head_weight(params), flat,
+                                         cfg)
+            mask = (flat >= 0).to(torch.float32)
+            loss = (nll * mask).sum() / mask.sum().clamp_min(1.0)
+            return loss + 0.01 * self._aux(aux, loss.device)
+        logits, aux = self.forward(params, batch, remat=remat)
+        mask = (labels >= 0).to(torch.float32)
+        lp = torch.log_softmax(logits, dim=-1)
+        nll = -torch.gather(lp, -1, labels.clamp_min(0)[..., None])[..., 0]
+        loss = (nll * mask).sum() / mask.sum().clamp_min(1.0)
+        return loss + 0.01 * aux
+
+    def _hidden_for_loss(self, params, batch, *, remat=False):
+        """The final-normed hidden states before the head, and aux, of
+        the audio decoder or an LM family (the fused-CE path; ``forward``
+        applies the head to them)."""
+        cfg = self.cfg
+        if cfg.family == "audio":
+            enc = self.encode(params, batch["enc_embeds"], remat=remat)
+            y = self._dec_in(params, batch["dec_tokens"])
+            y, _, aux = T.run_stack(params["stack"], y, cfg, causal=True,
+                                    enc_out=enc, remat=remat)
+            return L.apply_norm(params["final_norm"], y, cfg), aux
+        x, positions = self._lm_inputs(params, batch)
+        hidden, _, aux = self._lm_hidden(params, x, positions=positions,
+                                         remat=remat)
+        return hidden, aux
 
     def _dec_in(self, params, tokens):
         """audio: decoder token embeddings plus sinusoidal positions from

@@ -31,6 +31,7 @@ from __future__ import annotations
 from typing import Any, Dict, List
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import BlockSpec, ModelConfig
 from repro_torch.models import layers as L
@@ -166,7 +167,8 @@ def group_view(cache, g: int):
 def run_stack(stack_params: List[Dict[str, Any]], x, cfg: ModelConfig, *,
               positions=None, causal: bool = True, cache=None,
               cache_index=None, enc_out=None, block_tables=None,
-              write_tables=None, attend_cache: bool = False):
+              write_tables=None, attend_cache: bool = False,
+              remat: bool = False):
     """Run every group of ``stack_params`` in order against the cache
     leaves' matching group entries (a plan stage passes its group slice of
     both).  Returns (x, cache, aux), aux the sum of the MoE layers'
@@ -183,10 +185,17 @@ def run_stack(stack_params: List[Dict[str, Any]], x, cfg: ModelConfig, *,
     the tokens already in a dense ``cache`` (scalar ``cache_index`` = their
     count) beside the fresh chunk; recurrent blocks continue from the
     cached state either way, and a paged prefill always attends every
-    mapped page."""
-    aux = 0.0
-    for g, gp in enumerate(stack_params):
-        gc = group_view(cache, g) if cache is not None else None
+    mapped page.
+
+    remat: each group's body runs under ``torch.utils.checkpoint``
+    (non-reentrant), which keeps only the group's inputs and recomputes
+    its activations in the backward pass: JAX's ``jax.checkpoint`` with
+    the ``nothing_saveable`` policy.  For the stateless training forward
+    (no cache: a recompute would write the cache twice)."""
+    if remat and cache is not None:
+        raise ValueError("remat recomputes a stateless forward: no cache")
+
+    def group(gp, gc, x, aux):
         for j, blk in enumerate(cfg.block_pattern):
             x, _, a = apply_block(
                 gp[f"b{j}"], x, cfg, blk, positions=positions,
@@ -196,6 +205,16 @@ def run_stack(stack_params: List[Dict[str, Any]], x, cfg: ModelConfig, *,
                 block_tables=block_tables,
                 write_tables=write_tables, attend_cache=attend_cache)
             aux = aux + a
+        return x, aux
+
+    aux = 0.0
+    for g, gp in enumerate(stack_params):
+        if remat:
+            x, aux = checkpoint(group, gp, None, x, aux,
+                                use_reentrant=False)
+        else:
+            gc = group_view(cache, g) if cache is not None else None
+            x, aux = group(gp, gc, x, aux)
     return x, cache, aux
 
 

@@ -812,3 +812,95 @@ def test_ring_decode_runs_the_unfused_decode_kernel(cuda_device, dtype):
                            cfg.window_size, dtype)
     torch.cuda.synchronize()
     _close(got, ref, dtype)
+
+
+# ---------------------------------------------------------------------------
+# gradient routes (training): flash and the selective scan run the kernel
+# forward inside an autograd.Function whose backward recomputes through the
+# plain version; the f32-output products have a backward of their own;
+# every other kernel raises when asked for a gradient
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d,causal,window,softcap", [
+    (128, True, 0, 0.0), (256, True, 40, 50.0), (64, False, 0, 0.0)])
+def test_flash_gradient_route_matches_plain(cuda_device, dtype, d, causal,
+                                            window, softcap):
+    g = torch.Generator(device=cuda_device).manual_seed(d)
+    b, h, hk, s = 2, 8, 2, 130
+    q, k, v = (torch.randn((b, n, s, d), generator=g, device=cuda_device)
+               .to(dtype).requires_grad_() for n in (h, hk, hk))
+    go = torch.randn((b, h, s, d), generator=g, device=cuda_device).to(dtype)
+    pos = torch.arange(s, device=cuda_device, dtype=torch.int32)
+    ones = torch.ones((s,), device=cuda_device, dtype=torch.int32)
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    n0 = TF.flash_attention_bhsd.launches
+    out = TF.flash_attention_bhsd(q, k, v, pos, pos, ones, **kw)
+    assert TF.flash_attention_bhsd.launches == n0 + 1
+    assert out.grad_fn is not None
+    grads = torch.autograd.grad(out, (q, k, v), go)
+    ref = TR.flash_attention_ref(q, k, v, pos, pos, ones, **kw)
+    rgrads = torch.autograd.grad(ref, (q, k, v), go)
+    _close(out, ref, dtype)
+    for a, r in zip(grads, rgrads):
+        assert a.dtype == dtype
+        torch.testing.assert_close(a, r, rtol=0, atol=0)
+    with torch.no_grad():
+        assert TF.flash_attention_bhsd(q, k, v, pos, pos, ones,
+                                       **kw).grad_fn is None
+
+
+@pytest.mark.parametrize("with_h0", [False, True])
+def test_selective_scan_gradient_route_matches_plain(cuda_device, with_h0):
+    from repro_torch.kernels import selective_scan as TS
+    g = torch.Generator(device=cuda_device).manual_seed(3)
+    n_, s, d, n = 2, 40, 256, 16
+
+    def t(*shape, scale=1.0):
+        return scale * torch.randn(shape, generator=g, device=cuda_device)
+    ins = [(0.1 * t(n_, s, d)).abs(), t(n_, s, d), t(n_, s, n), t(n_, s, n),
+           -t(d, n).abs(), t(n_, d, n) if with_h0 else None]
+    ins = [None if x is None else x.requires_grad_() for x in ins]
+    live = [x for x in ins if x is not None]
+    gy, gh = t(n_, s, d), t(n_, d, n)
+    n0 = TS.mamba_scan_fused.launches
+    y, hl = TS.mamba_scan_fused(*ins)
+    assert TS.mamba_scan_fused.launches == n0 + 1
+    grads = torch.autograd.grad((y, hl), live, (gy, gh))
+    ry, rh = TR.mamba_scan_fused_ref(*ins)
+    rgrads = torch.autograd.grad((ry, rh), live, (gy, gh))
+    torch.testing.assert_close(y, ry, atol=1e-5, rtol=1e-5)
+    for a, r in zip(grads, rgrads):
+        torch.testing.assert_close(a, r, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("name", ["matmul_f32", "bmm_f32"])
+def test_f32_output_products_have_a_backward(cuda_device, name):
+    from repro_torch.models import layers as TL
+    g = torch.Generator(device=cuda_device).manual_seed(4)
+    lead = (4,) if name == "bmm_f32" else ()
+    x = torch.randn(lead + (96, 256), generator=g, device=cuda_device).to(
+        torch.bfloat16).requires_grad_()
+    w = torch.randn(lead + (256, 160), generator=g, device=cuda_device).to(
+        torch.bfloat16).requires_grad_()
+    go = torch.randn(lead + (96, 160), generator=g, device=cuda_device)
+    out = getattr(TL, name)(x, w)
+    assert out.dtype == torch.float32
+    gx, gw = torch.autograd.grad(out, (x, w), go)
+    assert gx.dtype == gw.dtype == torch.bfloat16
+    xf, wf = (a.detach().float().requires_grad_() for a in (x, w))
+    rx, rw = torch.autograd.grad(torch.matmul(xf, wf), (xf, wf), go)
+    for a, r in ((gx, rx), (gw, rw)):
+        assert float((a.float() - r).abs().max()) \
+            <= 2e-2 * float(r.abs().max())
+
+
+def test_kernels_without_a_backward_raise_on_cuda(cuda_device):
+    from repro_torch.kernels import linear_scan as TLS
+    a = torch.rand((1, 4, 64), device=cuda_device, requires_grad=True)
+    b = torch.rand((1, 4, 64), device=cuda_device)
+    with pytest.raises(RuntimeError, match="linear_scan has no backward"):
+        TLS.linear_scan(a, b)
+    with torch.no_grad():
+        torch.testing.assert_close(TLS.linear_scan(a, b),
+                                   TR.linear_scan_ref(a, b), rtol=0, atol=0)
