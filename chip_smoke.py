@@ -181,8 +181,9 @@ device it fails (it never runs on the CPU instead).  Phases, in order:
      the host's plain forward within 1e-4 and whisper-base's f32 greedy
      streams (6 + 6 layers, 1500 frames, 32 tokens) to the host's; phase
      5 runs the bf16 ViTs at B = 1, 3, 6 and 256 (ms a batch, images/s,
-     device time and busy share, kernels a forward, the ``core``
-     prediction on ``hw.H100`` beside them) and whisper-base at B=4
+     the ``core`` prediction on ``hw.H100`` beside them; device time,
+     busy share and kernels a forward at B = 1 and 256) and whisper-base
+     at B=4
      (encode, prefill, decode step, tok/s, peak memory), each time beside
      the card's name and power limit.
   7. the last families: phase 3 adds qwen2-vl's flash shapes
@@ -225,6 +226,20 @@ device it fails (it never runs on the CPU instead).  Phases, in order:
      its share of 989, peak memory, the loss curve, flash launches a
      step = 16), the training CLI on the card, and a ``CheckpointManager``
      save and restore of the trained params, bit-equal.
+  9. placement: the SSR pipeline executor over a device mesh of two
+     slots on the one card (``make_plan_mesh(plan, devices=[cuda:0] *
+     2)``).  f32 yi-6b at published width, 4 layers, B=8, S=128: the
+     uneven 3 | 1 ``ssr_dse`` plan at M=4, the same at 2 x 2 rounds,
+     and ``pipeline_forward(n_stages=2, n_microbatches=4)``, each within
+     1e-4 of ``Model.forward`` (relative to its largest |logit|) with 16
+     flash launches; bf16 yi-6b at published size (32 layers), B=8,
+     S=512, through the search's uneven 2-stage plan at 4 microbatches
+     x 2 rounds: 256 flash launches, finite logits, the argmax of every
+     position whose top-2 gap exceeds 4 bf16 ulps equal to
+     ``Model.forward``'s, no host sync in the runner (sync debug mode
+     "error"), ``plan_forward`` and ``Model.forward`` ms beside
+     ``measure_plan``'s composed makespan and ``predict_plan(hw=H100)``;
+     ``place_params`` passes the params through on one card.
 
 It prints a ``{"kernels": [...]}`` JSON line, then as its last line
 ``{"ok": true, "device": {...}}``.  Any failed check exits non-zero
@@ -3867,6 +3882,8 @@ def serve_gemma2_phase(dev, kernels):
 VITS = ("deit-t", "deit-160", "deit-256", "lv-vit-t")
 WHISPER = "whisper-base"
 VIT_BATCHES = (1, 3, 6, 256)   # paper_tables.py's batches, and a large one
+VIT_PROFILED = (1, 256)        # the batches with a profiled window (each
+#                                window costs ~6 s of host time)
 WHISPER_FRAMES = 1500          # 30 s of audio at whisper's 50 frames/s
 WHISPER_CTX = 448              # whisper's text context: the decoder's max_seq
 WHISPER_PROMPT = 4
@@ -4125,8 +4142,9 @@ def encoder_run_phase(dev, kernels, card):
     each paper ViT's ``Model.forward`` at published size over B = 1, 3, 6
     (``benchmarks/paper_tables.py``'s batches) and 256 images of 196 patch
     embeddings (drawn on the card): ms a batch (CUDA events, median of
-    20, warm), images/s, device time and busy share and kernels a forward
-    from a profiled window of 10, and beside them the port's ``core``
+    20, warm), images/s, and at B = 1 and 256 (``VIT_PROFILED``) device
+    time and busy share and kernels a forward from a profiled window of
+    10, and beside them the port's ``core
     prediction for the same graph and batch on one H100
     (``simulate(build_graph(cfg, vit_shape(B)), sequential_assignment(g,
     1), hw=H100)``: printed, never checked).  Then whisper-base at B=4,
@@ -4161,18 +4179,22 @@ def encoder_run_phase(dev, kernels, card):
                       and bool(torch.isfinite(logits).all()),
                       f"{arch} B={b}: bad logits")
                 ms = event_ms(fwd)
-                prof = profile_forward(fwd)
                 g = build_graph(cfg, vit_shape(b))
                 pred = simulate(g, sequential_assignment(g, 1), 1, hw=H100)
                 rows[b] = dict(ms=ms, images_s=b / ms * 1e3,
-                               pred_ms=pred.latency * 1e3, **prof)
+                               pred_ms=pred.latency * 1e3)
+                dev_txt = "not profiled"
+                if b in VIT_PROFILED:
+                    prof = profile_forward(fwd)
+                    rows[b].update(prof)
+                    dev_txt = (f"device {prof['device_ms']:.4f} ms a "
+                               f"forward (busy share "
+                               f"{prof['busy_share']:.3f}), "
+                               f"{prof['kernels']:.0f} kernels a forward")
                 print(f"[run] {arch} bf16 B={b}: {ms:.4f} ms a batch, "
-                      f"{b / ms * 1e3:.1f} images/s; device "
-                      f"{prof['device_ms']:.4f} ms a forward (busy share "
-                      f"{prof['busy_share']:.3f}), {prof['kernels']:.0f} "
-                      f"kernels a forward; core predicts "
-                      f"{pred.latency * 1e3:.4f} ms (sequential, 1 chip, "
-                      f"hw=H100) ({card})")
+                      f"{b / ms * 1e3:.1f} images/s; {dev_txt}; core "
+                      f"predicts {pred.latency * 1e3:.4f} ms (sequential, "
+                      f"1 chip, hw=H100) ({card})")
             torch.cuda.synchronize()
             check(flash.launches > 0, f"{arch}: flash never launched")
             out["vit"][arch] = dict(rows=rows, launches=flash.launches)
@@ -5404,6 +5426,244 @@ def train_phase(dev, kernels, card):
                 train_yi=run)
 
 
+# ---------------------------------------------------------------------------
+# phase 9: placement -- the SSR pipeline executor over a device mesh
+# ---------------------------------------------------------------------------
+
+PLACE_ARCH = "yi-6b"
+PLACE_TOL = 1e-4               # of Model.forward's largest |logit|, f32
+PLACE_PARITY_LAYERS = 4
+PLACE_PARITY_SHAPE = (8, 128)  # B, S
+PLACE_RUN_SHAPE = (8, 512)
+PLACE_ULPS = 4                 # a position's top-2 gap that decides argmax
+
+
+def place_tokens(cfg, shape, dev, seed):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return torch.randint(1, cfg.vocab_size, shape, generator=gen,
+                         device=dev)
+
+
+def placement_parity(dev, flash):
+    """Phase 9, f32 at published width: yi-6b, 4 layers (4 groups),
+    weights from ``torch.Generator`` seed 0, B=8, S=128, through
+    ``plan_forward`` on ``make_plan_mesh(plan, devices=[cuda:0] * 2)``:
+    the uneven 3 | 1 cut (``ssr_dse`` + ``lower(mesh_devices=2,
+    n_microbatches=4)``), the same assignment at 2 microbatches x 2
+    rounds, and ``pipeline_forward(n_stages=2, n_microbatches=4)``.  Each
+    plan's logits within ``PLACE_TOL`` of ``Model.forward``'s, relative to
+    its largest |logit|; flash launched exactly once an attention layer
+    and microbatch (the padded group launches nothing)."""
+    from repro_torch.configs import REGISTRY, ShapeConfig
+    from repro_torch.core import build_graph, ssr_dse
+    from repro_torch.core.hw import H100
+    from repro_torch.launch.mesh import make_pipeline_mesh, make_plan_mesh
+    from repro_torch.models import build_model
+    from repro_torch.pipeline import pipeline_forward, plan_forward
+    from repro_torch.plan import lower
+    cfg = dataclasses.replace(REGISTRY[PLACE_ARCH],
+                              num_layers=PLACE_PARITY_LAYERS,
+                              dtype="float32", param_dtype="float32")
+    model = build_model(cfg, device=dev)
+    params = model.init(torch.Generator(device=dev).manual_seed(0))
+    b, s = PLACE_PARITY_SHAPE
+    batch = {"tokens": place_tokens(cfg, (b, s), dev, 1)}
+    ref, _ = model.forward(params, batch)
+    scale = float(ref.abs().max())
+    graph = build_graph(cfg, ShapeConfig("placement", s, b, "prefill"))
+    # the embed and the first three layers on acc 0, the last layer and
+    # the head on acc 1: groups 3 | 1
+    acc_of = (0,) * cfg.num_layers + (1, 1)
+    _, _, assign = ssr_dse(graph, acc_of, 2, n_batches=2, hw=H100)
+    slots = [torch.device(dev)] * 2
+    runs = {"uneven": lower(assign, graph, mesh_devices=2,
+                            n_microbatches=4),
+            "rounds": lower(assign, graph, mesh_devices=2,
+                            n_microbatches=2, n_rounds=2)}
+    attn = sum(b.mixer.startswith("attn") for b in cfg.block_pattern) \
+        * cfg.num_groups
+    out = {}
+    for name, plan in list(runs.items()) + [("pipeline", None)]:
+        flash.launches = 0
+        if plan is None:
+            mesh = make_pipeline_mesh(2, model=1, total=2, devices=slots)
+            got = pipeline_forward(model, params, batch, mesh, n_stages=2,
+                                   n_microbatches=4)
+            groups, total = [2, 2], 4
+        else:
+            check(not plan.is_uniform and plan.n_stages == 2,
+                  f"placement {name}: not an uneven 2-stage plan")
+            mesh = make_plan_mesh(plan, devices=slots)
+            got = plan_forward(model, params, batch, mesh, plan)
+            groups = [st.n_groups for st in plan.stages]
+            total = plan.total_microbatches
+        torch.cuda.synchronize()
+        n = flash.launches
+        rel = max_err(got, ref) / scale
+        out[name] = dict(groups=groups, microbatches=total, rel_err=rel,
+                         launches=n)
+        print(f"[place] {PLACE_ARCH} f32 {cfg.num_layers} layers B={b} "
+              f"S={s} {name}: groups {groups}, {total} microbatches on "
+              f"{mesh}: max |logits - Model.forward| / max |logit| = "
+              f"{rel:.3g} (tol {PLACE_TOL}); flash launches {n} "
+              f"(= {attn} attention layers x {total})")
+        check(rel <= PLACE_TOL, f"placement {name}: logits off by {rel:.3g}")
+        check(n == attn * total, f"placement {name}: flash launched {n} "
+                                 f"times, not {attn * total}")
+    del model, params, ref, got
+    torch.cuda.empty_cache()
+    return out
+
+
+def placement_run(dev, flash, card):
+    """Phase 9, bf16 at full depth: yi-6b at published size (32 layers,
+    12.1 GB), weights from ``torch.Generator`` seed 0, B=8, S=512, through
+    the uneven 2-stage plan the search gives for this shape (``ssr_dse``
+    on the contiguous 2-accelerator cut, ``hw=H100``; ``lower(
+    mesh_devices=2, n_microbatches=4, n_rounds=2)``) with both slots on
+    the card: flash launched 32 x 8 times, every logit finite, the argmax
+    equal to ``Model.forward``'s wherever its top-2 gap exceeds
+    ``PLACE_ULPS`` bf16 ulps of the top logit, and the runner on
+    device-resident inputs free of host syncs (sync debug mode "error").
+    Printed with the card: ``plan_forward`` and ``Model.forward`` ms
+    (CUDA events, median of 5 after a warm-up), each one's device ms,
+    busy share and kernels a call (a profiled window of 2), ``measure_plan``'s
+    composed makespan and ``predict_plan(hw=H100)`` for the plan, peak
+    memory.  One card runs the two slots in turn, so the composed
+    makespan, which assumes concurrent stages, is a prediction it cannot
+    meet: the gap is printed, not checked.  Then ``place_params`` on a
+    uniform 2-stage plan over the same two slots passes the params
+    through (one distinct device)."""
+    from repro_torch.configs import REGISTRY, ShapeConfig
+    from repro_torch.core import build_graph, ssr_dse
+    from repro_torch.core.assignment import contiguous_assignment
+    from repro_torch.core.hw import H100
+    from repro_torch.launch.mesh import make_plan_mesh
+    from repro_torch.models import build_model
+    from repro_torch.pipeline import (make_plan_runner, plan_forward,
+                                      plan_stage_params)
+    from repro_torch.plan import lower, uniform_plan
+    from repro_torch.plan.serving import place_params
+    from repro_torch.plan.validate import _embed, measure_plan, predict_plan
+    cfg = REGISTRY[PLACE_ARCH]
+    model = build_model(cfg, device=dev)
+    torch.cuda.reset_peak_memory_stats()
+    params = model.init(torch.Generator(device=dev).manual_seed(0))
+    b, s = PLACE_RUN_SHAPE
+    batch = {"tokens": place_tokens(cfg, (b, s), dev, 2)}
+    graph = build_graph(cfg, ShapeConfig("placement", s, b, "prefill"))
+    _, _, assign = ssr_dse(graph, contiguous_assignment(graph, 2, 2).acc_of,
+                           2, n_batches=2, hw=H100)
+    plan = lower(assign, graph, mesh_devices=2, n_microbatches=4,
+                 n_rounds=2)
+    print(f"[place] {PLACE_ARCH} bf16 plan for B={b} S={s}: "
+          f"{plan.describe()}")
+    check(plan.n_stages == 2 and not plan.is_uniform,
+          "placement: the search's plan is not an uneven 2-stage plan")
+    mesh = make_plan_mesh(plan, devices=[torch.device(dev)] * 2)
+    ref, _ = model.forward(params, batch)
+    flash.launches = 0
+    got = plan_forward(model, params, batch, mesh, plan)
+    torch.cuda.synchronize()
+    n = flash.launches
+    total = plan.total_microbatches
+    attn = cfg.num_layers
+    finite = bool(torch.isfinite(got).all())
+    top = torch.topk(ref, 2, dim=-1).values
+    decided = (top[..., 0] - top[..., 1]) > PLACE_ULPS * bf16_ulp(
+        top[..., 0])
+    same = got.argmax(-1) == ref.argmax(-1)
+    wrong = int((decided & ~same).sum())
+    dmax = max_err(got, ref)
+    print(f"[place] {PLACE_ARCH} bf16 32 layers B={b} S={s} plan_forward: "
+          f"flash launches {n} (= {attn} x {total}); finite {finite}; "
+          f"argmax equal to Model.forward's at {int((decided & same).sum())}"
+          f" of {int(decided.sum())} decided positions ({b * s} in all; "
+          f"{int(same.sum())} equal overall), max |dlogit| {dmax:.4g}")
+    check(n == attn * total, f"placement bf16: flash launched {n} times")
+    check(finite, "placement bf16: non-finite logits")
+    check(wrong == 0, f"placement bf16: {wrong} decided positions differ")
+    del got, ref, top, decided, same
+
+    x_mb = _embed(model, params, batch).reshape(total, b // total, s, -1)
+    staged = plan_stage_params(params["stack"], plan)
+    mask = plan.group_mask_matrix()
+    runner = make_plan_runner(cfg, mesh, plan)
+    runner(staged, mask, x_mb)
+    torch.cuda.synchronize()
+    err = None
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        y = runner(staged, mask, x_mb)
+    except RuntimeError as e:
+        err = str(e).splitlines()[0]
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    print(f"[syncs] placement: make_plan_runner's {plan.n_stages} stages x "
+          f"{total} microbatches under sync debug mode 'error': "
+          f"{'no host sync' if err is None else err}")
+    check(err is None, "placement: the plan runner synced the host")
+    del y, x_mb
+
+    plan_ms = event_ms(lambda: plan_forward(model, params, batch, mesh,
+                                            plan), iters=5, warmup=1)
+    fwd_ms = event_ms(lambda: model.forward(params, batch)[0], iters=5,
+                      warmup=1)
+    prof = {name: profile_forward(fn, reps=2) for name, fn in (
+        ("plan_forward", lambda: plan_forward(model, params, batch, mesh,
+                                              plan)),
+        ("forward", lambda: model.forward(params, batch)[0]))}
+    meas = measure_plan(model, params, batch, plan, check=False)
+    pred = predict_plan(plan, graph, hw=H100)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    print(f"[place] {PLACE_ARCH} bf16 32 layers B={b} S={s}: plan_forward "
+          f"{plan_ms:.3f} ms, Model.forward {fwd_ms:.3f} ms "
+          f"({plan_ms / fwd_ms:.3f}x); measure_plan composed makespan "
+          f"{meas['makespan_s'] * 1e3:.3f} ms (stages "
+          f"{[round(t * 1e3, 3) for t in meas['per_stage_s']]} ms a "
+          f"microbatch, concurrent stages assumed: plan_forward takes "
+          f"{plan_ms / (meas['makespan_s'] * 1e3):.3f}x it on one card); "
+          f"predict_plan(hw=H100) makespan {pred['makespan_s'] * 1e3:.3f} "
+          f"ms; peak memory {peak:.3f} GB ({card})")
+    for name, p in prof.items():
+        print(f"[place] {name} profiled (2 calls): device {p['device_ms']:.3f}"
+              f" ms a call (busy share {p['busy_share']:.3f}), "
+              f"{p['kernels']:.0f} kernels a call, wall {p['wall_ms']:.3f} "
+              f"ms a call ({card})")
+    check(np.isfinite(meas["makespan_s"]) and meas["makespan_s"] > 0,
+          "placement: measure_plan gave no makespan")
+
+    uni = uniform_plan(cfg.num_groups, 2, n_microbatches=2)
+    placed, pmesh = place_params(params, uni,
+                                 devices=[torch.device(dev)] * 2)
+    through = placed is params and pmesh is None
+    print(f"[place] place_params(uniform 2-stage plan, [{dev}] * 2): "
+          f"{'passed through' if through else pmesh}")
+    check(through, "placement: place_params moved params on one card")
+    res = dict(plan=plan.describe(), launches=n, finite=finite,
+               wrong_argmax=wrong, max_dlogit=dmax, plan_ms=plan_ms,
+               forward_ms=fwd_ms, measured_makespan_ms=meas["makespan_s"]
+               * 1e3, measured_stage_ms=[t * 1e3
+                                         for t in meas["per_stage_s"]],
+               predicted_makespan_ms=pred["makespan_s"] * 1e3,
+               peak_memory_gb=peak, profile=prof)
+    del model, params, placed
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def placement_phase(dev, kernels, card):
+    """Phase 9: the SSR pipeline executor over a device mesh."""
+    t0 = time.perf_counter()
+    flash = kernels["flash_attention"]
+    parity = placement_parity(dev, flash)
+    run = placement_run(dev, flash, card)
+    print(f"[place] phase {time.perf_counter() - t0:.1f} s")
+    return dict(parity=parity, run=run)
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke test runs only "
@@ -5524,6 +5784,7 @@ def main():
         print(f"[serve] phase {time.perf_counter() - t0:.1f} s")
         training = train_phase(dev, kernels, card)
         results.update(training.pop("kernels"))
+        placement = placement_phase(dev, kernels, card)
     except CheckFailed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -5720,7 +5981,7 @@ def main():
                    "kernels": {f"{n} {str(dt)[6:]}": r
                                for (n, dt), r in results.items()},
                    "parity": parity, "repair": repair, "serve": served,
-                   "training": training,
+                   "training": training, "placement": placement,
                    "build": _build.last_build,
                    "seconds": time.perf_counter() - t_start}, f, indent=1,
                   default=str)

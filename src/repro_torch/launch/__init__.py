@@ -1,1 +1,8 @@
-"""Command-line entry points of the port."""
+"""Entry points of the port (the ``serve`` and ``train`` command lines)
+and its device meshes (``mesh``)."""
+from repro_torch.launch.mesh import (Mesh, local_devices, make_host_mesh,
+                                     make_pipeline_mesh, make_plan_mesh,
+                                     make_production_mesh)
+
+__all__ = ["Mesh", "local_devices", "make_host_mesh", "make_pipeline_mesh",
+           "make_plan_mesh", "make_production_mesh"]

@@ -168,7 +168,7 @@ def run_stack(stack_params: List[Dict[str, Any]], x, cfg: ModelConfig, *,
               positions=None, causal: bool = True, cache=None,
               cache_index=None, enc_out=None, block_tables=None,
               write_tables=None, attend_cache: bool = False,
-              remat: bool = False):
+              remat: bool = False, group_mask=None):
     """Run every group of ``stack_params`` in order against the cache
     leaves' matching group entries (a plan stage passes its group slice of
     both).  Returns (x, cache, aux), aux the sum of the MoE layers'
@@ -191,9 +191,29 @@ def run_stack(stack_params: List[Dict[str, Any]], x, cfg: ModelConfig, *,
     (non-reentrant), which keeps only the group's inputs and recomputes
     its activations in the backward pass: JAX's ``jax.checkpoint`` with
     the ``nothing_saveable`` policy.  For the stateless training forward
-    (no cache: a recompute would write the cache twice)."""
+    (no cache: a recompute would write the cache twice).
+
+    group_mask: one 0/1 entry a group, on the host (a sequence, a numpy
+    array or a CPU tensor: reading a CUDA tensor here would sync).  A
+    group at 0 passes ``x`` and ``aux`` through unchanged and launches
+    nothing, where JAX's scan computes it and selects; this is how the
+    plan executor runs a stage padded to the plan's ``max_groups``.  For
+    the stateless forward only (no cache), as in JAX."""
     if remat and cache is not None:
         raise ValueError("remat recomputes a stateless forward: no cache")
+    if group_mask is not None:
+        if cache is not None:
+            raise ValueError("group_mask is for the stateless pipelined "
+                             "forward path: no cache")
+        if isinstance(group_mask, torch.Tensor) \
+                and group_mask.device.type != "cpu":
+            raise TypeError("group_mask must live on the host: reading a "
+                            f"{group_mask.device} tensor would sync")
+        if len(group_mask) != len(stack_params):
+            raise ValueError(f"group_mask has {len(group_mask)} entries for "
+                             f"{len(stack_params)} groups")
+        live = [float(m) > 0 for m in group_mask]
+        stack_params = [gp for gp, on in zip(stack_params, live) if on]
 
     def group(gp, gc, x, aux):
         for j, blk in enumerate(cfg.block_pattern):

@@ -1,5 +1,13 @@
-"""Plan execution of the port: ``run_stage``, one stage's group slice (the
-single-device stage walk the serving engine steps)."""
-from repro_torch.pipeline.executor import run_stage
+"""Plan execution of the port: the SSR pipeline executor over a device
+mesh (``plan_forward``, its runner and the uniform-plan shims) and
+``run_stage``, one stage's group slice (the stage walk the serving engine
+steps)."""
+from repro_torch.pipeline.executor import (make_pipeline_runner,
+                                           make_plan_runner, pipeline_forward,
+                                           pipeline_spec, plan_forward,
+                                           plan_stage_params, run_stage,
+                                           stage_params_reshape)
 
-__all__ = ["run_stage"]
+__all__ = ["make_pipeline_runner", "make_plan_runner", "pipeline_forward",
+           "pipeline_spec", "plan_forward", "plan_stage_params", "run_stage",
+           "stage_params_reshape"]

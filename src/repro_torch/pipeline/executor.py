@@ -1,17 +1,63 @@
-"""One plan stage's group slice, the unit of the port's stage walk.
+"""The SSR pipeline executor of the port: an ``ExecutionPlan`` run over a
+device mesh, the counterpart of the JAX package's ``pipeline/executor.py``.
 
-The counterpart of ``run_stage`` in the JAX package's
-``pipeline/executor.py``.  That module's multi-device executor
-(``plan_stage_params``, ``make_plan_runner``, ``plan_forward``,
-``pipeline_forward``: stages on a device mesh, microbatches moved between
-them by collective permutes) is not ported yet; on one card every stage
-runs on the same device, time-multiplexed, as the JAX package's stages
-do on one host device.
+The unit of work is an ``ExecutionPlan`` (``repro_torch.plan``): ordered
+stage slices of the layer stack, not necessarily equal, each on one slot
+of a ("stage", "data", "model") ``launch.mesh.Mesh``, with
+``n_microbatches`` in flight a round (spatial) and ``n_rounds`` rounds
+streamed back to back (sequential).  M microbatches through S stages take
+M + S - 1 ticks, the paper's Fig. 1(b).
+
+JAX runs one SPMD program over the mesh and moves microbatches between
+stages with ``ppermute``.  The port runs one Python process that drives
+every slot: stage s's groups run on slot s's lead device, and its output
+goes to the next slot's device with ``Tensor.to(non_blocking=True)``.  No
+host sync is issued, so stages on different cards overlap; slots that
+list the same card (``[cuda:0] * 2``) take turns on it.  Inside a slot
+the data and model axes run replicated on the slot's lead device: their
+sharded execution is not ported yet.
+
+Uneven stages: every stage's group list is padded to ``plan.max_groups``
+by a clamped gather (repeating the stage's last real group: list entries,
+so the padding shares that group's tensors), and ``run_stack``'s
+``group_mask`` skips the dead entries, which launch nothing.  Where JAX
+computes the pipeline's bubbles (a stage with no microbatch yet, or none
+left) and discards them, the port skips them.
+
+``run_stage`` is one stage's unpadded slice, the unit of the serving
+engine's stage walk.  The legacy ``(n_stages, n_microbatches)`` API
+survives as shims that lower a uniform plan.
 """
 from __future__ import annotations
 
+from typing import Callable
+
+import torch
+
+from repro_torch import tree as TR
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import transformer as T
+from repro_torch.plan.ir import ExecutionPlan, uniform_plan
+from repro_torch.plan.validate import _embed, _finish
+
+
+def stage_params_reshape(stack_params, n_stages: int):
+    """The per-group param list -> ``n_stages`` lists of equal length, the
+    uniform split; uneven plans use ``plan_stage_params``."""
+    g = len(stack_params)
+    if n_stages < 1 or g % n_stages:
+        raise ValueError(f"{n_stages} stages do not divide {g} groups")
+    k = g // n_stages
+    return [stack_params[s * k:(s + 1) * k] for s in range(n_stages)]
+
+
+def plan_stage_params(stack_params, plan: ExecutionPlan):
+    """The per-group param list -> S lists of ``plan.max_groups`` groups,
+    by the plan's clamped gather (``plan.group_index_matrix()``): a short
+    stage repeats its last real group, which the runner masks out.  List
+    indexing: a padded entry is that group's dict, nothing is copied."""
+    return [[stack_params[int(g)] for g in row]
+            for row in plan.group_index_matrix()]
 
 
 def run_stage(cfg: ModelConfig, stage_params, x, *, cache=None,
@@ -33,3 +79,117 @@ def run_stage(cfg: ModelConfig, stage_params, x, *, cache=None,
     return T.run_stack(stage_params, x, cfg, cache=cache,
                        cache_index=cache_index, block_tables=block_tables,
                        write_tables=write_tables, attend_cache=attend_cache)
+
+
+def pipeline_spec(stack_params_staged, mesh):
+    """Each stage's device: the lead device of its mesh slot (stage s of
+    ``stack_params_staged`` runs on ``mesh`` slot s)."""
+    n = mesh.shape["stage"]
+    if len(stack_params_staged) != n:
+        raise ValueError(f"{len(stack_params_staged)} stages on a mesh of "
+                         f"{n} stage slots")
+    return [mesh.devices[s].flat[0] for s in range(n)]
+
+
+def _send(t, device):
+    """``t`` on ``device``, itself when it is there already; a copy to a
+    card is enqueued without a host sync (a copy to the host waits)."""
+    return t.to(device, non_blocking=torch.device(device).type == "cuda")
+
+
+def _to(tree, device):
+    """``tree``'s tensors on ``device`` (a placed tree costs nothing)."""
+    return TR.tree_map(lambda t: _send(t, device), tree)
+
+
+def make_plan_runner(cfg: ModelConfig, mesh, plan: ExecutionPlan
+                     ) -> Callable:
+    """Returns pipelined(params_staged, group_mask, x_mb) -> y_mb.
+
+    params_staged: S lists of ``plan.max_groups`` group dicts
+      (``plan_stage_params``); a stage's groups go to its slot's device
+      (a no-op where they are already there).
+    group_mask: (S, max_groups) 0/1 on the host (``plan.group_mask_matrix``):
+      live vs padded groups a stage.
+    x_mb: (M_total, mb, seq, d_model) embedded microbatches,
+      M_total = plan.n_microbatches * plan.n_rounds.
+    y_mb: (M_total, mb, seq, d_model) final hidden states, on the last
+      stage's device.
+
+    Tick t: stage 0 takes microbatch t, stage s runs what stage s - 1 sent
+    it at tick t - 1, and the last stage banks microbatch t - (S - 1)."""
+    S = plan.n_stages
+    M = plan.total_microbatches
+
+    def pipelined(params_staged, group_mask, x_mb):
+        devs = pipeline_spec(params_staged, mesh)
+        if len(x_mb) != M:
+            raise ValueError(f"{len(x_mb)} microbatches for a plan of {M}")
+        # live groups only: a padded entry never runs, so it stays put
+        params = [[_to(g, d) if float(m) > 0 else g
+                   for g, m in zip(p, ms)]
+                  for p, ms, d in zip(params_staged, group_mask, devs)]
+        inbox = [None] * S          # what each stage runs this tick
+        outputs = [None] * M
+        for t in range(M + S - 1):
+            inbox[0] = _send(x_mb[t], devs[0]) if t < M else None
+            sent = [None] * S
+            for s in range(S):
+                if inbox[s] is None:        # a bubble: nothing to run
+                    continue
+                y, _, _ = T.run_stack(params[s], inbox[s], cfg,
+                                      group_mask=group_mask[s])
+                if s == S - 1:
+                    outputs[t - (S - 1)] = y
+                else:
+                    sent[s + 1] = _send(y, devs[s + 1])
+            inbox = sent
+        return torch.stack(outputs)
+
+    return pipelined
+
+
+def plan_forward(model, params, batch, mesh, plan: ExecutionPlan):
+    """End-to-end plan execution: embed, the pipelined (uneven) stages,
+    then the final norm and the head on the model's device -> f32 logits.
+    batch: ``{"tokens": (B, S)}`` or ``{"embeds": (B, S, D)}``; B must be
+    a multiple of the plan's total microbatches."""
+    cfg = model.cfg
+    if plan.num_groups != cfg.num_groups:
+        raise ValueError(f"the plan tiles {plan.num_groups} groups, the "
+                         f"model has {cfg.num_groups}")
+    x = _embed(model, params, batch)
+    B, seq, d = x.shape
+    M = plan.total_microbatches
+    if B % M:
+        raise ValueError(f"batch {B} is not a multiple of the plan's {M} "
+                         f"microbatches")
+    x_mb = x.reshape(M, B // M, seq, d)
+    staged = plan_stage_params(params["stack"], plan)
+    runner = make_plan_runner(cfg, mesh, plan)
+    y = runner(staged, plan.group_mask_matrix(), x_mb).reshape(B, seq, d)
+    return _finish(model, params, _send(y, x.device))
+
+
+# ---------------------------------------------------------------------------
+# legacy scalar API: thin shims over a uniform plan
+# ---------------------------------------------------------------------------
+
+def make_pipeline_runner(cfg: ModelConfig, mesh, n_stages: int,
+                         n_microbatches: int) -> Callable:
+    """Legacy runner: pipelined(params_staged, x_mb) -> y_mb with equal
+    stage slices (``stage_params_reshape``), a uniform plan underneath."""
+    plan = uniform_plan(cfg.num_groups, n_stages, n_microbatches)
+    runner = make_plan_runner(cfg, mesh, plan)
+    mask = plan.group_mask_matrix()
+
+    def pipelined(params_staged, x_mb):
+        return runner(params_staged, mask, x_mb)
+    return pipelined
+
+
+def pipeline_forward(model, params, batch, mesh, n_stages: int,
+                     n_microbatches: int):
+    """Legacy end-to-end forward: lowers to a uniform plan."""
+    plan = uniform_plan(model.cfg.num_groups, n_stages, n_microbatches)
+    return plan_forward(model, params, batch, mesh, plan)

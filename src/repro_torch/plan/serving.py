@@ -24,9 +24,11 @@ threads between chunks exactly.
 Chunking turns itself off where exactness cannot hold (``split_chunks``).
 
 On one card every stage and replica runs on ``model.device``,
-time-multiplexed, as the JAX package's do on one host device (its
-``place_params`` is a pass-through there).  The functions here are plain
-functions of tensors: the JAX package's ``jax.jit``/donation wrappers and
+time-multiplexed, as the JAX package's do on one host device
+(``place_params`` passes the params through there, as JAX's does; on
+several cards it puts a uniform plan's stages on their mesh slots, but
+the engine does not call it, as JAX's does not).  The functions here are
+plain functions of tensors: the JAX package's ``jax.jit``/donation wrappers and
 its per-stage step factories have no counterpart, and every step writes
 the cache it is given in place.  A live re-plan (``ServingEngine.replan``)
 drains and rebinds the pipeline: each item keeps the ``PlanRuntime`` it
@@ -42,8 +44,9 @@ from typing import Any, List
 import numpy as np
 import torch
 
+from repro_torch.launch.mesh import local_devices, make_plan_mesh
 from repro_torch.models import transformer as T
-from repro_torch.pipeline.executor import run_stage
+from repro_torch.pipeline.executor import _to, run_stage
 from repro_torch.plan.ir import ExecutionPlan, ServingPlan
 # the embed / final-norm + head / stage-slice helpers are shared with the
 # validation path, so the parity contract has one implementation per term
@@ -105,6 +108,36 @@ def stage_walk(model, plan: ExecutionPlan, params, cache, tokens,
             cache=T.slice_cache_groups(cache, st.first_group, st.n_groups),
             cache_index=positions, block_tables=block_tables)
     return _finish(model, params, x)
+
+
+def place_params(params, plan: ExecutionPlan, devices=None):
+    """One stage-sharded copy of the params on a ``make_plan_mesh`` of
+    ``devices`` (default: every local CUDA device).  Returns (params,
+    mesh), or (params, None) unchanged when the devices are fewer than the
+    stages or are all one device (``[cuda:0] * 2``: the slots share the
+    card, and the params stay where they are).
+
+    A uniform plan whose stage count divides the groups puts each stage's
+    groups on its slot's lead device, JAX's ``P("stage")``.  Every other
+    leaf is replicated, which in one process means one tensor on the
+    mesh's lead device (slot 0's): the embed and the head read it there,
+    and ``make_plan_runner`` copies the groups a stage runs onto the
+    stage's device at each call (nothing where it is the lead device), as
+    JAX's step takes a stage's shard out of a replicated leaf.  The engine
+    does not call this, as JAX's does not."""
+    devs = [torch.device(d) for d in (devices if devices is not None
+                                      else local_devices("cuda"))]
+    S = plan.n_stages
+    if len(devs) < S or len(set(devs)) == 1:
+        return params, None
+    mesh = make_plan_mesh(plan, devices=devs)
+    lead = [mesh.devices[s].flat[0] for s in range(S)]
+    per_stage = plan.num_groups // S
+    shard = plan.is_uniform and plan.num_groups % S == 0
+    out = {k: _to(v, lead[0]) for k, v in params.items() if k != "stack"}
+    out["stack"] = [_to(g, lead[i // per_stage] if shard else lead[0])
+                    for i, g in enumerate(params["stack"])]
+    return out, mesh
 
 
 # ---------------------------------------------------------------------------

@@ -65,7 +65,9 @@ def stage_forward(model, params, x, plan: ExecutionPlan, s: int):
 
 
 def _embed(model, params, batch):
-    return model._embed(params, batch["tokens"])
+    """The stack's input: ``batch["embeds"]`` when given, else the
+    embedded ``batch["tokens"]``, in the activation dtype."""
+    return model._lm_inputs(params, batch)[0]
 
 
 def _finish(model, params, y):

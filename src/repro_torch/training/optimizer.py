@@ -9,8 +9,9 @@ op over a run of leaves (``_groups``: the f32 temporaries stay at a
 run's size); each new param is cast back to its param's dtype (there is
 no f32 master copy, as in JAX).  That is about fifteen passes over the
 leaves where a fused AdamW kernel would make one.
-Plain PyTorch: JAX's update is jnp, no Pallas kernel.  ZeRO-1 sharding
-of the moments (JAX's ``zero1_specs``) is multi-device work, not here.
+Plain PyTorch: JAX's update is jnp, no Pallas kernel.  ``zero1_specs``
+gives the moments' ZeRO-1 specs, equal to JAX's; executing them (sharded
+moments in a train step) is not ported yet.
 """
 from __future__ import annotations
 
@@ -21,6 +22,7 @@ from typing import Any, NamedTuple
 import torch
 
 from repro_torch import tree as TR
+from repro_torch.sharding.rules import P, map_with_shapes, stacked_shapes
 
 
 def _f32(tensors):
@@ -128,3 +130,28 @@ class AdamW:
         torch._foreach_mul_(delta, -lr)
         torch._foreach_add_(delta, p32)       # p - lr * delta
         return [n.to(t.dtype) for n, t in zip(delta, p)], m, v
+
+
+def zero1_specs(param_specs, params, mesh) -> Any:
+    """Optimizer-moment specs (ZeRO-1): each parameter spec plus 'data' on
+    the first dim that is unsharded and divisible by the data axis, as
+    JAX's.  ``param_specs`` is ``sharding.param_specs(params, mesh)``, in
+    JAX's stacked layout: on a stack's (G, ...) shape the first such dim
+    can be the group axis (every moment of a block of whole groups on one
+    data rank)."""
+    if "data" not in mesh.axis_names:
+        return param_specs
+    dsz = mesh.shape["data"]
+
+    def f(spec, shape):
+        entries = list(spec) + [None] * (len(shape) - len(spec))
+        used = {n for e in entries if e is not None
+                for n in (e if isinstance(e, tuple) else (e,))}
+        if "data" in used:          # FSDP already spreads over data
+            return P(*entries)
+        for i, (e, dim) in enumerate(zip(entries, shape)):
+            if e is None and dim % dsz == 0 and dim >= dsz:
+                entries[i] = "data"
+                break
+        return P(*entries)
+    return map_with_shapes(f, param_specs, stacked_shapes(params))

@@ -3,8 +3,9 @@ gradient accumulation over microbatches, as the JAX package's
 ``training/trainer.py::make_train_step``.  JAX hands its step to jit;
 the port runs it eagerly (the kernels it reaches on CUDA are the
 training forward's: flash, the selective scan, and the f32-output
-products, each with a gradient route).  Sharding (``jit_train_step``) is
-multi-device work, not here.
+products, each with a gradient route).  ``jit_train_step``, the step on
+sharded params and moments (``sharding.param_specs``,
+``optimizer.zero1_specs``), is not ported yet.
 """
 from __future__ import annotations
 
