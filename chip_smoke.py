@@ -2,6 +2,7 @@
 """Smoke test of the PyTorch port on one NVIDIA GPU (an H100).
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --sharded     # phase 10 alone (no ok line)
 
 Run from the root of the repository; it puts ``src`` on ``sys.path``
 itself and imports only ``repro_torch``, torch and numpy.  Without a CUDA
@@ -199,8 +200,8 @@ device it fails (it never runs on the CPU instead).  Phases, in order:
      distinct M-RoPE streams) to the host's plain forward within 1e-4 and
      its 17-token greedy stream to the host's; and jamba's MoE period
      (one period, 2 experts, f32) through the paged engine to the gold.
-     Phase 5 serves xlstm-125m in bf16 with serve-full's engine and
-     prompts (serve-xlstm: tok/s, TTFT, prefill phase, host and device ms
+     Phase 5 serves xlstm-125m at one period (4 of 12 layers) in bf16
+     with serve-full's engine and prompts (serve-xlstm: tok/s, TTFT, prefill phase, host and device ms
      and kernels a tick, host syncs, and one 600-token prefill through an
      mLSTM and an sLSTM layer alone), runs qwen2-vl at 32 of 80 layers
      (run-vlm, ~61 GB: prefill and decode-step ms beside the weight-read
@@ -240,6 +241,22 @@ device it fails (it never runs on the CPU instead).  Phases, in order:
      "error"), ``plan_forward`` and ``Model.forward`` ms beside
      ``measure_plan``'s composed makespan and ``predict_plan(hw=H100)``;
      ``place_params`` passes the params through on one card.
+ 10. sharded training: two rank processes on the one card over gloo
+     (NCCL refuses two ranks on one GPU), each on its shards of a
+     ``DeviceMesh``.  First which collectives gloo takes on CUDA tensors
+     (those the collectives module sends must be taken).  f32 yi-6b at
+     published width, 2 layers, B=4, S=128, on meshes (1, 2) and (2, 1)
+     with FSDP and ZeRO-1, against the unsharded ``make_train_step`` on
+     the same weights (``torch.Generator`` seed 0): the first batch's
+     gradients within 1e-4 of each leaf's largest, then two steps (loss
+     within 1e-4, grad_norm within 1e-4 relative, every param within
+     1e-4 of its leaf's largest, AdamW at ``SHARD_OPT``); the (1, 2)
+     params saved and restored onto (2, 1) and onto no mesh, bit-equal.
+     bf16 yi-6b, 4 layers, remat, B=4, S=512 on (1, 2): step ms,
+     tokens/s, peak memory a rank, collectives a step and their bytes,
+     flash launches a rank and step (phase 8 adds flash's and
+     ``matmul_f32``'s rows at a rank's shapes), beside the unsharded step
+     on one rank.
 
 It prints a ``{"kernels": [...]}`` JSON line, then as its last line
 ``{"ok": true, "device": {...}}``.  Any failed check exits non-zero
@@ -261,6 +278,7 @@ import subprocess
 import sys
 import time
 import warnings
+from types import SimpleNamespace
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(HERE, "src"))
@@ -4269,6 +4287,7 @@ def encoder_run_phase(dev, kernels, card):
 
 XLSTM = "xlstm-125m"
 XLSTM_PARITY_LAYERS = 4        # one period of 12, for the smoke's time
+SERVE_XLSTM_LAYERS = 4         # the same cut for serve-xlstm
 VLM = "qwen2-vl-72b"
 JAMBA_MOE = "jamba-1.5-large-398b-8e"
 VLM_TEXT = 64                  # text tokens before and after the image
@@ -4621,8 +4640,10 @@ def mixer_prefill(model, params, cfg, j, s, card):
 
 
 def serve_xlstm_phase(dev, kernels, card):
-    """Phase 5, serve-xlstm: xlstm-125m at published size (12 layers),
-    bf16, random weights from ``torch.Generator`` seed 0, serve-full's
+    """Phase 5, serve-xlstm: xlstm-125m at published width, one period
+    (``SERVE_XLSTM_LAYERS``: 3 mLSTM and 1 sLSTM layers of its 12, for
+    the smoke's time), bf16, random weights from ``torch.Generator``
+    seed 0, serve-full's
     engine settings and prompts (4 slots, max_seq 1024, 8 prompts of
     100-600 tokens, 64 new tokens; ``paged=True`` runs dense: no KV to
     page), then a profiled decode window (device ms and kernels a tick)
@@ -4631,7 +4652,7 @@ def serve_xlstm_phase(dev, kernels, card):
     from repro_torch.configs import REGISTRY
     from repro_torch.models import build_model
     from repro_torch.serving import Request
-    cfg = REGISTRY[XLSTM]
+    cfg = dataclasses.replace(REGISTRY[XLSTM], num_layers=SERVE_XLSTM_LAYERS)
     model = build_model(cfg, device=dev)
     params = model.init(torch.Generator(device=dev).manual_seed(0))
     prompts = serve_prompts(cfg, 0, repeat_segment=False)
@@ -4980,6 +5001,8 @@ GRAD_FLASH = (
     # and its softcap 50
     ("flash_attention_train_d256", 1, 16, 8, 512, 256, True, 128, 50.0),
     ("flash_attention_train_vit", 6, 3, 3, 197, 64, False, 0, 0.0),
+    # a rank's heads of train-yi at model=2 (phase 10)
+    ("flash_attention_train_tp2", 4, 16, 2, 512, 128, True, 0, 0.0),
 )
 GRAD_SCAN = (1, 128, 16384, 16)    # N, S, d_inner, d_state
 # the kernels a training forward reaches on CUDA, and how each gets its
@@ -4993,8 +5016,10 @@ GRAD_ROUTE = {
         "version (ref.mamba_scan_fused_ref)"}
 # the f32-output products: yi-6b's MLP at train-yi's tokens, and an
 # expert stack
-GRAD_MATMULS = (("matmul_f32", (2048, 4096), (4096, 11008)),
-                ("bmm_f32", (8, 512, 2048), (8, 2048, 1408)))
+GRAD_MATMULS = (("matmul_f32", "matmul_f32", (2048, 4096), (4096, 11008)),
+                ("bmm_f32", "bmm_f32", (8, 512, 2048), (8, 2048, 1408)),
+                # a rank's MLP product at model=2 (phase 10)
+                ("matmul_f32_tp2", "matmul_f32", (2048, 4096), (4096, 5504)))
 
 
 def grad_err(got, ref):
@@ -5146,14 +5171,14 @@ def matmul_grad_rows(dev, flush):
     output)."""
     from repro_torch.models import layers as TL
     rows = {}
-    for name, xs, ws in GRAD_MATMULS:
+    for name, fn_name, xs, ws in GRAD_MATMULS:
         gen = torch.Generator(device=dev).manual_seed(9)
         x = torch.randn(xs, generator=gen, device=dev).to(
             torch.bfloat16).requires_grad_()
         w = (torch.randn(ws, generator=gen, device=dev)
              / ws[-2] ** 0.5).to(torch.bfloat16).requires_grad_()
         g = torch.randn(xs[:-1] + ws[-1:], generator=gen, device=dev)
-        fn = getattr(TL, name)
+        fn = getattr(TL, fn_name)
         out, grads = _grads_of(fn, (x, w), g)
         xf, wf = (t.detach().float().requires_grad_() for t in (x, w))
         pout, pgrads = _grads_of(torch.matmul, (xf, wf), g)
@@ -5664,6 +5689,545 @@ def placement_phase(dev, kernels, card):
     return dict(parity=parity, run=run)
 
 
+# ---------------------------------------------------------------------------
+# phase 10: sharded training -- two ranks on the one card over gloo
+# ---------------------------------------------------------------------------
+
+SHARD_ARCH = "yi-6b"
+SHARD_RANKS = 2
+SHARD_TOL = 1e-4              # loss (absolute), grad_norm (relative), params
+SHARD_PARITY_LAYERS = 2       # f32, ~0.93 B params
+SHARD_PARITY_SHAPE = (4, 128)  # B, S
+SHARD_PARITY_MESHES = ((1, 2), (2, 1))
+# AdamW for the params' parity: at the default eps (1e-8) the first steps
+# normalize every gradient element to about lr whatever its size, so the
+# f32 summation-order noise of a near-zero element moves its update by up
+# to 2 lr (on one H100, after two steps: 0.003-0.012 of a leaf's largest
+# sharded, 4e-4 for the unsharded step on its batch rows reversed, with
+# loss and grad_norm equal to 2e-6); at eps 1e-4, above most clipped
+# gradient elements (~3e-5), the update follows the gradient and the
+# params agree to 2e-5 of a leaf's largest
+SHARD_OPT = dict(lr=1e-2, eps=1e-4, warmup_steps=1, total_steps=10)
+# AdamW's default lr and eps, one (1, 2) reading beside the unsharded
+# step's own spread under another f32 summation order (its batch rows
+# reversed), the witness for the diagnosis above
+SHARD_OPT_DEFAULT = dict(warmup_steps=1, total_steps=10)
+SHARD_RUN_LAYERS = 4          # bf16, remat, mesh (1, 2)
+SHARD_RUN_SHAPE = (4, 512)
+SHARD_STEPS, SHARD_WARMUP = 6, 2
+SHARD_TIMEOUT = 300           # s, both ranks together
+SHARD_PROBE = ("all_reduce", "all_reduce_max", "broadcast",
+               "all_gather_into_tensor", "all_gather", "reduce_scatter_tensor",
+               "all_to_all_single", "barrier")
+
+
+def gloo_probe(dev):
+    """Which collectives the live gloo group takes on CUDA tensors, each
+    tried once on both ranks with its result checked: "ok", or the error
+    (this is a probe: the collectives module picks its transport from
+    the backend's name and never by catching an error)."""
+    import torch.distributed as dist
+    world = dist.get_world_size()
+    out = {}
+    for name in SHARD_PROBE:
+        x = torch.full((8,), float(dist.get_rank() + 1), device=dev)
+        want = None
+        try:
+            if name == "all_reduce":
+                y = x.clone()
+                dist.all_reduce(y)
+                want = torch.full_like(x, world * (world + 1) / 2)
+            elif name == "all_reduce_max":
+                y = x.clone()
+                dist.all_reduce(y, op=dist.ReduceOp.MAX)
+                want = torch.full_like(x, float(world))
+            elif name == "broadcast":
+                y = x.clone()
+                dist.broadcast(y, 0)
+                want = torch.ones_like(x)
+            elif name == "all_gather_into_tensor":
+                y = torch.empty(8 * world, device=dev)
+                dist.all_gather_into_tensor(y, x)
+                want = torch.arange(1, world + 1, device=dev,
+                                    dtype=x.dtype).repeat_interleave(8)
+            elif name == "all_gather":
+                parts = [torch.empty_like(x) for _ in range(world)]
+                dist.all_gather(parts, x)
+                y, want = torch.cat(parts), torch.arange(
+                    1, world + 1, device=dev,
+                    dtype=x.dtype).repeat_interleave(8)
+            elif name == "reduce_scatter_tensor":
+                y = torch.empty(8 // world, device=dev)
+                dist.reduce_scatter_tensor(y, x)
+                want = torch.full_like(y, world * (world + 1) / 2)
+            elif name == "all_to_all_single":
+                y = torch.empty_like(x)
+                dist.all_to_all_single(y, x)
+                want = torch.arange(1, world + 1, device=dev,
+                                    dtype=x.dtype).repeat_interleave(
+                                        8 // world)
+            else:
+                dist.barrier()
+                y = want = x
+            torch.cuda.synchronize()
+            out[name] = "ok" if torch.equal(y, want) else "wrong result"
+        except Exception as e:   # the probe's question is whether it raises
+            out[name] = f"{type(e).__name__}: {str(e).splitlines()[0][:160]}"
+    return out
+
+
+def _shard_cfg(layers, dtype):
+    from repro_torch.configs import REGISTRY
+    return dataclasses.replace(REGISTRY[SHARD_ARCH], num_layers=layers,
+                               dtype=dtype, param_dtype=dtype)
+
+
+def _shard_errs(sharded, full, dm):
+    """Largest |shard - its block of the full leaf| over the full leaf's
+    largest |value|, the max over this rank's leaves (``full`` in the
+    port's layout; its blocks cut as the DTensors are placed, on this
+    rank, no communication)."""
+    from torch.distributed.tensor import distribute_tensor
+    from repro_torch import sharding as S
+    from repro_torch.sharding.execute import flat
+    errs = []
+    want = flat(S.stacked(full))
+    for k, t in flat(sharded).items():
+        ref = want[k]
+        block = distribute_tensor(ref, dm, t.placements,
+                                  src_data_rank=None).to_local()
+        errs.append(max_err(t.to_local(), block)
+                    / max(float(ref.float().abs().max()), 1e-30))
+    return max(errs)
+
+
+def _worst_element(sharded, full, grads, dm):
+    """Where this rank's shards of ``sharded`` stray furthest from their
+    blocks of ``full`` (the port's layout), relative to the leaf's largest
+    |value|: (that share, the leaf, |the difference|, |the sharded last
+    gradient ``grads``| there, that leaf's largest |gradient| on this
+    rank)."""
+    from torch.distributed.tensor import distribute_tensor
+    from repro_torch import sharding as S
+    from repro_torch.sharding.execute import flat
+    want, g_got = flat(S.stacked(full)), flat(grads)
+    best = (0.0, "", 0.0, 0.0, 0.0)
+    for k, t in flat(sharded).items():
+        ref = distribute_tensor(want[k], dm, t.placements,
+                                src_data_rank=None).to_local()
+        d = (t.to_local() - ref).abs().reshape(-1)
+        j = int(d.argmax())
+        rel = float(d[j]) / max(float(want[k].abs().max()), 1e-30)
+        if rel > best[0]:
+            g = g_got[k].to_local().reshape(-1)
+            best = (rel, "/".join(k), float(d[j]), float(g[j].abs()),
+                    float(g.abs().max()))
+    return best
+
+
+def _tree_err(got, want):
+    """Largest |got - want| over the leaf's largest |want|, the max over
+    two full trees' leaves."""
+    from repro_torch import tree as TR
+    return max(max_err(a, b) / max(float(b.float().abs().max()), 1e-30)
+               for a, b in zip(TR.leaves(got), TR.leaves(want)))
+
+
+def _two_steps(step, opt, params, batches):
+    """``step`` from ``params`` and fresh AdamW state over ``batches``:
+    (params, [(loss, grad_norm)])."""
+    p, st, mets = params, opt.init(params), []
+    for bt in batches:
+        p, st, met = step(p, st, bt)
+        mets.append((float(met["loss"]), float(met["grad_norm"])))
+    return p, mets
+
+
+def shard_parity(dev, rank, dmeshes, out):
+    """f32 yi-6b (``SHARD_PARITY_LAYERS`` layers, published width), the
+    same weights (``torch.Generator`` seed 0) and ``SyntheticLM`` batches
+    everywhere: the unsharded ``make_train_step`` (on each rank, so that
+    each holds its shards to their blocks of it without a gather), and
+    ``sharded_train_step`` on each mesh of ``SHARD_PARITY_MESHES`` with
+    FSDP and ZeRO-1: the first batch's gradients (``value_and_grad``,
+    which the first update then takes), and two steps (loss, grad_norm,
+    params) at ``SHARD_OPT``; the (1, 2) step again at AdamW's default
+    eps beside the unsharded step's (and, on rank 0, the unsharded step
+    on the batches with their rows reversed); then the elastic restore
+    of the (1, 2) ``SHARD_OPT`` run's params onto (2, 1) and onto no
+    mesh."""
+    from repro_torch import sharding as S
+    from repro_torch.checkpoint import restore, save
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.data import SyntheticLM
+    from repro_torch.models import build_model
+    from repro_torch.sharding.collectives import barrier
+    from repro_torch.training import (AdamW, init_sharded, make_train_step,
+                                      sharded_train_step, zero1_specs)
+    from repro_torch.training.trainer import value_and_grad
+    cfg = _shard_cfg(SHARD_PARITY_LAYERS, "float32")
+    b, s = SHARD_PARITY_SHAPE
+    model = build_model(cfg, dev)
+    opt = AdamW(**SHARD_OPT)
+    step = make_train_step(model, opt, remat=False)
+    shape = ShapeConfig("train", s, b, "train")
+    full = model.init(torch.Generator(device=dev).manual_seed(0))
+    batches = [SyntheticLM(cfg, shape, seed=0).global_batch_at(i)
+               for i in range(2)]
+    t0 = time.perf_counter()
+    ref_g = value_and_grad(model, full, batches[0], remat=False)[1]
+    ref_p, ref = _two_steps(step, opt, full, batches)
+    out["parity_ref"] = dict(metrics=ref, s=time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    opt_d = AdamW(**SHARD_OPT_DEFAULT)
+    step_d = make_train_step(model, opt_d, remat=False)
+    ref_dp, ref_d = _two_steps(step_d, opt_d, full, batches)
+    out["default_eps"] = dict(ref_metrics=ref_d)
+    if rank == 0:
+        rows = [{k: np.ascontiguousarray(v[::-1]) for k, v in bt.items()}
+                for bt in batches]
+        rev_g = value_and_grad(model, full, rows[0], remat=False)[1]
+        grad_err = _tree_err(rev_g, ref_g)
+        del rev_g
+        rev_p, rev = _two_steps(step_d, opt_d, full, rows)
+        out["default_eps"].update(reversed_metrics=rev,
+                                  reversed_grad_err=grad_err,
+                                  reversed_err=_tree_err(rev_p, ref_dp))
+        del rev_p
+    out["default_eps"]["ref_s"] = time.perf_counter() - t0
+    for shp in SHARD_PARITY_MESHES:
+        dm = dmeshes[shp]
+        view = S.axes_view(dm)
+        pspecs = S.param_specs(full, view, fsdp=True)
+        ospecs = zero1_specs(pspecs, full, view)
+        fn = sharded_train_step(step, dm, pspecs, ospecs,
+                                S.input_specs_tree(batches[0], view))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sp = S.shard_tree(full, pspecs, dm)
+        so = init_sharded(opt, sp, ospecs, dm)
+        mets, stats = [], []
+        for i, bt in enumerate(batches):
+            S.reset_stats()
+            loss, grads = fn.value_and_grad(sp, S.shard_batch(bt, dm))
+            if i == 0:
+                grad_err = _shard_errs(grads, ref_g, dm)
+            sp, so, met = fn.apply(sp, so, loss, grads)
+            del grads
+            mets.append((float(met["loss"]), float(met["grad_norm"])))
+            stats.append(S.stats())
+        torch.cuda.synchronize()
+        out[f"parity_{shp[0]}x{shp[1]}"] = dict(
+            metrics=mets, grad_err=grad_err,
+            param_err=_shard_errs(sp, ref_p, dm),
+            s=time.perf_counter() - t0, collectives=stats)
+        del so
+        if shp == (1, 2):
+            # the elastic restore: saved on (1, 2), restored onto (2, 1)
+            # and onto no mesh
+            ckpt = os.path.join(HERE, "build", "shard_ckpt")
+            t0 = time.perf_counter()
+            save(sp, ckpt, 2)
+            save_s = time.perf_counter() - t0
+            saved, dm12 = sp, dm
+            # the default-eps reading
+            t0 = time.perf_counter()
+            fn_d = sharded_train_step(step_d, dm, pspecs, ospecs,
+                                      S.input_specs_tree(batches[0], view))
+            sp = S.shard_tree(full, pspecs, dm)
+            so = init_sharded(opt_d, sp, ospecs, dm)
+            mets = []
+            for bt in batches:
+                loss, grads = fn_d.value_and_grad(sp, S.shard_batch(bt, dm))
+                sp, so, met = fn_d.apply(sp, so, loss, grads)
+                mets.append((float(met["loss"]), float(met["grad_norm"])))
+            out["default_eps"].update(
+                metrics=mets, param_err=_shard_errs(sp, ref_dp, dm),
+                worst=_worst_element(sp, ref_dp, grads, dm),
+                lr=float(met["lr"]), s=time.perf_counter() - t0)
+            del so, grads
+        del sp
+    del ref_g, ref_p, ref_dp
+    dm = dmeshes[(2, 1)]
+    pspecs = S.param_specs(full, S.axes_view(dm), fsdp=True)
+    # the checks below hold each restore bit for bit, so the restores
+    # skip the checksum
+    t0 = time.perf_counter()
+    onto, _ = restore(saved, ckpt, shardings=(pspecs, dm), validate=False)
+    restore_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    plain, _ = restore(saved, ckpt, validate=False)
+    plain_s = time.perf_counter() - t0
+    plain = S.unstacked(plain)
+    out["elastic"] = dict(
+        onto_2x1=_shard_errs(onto, plain, dm) == 0.0,
+        onto_none=_shard_errs(saved, plain, dm12) == 0.0,
+        save_s=save_s, restore_s=restore_s, plain_s=plain_s,
+        gb=sum(t.numel() * t.element_size()
+               for t in S.execute.flat(saved).values()) / 1e9)
+    barrier()           # both ranks have read the checkpoint
+    if rank == 0:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    del full, onto, plain, saved
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def shard_run(dev, rank, dmeshes, flash, out):
+    """bf16 yi-6b (``SHARD_RUN_LAYERS`` layers, published width), remat,
+    ``SHARD_RUN_SHAPE``, ``SyntheticLM`` seed 0, AdamW at the CLI's
+    settings: ``SHARD_STEPS`` sharded steps on (1, 2) (step ms, peak
+    memory a rank, collectives and bytes a step, staged ones, flash
+    launches a step), then the unsharded step on rank 0 alone."""
+    import torch.distributed as dist
+    from repro_torch import sharding as S
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.data import SyntheticLM
+    from repro_torch.models import build_model
+    from repro_torch.training import (AdamW, init_sharded, make_train_step,
+                                      sharded_train_step)
+    cfg = _shard_cfg(SHARD_RUN_LAYERS, "bfloat16")
+    b, s = SHARD_RUN_SHAPE
+    shape = ShapeConfig("train", s, b, "train")
+    model = build_model(cfg, dev)
+    opt = AdamW(warmup_steps=10, total_steps=100)
+    step = make_train_step(model, opt, remat=True)
+    full = model.init(torch.Generator(device=dev).manual_seed(0))
+
+    def timed(fn, params, state, data):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        times, losses, stats, launches = [], [], [], []
+        for i in range(SHARD_STEPS):
+            S.reset_stats()
+            n0 = flash.launches
+            t0 = time.perf_counter()
+            params, state, met = fn(params, state, data.batch_at(i))
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            launches.append(flash.launches - n0)
+            losses.append(float(met["loss"]))
+            stats.append(S.stats())
+        step_s = float(np.median(times[SHARD_WARMUP:]))
+        return dict(step_ms=step_s * 1e3, tokens_per_s=b * s / step_s,
+                    step_times_ms=[t * 1e3 for t in times], losses=losses,
+                    peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+                    flash_launches=launches, collectives=stats[-1])
+
+    dm = dmeshes[(1, 2)]
+    view = S.axes_view(dm)
+    pspecs = S.param_specs(full, view)
+    data = SyntheticLM(cfg, shape, seed=0, mesh=dm)
+    fn = sharded_train_step(step, dm, pspecs, pspecs,
+                            S.input_specs_tree(data.global_batch_at(0), view))
+    sp = S.shard_tree(full, pspecs, dm)
+    if rank:
+        del full
+    so = init_sharded(opt, sp, pspecs, dm)
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["run_sharded"] = timed(fn, sp, so, data)
+    del sp, so
+    gc.collect()
+    torch.cuda.empty_cache()
+    dist.barrier()
+    if rank == 0:
+        # the same global batches on one rank (a live group would split a
+        # mesh-less SyntheticLM over the processes)
+        whole = SimpleNamespace(batch_at=data.global_batch_at)
+        out["run_unsharded"] = timed(step, full, opt.init(full), whole)
+        del full
+        gc.collect()
+        torch.cuda.empty_cache()
+    dist.barrier()
+
+
+def shard_rank(rank, world, store, out_dir, kind="cuda"):
+    """One rank of phase 10 (its own process, on device 0 of ``kind``
+    over gloo): writes ``rank<r>.json`` into ``out_dir``.  Returns the
+    exit code."""
+    import torch.distributed as dist
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_attention import flash_attention_bhsd
+    from repro_torch.launch.mesh import Mesh, device_mesh, init_distributed
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    if kind == "cuda":
+        _build.load_library()
+    dev0 = torch.device(kind, 0) if kind == "cuda" else torch.device(kind)
+    meshes = {shp: Mesh(np.asarray([dev0] * world, dtype=object)
+                        .reshape(shp), ("data", "model"))
+              for shp in SHARD_PARITY_MESHES}
+    dev = init_distributed(meshes[(1, 2)], rank, world,
+                           init_method=f"file://{store}")
+    dmeshes = {shp: device_mesh(m) for shp, m in meshes.items()}
+    out = dict(rank=rank, backend=dist.get_backend(),
+               setup_s=time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    out["probe"] = gloo_probe(dev)
+    out["probe_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    shard_parity(dev, rank, dmeshes, out)
+    out["parity_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    shard_run(dev, rank, dmeshes, flash_attention_bhsd, out)
+    out["run_s"] = time.perf_counter() - t0
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f, default=str)
+    dist.destroy_process_group()
+    return 0
+
+
+def _fmt_coll(st):
+    by = ", ".join(f"{k} {v['ops']} ({v['bytes'] / 1e6:.1f} MB)"
+                   for k, v in sorted(st["by_op"].items()))
+    return f"{st['ops']} collectives, {st['bytes'] / 1e6:.1f} MB [{by}]"
+
+
+def sharded_phase(dev, kernels, card):
+    """Phase 10: ``SHARD_RANKS`` rank processes on the one card over gloo
+    (``shard_rank``); their results checked and printed here."""
+    t0 = time.perf_counter()
+    out_dir = os.path.join(HERE, "build", "shard_phase")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    os.makedirs(out_dir)
+    store = os.path.join(out_dir, "store")
+    gc.collect()
+    torch.cuda.empty_cache()
+    procs = []
+    for r in range(SHARD_RANKS):
+        log = open(os.path.join(out_dir, f"rank{r}.log"), "w")
+        code = (f"import sys; sys.path.insert(0, {HERE!r}); "
+                f"import chip_smoke; sys.exit(chip_smoke.shard_rank("
+                f"{r}, {SHARD_RANKS}, {store!r}, {out_dir!r}, {dev!r}))")
+        procs.append((subprocess.Popen([sys.executable, "-c", code],
+                                       cwd=HERE, stdout=log,
+                                       stderr=subprocess.STDOUT), log))
+    deadline = time.perf_counter() + SHARD_TIMEOUT
+    while any(p.poll() is None for p, _ in procs):
+        failed = any(p.poll() not in (None, 0) for p, _ in procs)
+        if failed or time.perf_counter() > deadline:
+            for p, _ in procs:
+                if p.poll() is None:
+                    p.kill()
+            break
+        time.sleep(0.5)
+    rcs = [p.wait() for p, _ in procs]
+    for _, log in procs:
+        log.close()
+    if any(rcs):
+        for r in range(SHARD_RANKS):
+            with open(os.path.join(out_dir, f"rank{r}.log")) as f:
+                tail = f.read()[-3000:]
+            print(f"[shard] rank {r} exit {rcs[r]}:\n{tail}")
+    check(not any(rcs), f"phase 10's ranks exited {rcs}")
+    res = [json.load(open(os.path.join(out_dir, f"rank{r}.json")))
+           for r in range(SHARD_RANKS)]
+    out = report_sharded(res, card)
+    out["phase_s"] = time.perf_counter() - t0
+    print(f"[shard] phase {out['phase_s']:.1f} s")
+    return out
+
+
+def report_sharded(res, card):
+    """Phase 10's checks and lines, from the ranks' results."""
+    r0 = res[0]
+    print(f"[shard] {SHARD_RANKS} ranks on one device over {r0['backend']}: "
+          f"setup {r0['setup_s']:.1f} s, parity {r0['parity_s']:.1f} s, "
+          f"run {r0['run_s']:.1f} s")
+    print(f"[shard] gloo probe, CUDA tensors: {json.dumps(r0['probe'])}")
+    used = ("all_reduce", "all_reduce_max", "all_gather_into_tensor",
+            "reduce_scatter_tensor", "barrier")
+    bad = [op for op in used if r0["probe"][op] != "ok"]
+    check(not bad, f"the collectives module sends {bad} to gloo on CUDA "
+                   f"tensors, which the probe refused")
+    ref = r0["parity_ref"]["metrics"]
+    for shp in SHARD_PARITY_MESHES:
+        key = f"parity_{shp[0]}x{shp[1]}"
+        row = dict(r0[key], **{e: max(r[key][e] for r in res)
+                               for e in ("grad_err", "param_err")})
+        dl = max(abs(a[0] - b[0]) for a, b in zip(row["metrics"], ref))
+        dg = max(abs(a[1] - b[1]) / abs(b[1])
+                 for a, b in zip(row["metrics"], ref))
+        print(f"[shard] f32 yi-6b {SHARD_PARITY_LAYERS} layers B, S = "
+              f"{SHARD_PARITY_SHAPE}, mesh {shp} fsdp + zero1, 2 steps: "
+              f"losses {[m[0] for m in row['metrics']]} vs unsharded "
+              f"{[m[0] for m in ref]} (|d| {dl:.3g}), grad_norm "
+              f"{[m[1] for m in row['metrics']]} vs {[m[1] for m in ref]} "
+              f"(rel {dg:.3g}), params {row['param_err']:.3g} of a leaf's "
+              f"largest (AdamW {SHARD_OPT}); first gradients "
+              f"{row['grad_err']:.3g} of a leaf's largest (both ranks' "
+              f"shards); {row['s']:.1f} s; a step: "
+              f"{_fmt_coll(row['collectives'][-1])}")
+        check(dl <= SHARD_TOL and dg <= SHARD_TOL
+              and row["param_err"] <= SHARD_TOL
+              and row["grad_err"] <= SHARD_TOL,
+              f"phase 10 parity on {shp}: loss {dl:.3g}, grad_norm "
+              f"{dg:.3g}, params {row['param_err']:.3g}, gradients "
+              f"{row['grad_err']:.3g} (tolerance {SHARD_TOL})")
+    de = r0["default_eps"]
+    d_err = max(r["default_eps"]["param_err"] for r in res)
+
+    def spread(got, want):
+        return (max(abs(a[0] - b[0]) for a, b in zip(got, want)),
+                max(abs(a[1] - b[1]) / abs(b[1]) for a, b in zip(got, want)))
+    dl, dg = spread(de["metrics"], de["ref_metrics"])
+    rl, rg = spread(de["reversed_metrics"], de["ref_metrics"])
+    d_grad = max(r["parity_1x2"]["grad_err"] for r in res)
+    print(f"[shard] AdamW default eps ({SHARD_OPT_DEFAULT}), f32 mesh (1, 2) "
+          f"fsdp + zero1, 2 steps: first gradients {d_grad:.3g} of a "
+          f"leaf's largest from the unsharded step's, params {d_err:.3g} "
+          f"(x{d_err / max(d_grad, 1e-30):.0f}; loss |d| {dl:.3g}, "
+          f"grad_norm rel {dg:.3g}); the unsharded step on the same "
+          f"batches with their rows reversed (f32 summation order alone): "
+          f"first gradients {de['reversed_grad_err']:.3g}, params "
+          f"{de['reversed_err']:.3g} (x"
+          f"{de['reversed_err'] / max(de['reversed_grad_err'], 1e-30):.0f};"
+          f" loss |d| {rl:.3g}, grad_norm rel {rg:.3g}); "
+          f"{de['ref_s']:.1f} s + {de['s']:.1f} s")
+    worst = max((r["default_eps"]["worst"] for r in res), key=lambda w: w[0])
+    print(f"[shard] default eps, the sharded params' worst element "
+          f"({worst[0]:.3g} of its leaf's largest, {worst[1]}): off by "
+          f"{worst[2]:.3g} = {worst[2] / de['lr']:.3g} x the second step's "
+          f"lr {de['lr']:.3g} (AdamW's normalized update moves an element "
+          f"by about lr whatever its gradient's size); its second-step "
+          f"gradient {worst[3]:.3g}, the leaf's largest {worst[4]:.3g} "
+          f"(before the clip by grad_norm {de['metrics'][1][1]:.4g})")
+    check(dl <= SHARD_TOL and dg <= SHARD_TOL,
+          f"phase 10 at default eps: loss {dl:.3g}, grad_norm {dg:.3g} "
+          f"(tolerance {SHARD_TOL})")
+    el = r0["elastic"]
+    same = all(r["elastic"][k] for r in res for k in ("onto_2x1",
+                                                      "onto_none"))
+    print(f"[shard] elastic: {el['gb']:.2f} GB of f32 params "
+          f"saved on (1, 2) ({el['save_s']:.1f} s), restored onto (2, 1) "
+          f"({el['restore_s']:.1f} s) and onto no mesh "
+          f"({el['plain_s']:.1f} s): bit-equal on both ranks {same}")
+    check(same, "phase 10: elastic restore differs")
+    sh, un = r0["run_sharded"], r0["run_unsharded"]
+    peaks = [r["run_sharded"]["peak_gb"] for r in res]
+    for label, row, peak in (
+            ("sharded (1, 2), rank 0", sh,
+             "peak by rank " + ", ".join(f"{p:.3f}" for p in peaks)
+             + " GB (rank 0 also holds the full params for the next run)"),
+            ("unsharded, one rank", un, f"peak {un['peak_gb']:.3f} GB")):
+        print(f"[shard] bf16 yi-6b {SHARD_RUN_LAYERS} layers remat B, S = "
+              f"{SHARD_RUN_SHAPE} {label} ({card}): step "
+              f"{row['step_ms']:.2f} ms (median of "
+              f"{SHARD_STEPS - SHARD_WARMUP} after {SHARD_WARMUP}), "
+              f"{row['tokens_per_s']:.1f} tokens/s, {peak}, flash "
+              f"launches a step "
+              f"{row['flash_launches']}, losses "
+              f"{', '.join(f'{x:.4f}' for x in row['losses'])}; a step: "
+              f"{_fmt_coll(row['collectives'])}")
+        check(all(np.isfinite(row["losses"])), f"phase 10 {label}: losses")
+        check(all(n == 2 * SHARD_RUN_LAYERS for n in row["flash_launches"]),
+              f"phase 10 {label}: flash launches a step "
+              f"{row['flash_launches']}, expected {2 * SHARD_RUN_LAYERS}")
+    return dict(ranks=res, flash_launches=sum(sh["flash_launches"]))
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke test runs only "
@@ -5785,6 +6349,7 @@ def main():
         training = train_phase(dev, kernels, card)
         results.update(training.pop("kernels"))
         placement = placement_phase(dev, kernels, card)
+        sharded = sharded_phase(dev, kernels, card)
     except CheckFailed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -5947,6 +6512,8 @@ def main():
                     training["train_yi"]["flash_launches"],
                 "flash_attention_train_d256": 0,
                 "flash_attention_train_vit": 0,
+                # phase 10: rank 0's launches in the sharded bf16 run
+                "flash_attention_train_tp2": sharded["flash_launches"],
                 "mamba_scan_fused_train":
                     training["model_grads"]["jamba-hybrid-reduced"][
                         "launches"]["mamba_scan_fused"]}
@@ -5982,6 +6549,7 @@ def main():
                                for (n, dt), r in results.items()},
                    "parity": parity, "repair": repair, "serve": served,
                    "training": training, "placement": placement,
+                   "sharded": sharded,
                    "build": _build.last_build,
                    "seconds": time.perf_counter() - t_start}, f, indent=1,
                   default=str)
@@ -5993,5 +6561,44 @@ def main():
     return 0
 
 
+def sharded_only():
+    """``python3 chip_smoke.py --sharded``: the card's line, the kernels'
+    build and phase 10 alone, to time that phase apart from the smoke;
+    the ranks' results go to ``chiprun_out/phase10/``.  It prints no
+    kernels line and no ok line."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    t_start = time.perf_counter()
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60)
+    card = smi.stdout.strip().splitlines()[0] if smi.returncode == 0 \
+        else "nvidia-smi failed"
+    print(card)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_attention import flash_attention_bhsd
+    _build.load_library()
+    print(f"[build] {time.perf_counter() - t_start:.1f} s")
+    rc = 0
+    try:
+        sharded_phase("cuda", {"flash_attention": flash_attention_bhsd},
+                      card)
+    except CheckFailed as e:
+        print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
+        rc = 1
+    out_dir = os.path.join(HERE, "chiprun_out", "phase10")
+    os.makedirs(out_dir, exist_ok=True)
+    src = os.path.join(HERE, "build", "shard_phase")
+    for name in os.listdir(src):
+        if name != "store":
+            shutil.copy(os.path.join(src, name), out_dir)
+    print(f"[done] {time.perf_counter() - t_start:.1f} s")
+    return rc
+
+
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(sharded_only() if sys.argv[1:] == ["--sharded"] else main())

@@ -21,16 +21,25 @@ A checkpoint written by either package restores in the other:
     bytes.  A ``|V2`` array is read back as bf16;
   * a Python scalar (``"data_step": 2``) is saved as a 0-d array and
     comes back as one (numpy), as in JAX.
-There is no mesh, so no re-sharding on restore: each tensor goes to the
-device of the ``tree_like`` leaf it replaces.
+
+Sharded trees (DTensors in JAX's stacked layout, ``sharding.shard_tree``):
+``save`` gathers one leaf at a time to its full array (a collective:
+every rank calls it) and rank 0 copies it to host memory before the
+next, so no device holds more than one gathered leaf; rank 0 writes the
+same format, and the ranks wait for the write.  ``restore(..., shardings=)`` re-shards onto the current mesh,
+which may differ from the saving one (elastic restart) or be none; each
+tensor first goes to the device of the ``tree_like`` leaf it replaces.
 """
 from __future__ import annotations
 
 import hashlib
 import json
+import math
 import os
 import shutil
+import struct
 import threading
+import zipfile
 from typing import Dict, Optional
 
 import numpy as np
@@ -76,13 +85,50 @@ def _flatten(tree) -> Dict[str, np.ndarray]:
     return {k: _to_numpy(leaf) for k, leaf in _entries(tree)}
 
 
+def _bytes(a: np.ndarray):
+    """``a``'s bytes in C order, as ``tobytes`` gives them, without a
+    copy when ``a`` is contiguous (the checksum reads gigabytes)."""
+    return np.ascontiguousarray(a).reshape(-1).view(np.uint8)
+
+
 def _dtype_name(a: np.ndarray) -> str:
     return "bfloat16" if a.dtype == np.dtype("V2") else str(a.dtype)
 
 
+def _host_arrays(tree):
+    """(key -> host array, JAX's keys and layout; sharded).  A sharded
+    tree (DTensor leaves) is gathered a leaf at a time, a collective that
+    every rank calls: rank 0 copies each full leaf to host memory and
+    drops it before the next, so a device holds one gathered leaf at a
+    time, and the other ranks get None."""
+    from torch.distributed.tensor import DTensor
+    entries = _entries(tree)
+    if not any(isinstance(t, DTensor) for _, t in entries):
+        return _flatten(tree), False
+    from repro_torch.sharding.collectives import is_writer
+    from repro_torch.sharding.execute import gather_leaf
+    writer = is_writer()
+    out = {}
+    for key, t in entries:
+        full = gather_leaf(t)
+        if writer:
+            out[key] = _to_numpy(full)
+        del full
+    return (out if writer else None), True
+
+
 def save(tree, directory: str, step: int) -> str:
-    """Atomic synchronous save.  Returns the checkpoint path."""
-    return _write(_flatten(tree), directory, step)
+    """Atomic synchronous save.  Returns the checkpoint path.  A sharded
+    tree is gathered a leaf at a time, written by rank 0, and every rank
+    returns once the write is done."""
+    from repro_torch.sharding.collectives import barrier
+    flat, sharded = _host_arrays(tree)
+    final = os.path.join(directory, f"step_{step:08d}")
+    if flat is not None:
+        final = _write(flat, directory, step)
+    if sharded:
+        barrier()
+    return final
 
 
 def _write(flat: Dict[str, np.ndarray], directory: str, step: int) -> str:
@@ -92,11 +138,18 @@ def _write(flat: Dict[str, np.ndarray], directory: str, step: int) -> str:
     if os.path.exists(tmp):
         shutil.rmtree(tmp)
     os.makedirs(tmp)
-    np.savez(os.path.join(tmp, "arrays.npz"), **flat)
     h = hashlib.sha256()
-    for k in sorted(flat):
-        h.update(k.encode())
-        h.update(flat[k].tobytes())
+
+    def digest():
+        for k in sorted(flat):
+            h.update(k.encode())
+            h.update(_bytes(flat[k]))
+    # hashlib and the file writes release the GIL: the checksum is taken
+    # while the arrays are written
+    hasher = threading.Thread(target=digest)
+    hasher.start()
+    np.savez(os.path.join(tmp, "arrays.npz"), **flat)
+    hasher.join()
     manifest = {
         "step": step,
         "keys": sorted(flat.keys()),
@@ -129,25 +182,65 @@ def _from_numpy(arr: np.ndarray, like):
     return arr
 
 
+_HEADERS = {(1, 0): np.lib.format.read_array_header_1_0,
+            (2, 0): np.lib.format.read_array_header_2_0}
+
+
+def _read_arrays(path: str, keys) -> Dict[str, np.ndarray]:
+    """Each array of an ``np.savez`` file, read once (for the checksum and
+    the restore alike).  A stored (uncompressed) member, as both packages
+    write them, is read straight from its offset in the file into its
+    array, without zipfile's chunked copy and CRC (the manifest's
+    SHA-256 is the check); any other member goes through numpy's
+    reader."""
+    out = {}
+    with zipfile.ZipFile(path) as zf, open(path, "rb") as f:
+        for k in keys:
+            info = zf.getinfo(k + ".npy")
+            if info.compress_type == zipfile.ZIP_STORED:
+                # the member's local header: 30 bytes, then its name and
+                # extra field, then the .npy file
+                f.seek(info.header_offset + 26)
+                name, extra = struct.unpack("<HH", f.read(4))
+                f.seek(info.header_offset + 30 + name + extra)
+                version = np.lib.format.read_magic(f)
+                if version in _HEADERS:
+                    shape, fortran, dtype = _HEADERS[version](f)
+                    if not dtype.hasobject:
+                        a = np.fromfile(f, dtype=dtype,
+                                        count=math.prod(shape))
+                        out[k] = (a.reshape(shape[::-1]).T if fortran
+                                  else a.reshape(shape))
+                        continue
+            with zf.open(info) as member:
+                out[k] = np.lib.format.read_array(member)
+    return out
+
+
 def restore(tree_like, directory: str, step: Optional[int] = None,
-            validate: bool = True):
+            shardings=None, validate: bool = True):
     """Restore into the structure of ``tree_like`` (the step's arrays,
-    each leaf in its stored dtype).  Returns (tree, step)."""
+    each leaf in its stored dtype).  Returns (tree, step).
+
+    shardings: None (full tensors), or the placements to re-shard onto,
+    as a ``(spec_tree, DeviceMesh)`` pair for a tree of params (specs in
+    JAX's stacked layout, ``sharding.param_specs``), or a tree of
+    ``(DeviceMesh, placements)`` leaves in the stacked layout; a dict or
+    NamedTuple may mix them and hold None for a part to keep full (JAX's
+    launcher passes ``{"params": ..., "opt": None}``).  A re-sharded part
+    comes back as DTensors in the stacked layout."""
     step = step if step is not None else latest_step(directory)
     if step is None:
         raise FileNotFoundError(f"no checkpoint in {directory}")
     path = os.path.join(directory, f"step_{step:08d}")
     with open(os.path.join(path, "manifest.json")) as f:
         manifest = json.load(f)
-    # each array read once (an NpzFile re-reads its zip member on every
-    # access), for the checksum and the restore alike
-    with np.load(os.path.join(path, "arrays.npz")) as npz:
-        data = {k: npz[k] for k in manifest["keys"]}
+    data = _read_arrays(os.path.join(path, "arrays.npz"), manifest["keys"])
     if validate:
         h = hashlib.sha256()
         for k in sorted(manifest["keys"]):
             h.update(k.encode())
-            h.update(data[k].tobytes())
+            h.update(_bytes(data[k]))
         if h.hexdigest() != manifest["checksum"]:
             raise IOError(f"checkpoint {path} checksum mismatch")
     out = []
@@ -157,7 +250,35 @@ def restore(tree_like, directory: str, step: Optional[int] = None,
             out.append([_from_numpy(arr[g], x) for g, x in enumerate(like)])
         else:
             out.append(_from_numpy(arr, like))
-    return _rebuild(tree_like, out), step
+    tree = _rebuild(tree_like, out)
+    if shardings is not None:
+        tree = _reshard(tree, shardings)
+    return tree, step
+
+
+def _reshard(tree, sh):
+    """``tree`` re-sharded by ``sh`` (see ``restore``)."""
+    from torch.distributed.device_mesh import DeviceMesh
+    from torch.distributed.tensor import distribute_tensor
+    from repro_torch.sharding.execute import shard_tree, stacked
+    if sh is None:
+        return tree
+    if isinstance(sh, tuple) and not TR.is_namedtuple(sh) and len(sh) == 2:
+        if isinstance(sh[1], DeviceMesh):
+            return shard_tree(tree, sh[0], sh[1])
+        if isinstance(sh[0], DeviceMesh):
+            return distribute_tensor(tree, sh[0], sh[1], src_data_rank=None)
+    if TR.is_namedtuple(sh):
+        return type(tree)(*(_reshard(t, s) for t, s in zip(tree, sh)))
+    if isinstance(sh, dict):
+        out = dict(tree)
+        for k, s in sh.items():
+            v = tree[k]
+            if isinstance(s, dict) and isinstance(v, list):
+                v = stacked({k: v})[k]       # per-leaf pairs: stacked
+            out[k] = _reshard(v, s)
+        return out
+    raise TypeError(f"shardings: cannot read {type(sh).__name__}")
 
 
 def _rebuild(tree_like, values):
@@ -197,13 +318,18 @@ class CheckpointManager:
         self.keep = keep
         self.async_save = async_save
         self._thread: Optional[threading.Thread] = None
+        self._sharded = False
 
     def save(self, tree, step: int):
         # snapshot to host first so that later updates cannot race the
-        # writer
-        host = _flatten(tree)
+        # writer; a sharded tree is gathered (every rank calls save) and
+        # rank 0 writes it
+        host, sharded = _host_arrays(tree)
+        self._sharded = self._sharded or sharded
         if self._thread is not None:
             self._thread.join()
+        if host is None:
+            return
         if self.async_save:
             self._thread = threading.Thread(
                 target=self._save_and_gc, args=(host, step), daemon=True)
@@ -212,12 +338,18 @@ class CheckpointManager:
             self._save_and_gc(host, step)
 
     def wait(self):
+        """Until the last save is written (on every rank, for a sharded
+        tree)."""
         if self._thread is not None:
             self._thread.join()
             self._thread = None
+        if self._sharded:
+            from repro_torch.sharding.collectives import barrier
+            barrier()
+            self._sharded = False
 
-    def restore_latest(self, tree_like):
-        return restore(tree_like, self.directory)
+    def restore_latest(self, tree_like, shardings=None):
+        return restore(tree_like, self.directory, shardings=shardings)
 
     def _save_and_gc(self, flat, step: int):
         _write(flat, self.directory, step)

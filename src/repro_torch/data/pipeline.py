@@ -5,11 +5,18 @@ draw the same batches bit for bit (numpy only).  Each process draws its
 slice of the global batch; the process rank and count come from
 ``torch.distributed`` when a process group is up (0 and 1 otherwise), in
 place of ``jax.process_index``/``process_count``.
+
+On a mesh (``mesh=``, a ``DeviceMesh``: sharded training) every rank
+draws the one global batch a single process draws, JAX's bit for bit,
+and takes the rows ``input_specs_tree`` gives it (``batch_axes_for``'s
+axes, ``sharding.shard_batch``): ranks that differ only on ``model``
+take the same rows.  With ``grad_accum`` > 1 a rank takes its block of
+each global microbatch, as the sharded step's microbatches need.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, Iterator
+from typing import Any, Dict, Iterator
 
 import numpy as np
 
@@ -46,6 +53,8 @@ class SyntheticLM:
     shape: ShapeConfig
     seed: int = 0
     start_step: int = 0
+    mesh: Any = None
+    grad_accum: int = 1
 
     def host_batch(self) -> int:
         pc = _process()[1]
@@ -62,10 +71,20 @@ class SyntheticLM:
             step += 1
 
     def batch_at(self, step: int) -> Dict[str, np.ndarray]:
+        if self.mesh is not None:
+            from repro_torch.sharding.execute import shard_batch
+            return shard_batch(self.global_batch_at(step), self.mesh,
+                               self.grad_accum)
+        return self._draw(step, self.host_batch(),
+                          self.seed + _process()[0] * 1_000_003)
+
+    def global_batch_at(self, step: int) -> Dict[str, np.ndarray]:
+        """The whole global batch ``step``, as one process draws it."""
+        return self._draw(step, self.shape.global_batch, self.seed)
+
+    def _draw(self, step: int, b: int, base: int) -> Dict[str, np.ndarray]:
         cfg, shp = self.cfg, self.shape
-        b = self.host_batch()
         s = shp.seq_len
-        base = self.seed + _process()[0] * 1_000_003
         if cfg.family == "vision":
             emb = _philox(base, step, (b, s, cfg.d_model), 1000).astype(
                 np.float32) / 500.0 - 1.0

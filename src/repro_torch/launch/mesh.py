@@ -17,10 +17,19 @@ builders are JAX's:
 Each takes an explicit ``devices`` list, which defaults to every local
 CUDA device (``local_devices("cuda")``); the CPU is used only when the
 caller passes it.  Entries may repeat: ``[cuda:0] * 2`` is two mesh slots
-that share one card (one process drives every slot, see
-``pipeline.executor``).  A builder given too few devices raises; it never
+that share one card.  A builder given too few devices raises; it never
 fakes them.  JAX's ``use_mesh`` (an ambient mesh) has no counterpart:
-the port passes the mesh explicitly.
+the mesh, or its ``DeviceMesh``, is passed explicitly.
+
+Two ways to run a mesh.  The pipeline executor (``pipeline.executor``)
+is ONE process that drives every slot.  Sharded training is one process
+a mesh rank, as ``torchrun`` starts them: ``init_distributed`` joins the
+process group (rank r on the device at the r-th flat position of
+``mesh.devices``) and ``device_mesh`` gives the
+``torch.distributed.device_mesh.DeviceMesh`` with the mesh's axis names
+and shape.  The backend is NCCL for CUDA ranks on distinct cards, gloo
+for CPU ranks and for ranks that share a card (NCCL refuses two ranks on
+one GPU); nothing falls back from one to the other.
 """
 from __future__ import annotations
 
@@ -132,3 +141,42 @@ def make_host_mesh(axes=("data", "model"), devices=None) -> Mesh:
         raise ValueError("make_host_mesh: no devices")
     shape = (len(devs),) + (1,) * (len(axes) - 1)
     return _make_mesh(shape, tuple(axes), devs)
+
+
+def backend_for(mesh: Mesh) -> str:
+    """NCCL when every slot is a distinct CUDA card, gloo otherwise (CPU
+    ranks, or CUDA ranks that share a card)."""
+    devs = list(mesh.devices.flat)
+    cuda = all(torch.device(d).type == "cuda" for d in devs)
+    return "nccl" if cuda and len(set(devs)) == len(devs) else "gloo"
+
+
+def init_distributed(mesh: Mesh, rank: int, world_size: int, *,
+                     init_method: str = "env://"):
+    """Join the process group as mesh rank ``rank`` of ``world_size``
+    (which must be the mesh's size), on ``backend_for(mesh)`` over
+    ``init_method`` (``env://`` reads ``MASTER_ADDR``/``MASTER_PORT`` as
+    ``torchrun`` sets them; ``file://PATH`` or ``tcp://localhost:PORT``
+    otherwise).  Sets this rank's CUDA device.  Returns the rank's
+    ``torch.device``."""
+    import torch.distributed as dist
+    n = mesh.devices.size
+    if world_size != n:
+        raise ValueError(f"a mesh of {n} slots needs {n} ranks, got "
+                         f"world_size={world_size}")
+    dev = torch.device(mesh.devices.flat[rank])
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    dist.init_process_group(backend_for(mesh), init_method=init_method,
+                            rank=rank, world_size=world_size)
+    return dev
+
+
+def device_mesh(mesh: Mesh):
+    """The ``DeviceMesh`` of ``mesh`` over the live process group: rank r
+    at the r-th flat position, with the mesh's ``axis_names`` and
+    shape."""
+    from torch.distributed.device_mesh import DeviceMesh
+    kind = torch.device(mesh.devices.flat[0]).type
+    ranks = torch.arange(mesh.devices.size).reshape(mesh.devices.shape)
+    return DeviceMesh(kind, ranks, mesh_dim_names=mesh.axis_names)

@@ -25,6 +25,17 @@ Conventions, as on the JAX side:
 
 Unlike JAX, which returns fresh cache arrays, the port writes K/V into the
 cache tensors it is given, IN PLACE, and returns the same dict.
+
+Tensor parallelism (``par``, a ``sharding.Parallel``; sharded training
+only).  Each rank holds its shards of the weights as JAX's rules place
+them over ``model`` and computes on plain local tensors; activations
+between blocks are replicated over ``model``.  Attention and the MLP are
+Megatron's: wq/wk/wv and wi/wg column-parallel behind ``f``, wo
+row-parallel before ``g``.  The MoE FFN is tensor parallel inside each
+expert, or expert parallel (a rank's whole experts); either way a
+token's capacity row counts the global token order over the data axes.
+The embedding and the head are vocab-parallel.  A weight the rules leave
+replicated (a dim ``model`` does not divide) runs replicated.
 """
 from __future__ import annotations
 
@@ -299,8 +310,12 @@ def multi_head_attention(p, x, cfg: ModelConfig, *, positions=None,
                          kv_cache=None, cache_index=None,
                          kv_source=None, use_rope: bool = True,
                          precomputed_kv=None, block_tables=None,
-                         write_tables=None, attend_cache: bool = False):
+                         write_tables=None, attend_cache: bool = False,
+                         par=None):
     """GQA attention with RoPE over an optional KV cache.
+
+    par: tensor parallelism over ``model`` (``_attention_tp``), for the
+    stateless self-attention of training only.
 
     positions: explicit RoPE positions, (B, S), or (3, B, S) for M-RoPE
     (qwen2-vl).  They rotate q and k only: every mask keeps the query
@@ -347,6 +362,16 @@ def multi_head_attention(p, x, cfg: ModelConfig, *, positions=None,
         written through ``write_tables``, then every query attends all
         mapped pages).
     Returns (out, kv_cache) -- the cache written in place."""
+    if par is not None and par.tp > 1 \
+            and p["wq"].shape[1] != cfg.num_heads * cfg.head_dim:
+        if kv_cache is not None or kv_source is not None \
+                or precomputed_kv is not None:
+            raise NotImplementedError(
+                "tensor-parallel attention runs the stateless "
+                "self-attention of training: no cache, no cross-attention")
+        return _attention_tp(p, x, cfg, par, positions=positions,
+                             causal=causal, window=window,
+                             use_rope=use_rope), None
     b, s, _ = x.shape
     h, hk, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     dt = x.dtype
@@ -522,6 +547,65 @@ def multi_head_attention(p, x, cfg: ModelConfig, *, positions=None,
     return out, kv_cache
 
 
+def _shared(norm_p, par):
+    """A norm's params behind ``f``: qk-norm's scale is shared by every
+    head, and each rank norms its own heads only, so its gradient is a
+    sum over the ranks."""
+    return {k: par.f(v, "model") for k, v in norm_p.items()}
+
+
+def _attention_tp(p, x, cfg: ModelConfig, par, *, positions, causal,
+                  window, use_rope):
+    """Megatron attention over ``model``: wq/wk/wv column-parallel behind
+    ``f``, a rank's query heads through flash unchanged, wo row-parallel
+    and ``g``.  A rank's wq shard must hold whole query heads.  When its
+    wk/wv shard does not hold whole KV heads (JAX shards them whenever
+    ``model`` divides Hkv * head_dim, which GSPMD handles), K and V are
+    all-gathered over ``model`` after the projection and each rank takes
+    the KV heads of its query heads."""
+    b, s, _ = x.shape
+    h, hk, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    tp, r = par.tp, par.model_rank
+    if h % tp:
+        raise NotImplementedError(
+            f"{cfg.name}: {h} query heads over model={tp}: a rank's wq "
+            f"shard would not hold whole heads")
+    if p["wk"].shape[1] == hk * hd:
+        raise NotImplementedError(
+            f"{cfg.name}: wk/wv replicated under a sharded wq (model={tp} "
+            f"does not divide Hkv * head_dim = {hk * hd})")
+    dt, dev = x.dtype, x.device
+    hq, grp = h // tp, h // hk
+    xm = par.f(x, "model")
+    q = torch.matmul(xm, p["wq"]).reshape(b, s, hq, hd)
+    k = torch.matmul(xm, p["wk"])
+    v = torch.matmul(xm, p["wv"])
+    if hk % tp == 0:
+        nk = hk // tp
+        k, v = (t.reshape(b, s, nk, hd) for t in (k, v))
+    else:
+        if hq % grp and grp % hq:
+            raise NotImplementedError(
+                f"{cfg.name}: {hq} query heads a rank cut across GQA groups "
+                f"of {grp}")
+        lo = r * hq // grp
+        nk = max(hq // grp, 1)
+        k, v = (par.all_gather(t, -1, "model").reshape(b, s, hk, hd)
+                [:, :, lo:lo + nk] for t in (k, v))
+    if "q_norm" in p:
+        q = apply_norm(_shared(p["q_norm"], par), q, cfg)
+        k = apply_norm(_shared(p["k_norm"], par), k, cfg)
+    if positions is None:
+        positions = torch.arange(s, device=dev)[None, :].expand(b, s)
+    if use_rope and cfg.rope_theta > 0:
+        q = apply_rope(q, positions, cfg.rope_theta, cfg.mrope_sections)
+        k = apply_rope(k, positions, cfg.rope_theta, cfg.mrope_sections)
+    pos = torch.arange(s, device=dev)
+    out = _attend(q, k, v, cfg, q_pos=pos, k_pos=pos, k_valid=None,
+                  causal=causal, window=window, dt=dt)
+    return par.g(torch.matmul(out, p["wo"]), "model")
+
+
 # ---------------------------------------------------------------------------
 # MLP, embedding, head
 # ---------------------------------------------------------------------------
@@ -610,16 +694,21 @@ _ACTS = {"silu": torch.nn.functional.silu,
          "relu2": lambda x: torch.relu(x).square()}
 
 
-def apply_mlp(p, x, cfg: ModelConfig):
+def apply_mlp(p, x, cfg: ModelConfig, par=None):
     """wo(act(x wg) * (x wi)) when gated, else wo(act(x wi)); the hidden
-    (and gate) products kept in f32 as JAX keeps them."""
+    (and gate) products kept in f32 as JAX keeps them.  ``par`` with wi
+    sharded over ``model``: wi/wg column-parallel behind ``f``, wo
+    row-parallel and ``g``."""
     act = _ACTS[cfg.mlp_activation]
-    hid = matmul_f32(x, p["wi"])
+    split = par is not None and par.tp > 1 and p["wi"].shape[-1] != cfg.d_ff
+    xin = par.f(x, "model") if split else x
+    hid = matmul_f32(xin, p["wi"])
     if "wg" in p:
-        hid = act(matmul_f32(x, p["wg"])) * hid
+        hid = act(matmul_f32(xin, p["wg"])) * hid
     else:
         hid = act(hid)
-    return torch.matmul(hid.to(x.dtype), p["wo"])
+    out = torch.matmul(hid.to(x.dtype), p["wo"])
+    return par.g(out, "model") if split else out
 
 
 def moe_capacity(cfg: ModelConfig, n: int, s: int) -> int:
@@ -632,7 +721,7 @@ def moe_capacity(cfg: ModelConfig, n: int, s: int) -> int:
                                 / cfg.moe.num_experts)))
 
 
-def apply_moe(p, x, cfg: ModelConfig):
+def apply_moe(p, x, cfg: ModelConfig, par=None):
     """Top-k capacity-limited MoE FFN with JAX's semantics
     (``repro.models.layers.apply_moe``): f32 router and softmax, top-k
     probabilities renormalized, per choice round a token's row in its
@@ -647,12 +736,28 @@ def apply_moe(p, x, cfg: ModelConfig):
     expert weights are read once.  The buffer is filled by one indexed
     assignment with no host sync: kept rows hold distinct (expert, row)
     pairs, dropped ones land on a sink row past the k * cap that the
-    product never reads."""
+    product never reads.
+
+    par (sharded training): the result is JAX's global one.  Over the
+    data axes, each rank routes its own tokens, but the capacity counts
+    the global n tokens, a token's row counts the global token order (the
+    (round, expert) counts of the ranks before it, all-gathered, offset
+    the rank's own), and aux is this rank's share of the global Switch
+    loss (its router-probability sum against the all-reduced first-choice
+    counts, over the global n squared; the shares sum to JAX's aux).
+    Over ``model``, the experts are tensor parallel inside each expert
+    (wi/wg (E, D, F/tp), wo (E, F/tp, D)) or, with the experts sharded
+    (``expert_parallel``), each rank computes its E/tp whole experts for
+    every token; either way the rank's expert output is a part of the
+    whole, so its input passes ``f``, the combine weights pass ``f`` (so
+    the router's gradient is whole on every rank) and ``g`` sums the
+    combine and the shared expert's row-parallel part."""
     moe = cfg.moe
     b, s, d = x.shape
     n = b * s
     e, k = moe.num_experts, moe.experts_per_token
-    cap = moe_capacity(cfg, n, s)
+    dp = par.dp if par is not None else 1
+    cap = moe_capacity(cfg, n * dp, s)
     dt, dev = x.dtype, x.device
     xf = x.reshape(n, d)
 
@@ -665,37 +770,87 @@ def apply_moe(p, x, cfg: ModelConfig):
     onehot = (top_e[..., None]
               == torch.arange(e, device=dev)).to(torch.int32)  # (n, k, e)
     pos = ((torch.cumsum(onehot, dim=0) - 1) * onehot).sum(dim=-1)
+    rank_pos = pos
+    if dp > 1:
+        # the (round, expert) counts of the data ranks before this one
+        counts = par.gather_plain(onehot.sum(dim=0)[None], 0,
+                                  par.data_axes)
+        before = counts[:par.data_rank].sum(dim=0)            # (k, e)
+        pos = pos + (onehot * before).sum(dim=-1)
     keep = pos < cap                                          # (n, k)
-    rows = torch.arange(k, device=dev) * cap + pos
-    buf = torch.zeros((e, k * cap + 1, d), dtype=dt, device=dev)
-    buf[top_e, torch.where(keep, rows, k * cap)] = \
-        xf[:, None, :].expand(n, k, d)
+    # a rank's kept rows lie below cap - its offset: its own count stores
+    rows = torch.arange(k, device=dev) * cap + rank_pos
+    e_loc = p["wi"].shape[0]
+    ep = e_loc != e
+    tp_ffn = par is not None and par.tp > 1 \
+        and p["wi"].shape[-1] != moe.expert_d_ff
+    if ep:
+        local = top_e - par.model_rank * e_loc
+        mine = (local >= 0) & (local < e_loc)
+        keep = keep & mine
+        eidx = torch.where(mine, local, 0)
+    else:
+        eidx = top_e
+    split = ep or tp_ffn
+    sh_split = "shared" in p and par is not None and par.tp > 1 \
+        and p["shared"]["wi"].shape[-1] != moe.shared_expert_d_ff
+    xin = par.f(xf, "model") if split or sh_split else xf
+    buf = torch.zeros((e_loc, k * cap + 1, d), dtype=dt, device=dev)
+    buf[eidx, torch.where(keep, rows, k * cap)] = \
+        (xin if split else xf)[:, None, :].expand(n, k, d)
     buf = buf[:, :k * cap]
     hid = bmm_f32(buf, p["wi"])
     gate = bmm_f32(buf, p["wg"])
     hid = (torch.nn.functional.silu(gate) * hid).to(dt)
     out = bmm_f32(hid, p["wo"])                               # (e, k*cap, d)
     tok = torch.where(keep[..., None],
-                      out[top_e, torch.where(keep, rows, 0)], 0.0)
+                      out[eidx, torch.where(keep, rows, 0)], 0.0)
+    if split:
+        top_w = par.f(top_w, "model")
     y = torch.zeros((n, d), dtype=torch.float32, device=dev)
     for j in range(k):
         y = y + tok[:, j] * top_w[:, j:j + 1]
     if "shared" in p:
         sh = p["shared"]
-        hid = matmul_f32(xf, sh["wi"])
-        gate = matmul_f32(xf, sh["wg"])
+        xs = xin if sh_split else xf
+        hid = matmul_f32(xs, sh["wi"])
+        gate = matmul_f32(xs, sh["wg"])
         hid = (torch.nn.functional.silu(gate) * hid).to(dt)
-        y = y + matmul_f32(hid, sh["wo"])
+        shared = matmul_f32(hid, sh["wo"])
+        if split == sh_split:
+            y = y + shared
+        else:          # one part is whole: sum the other over model first
+            y = (par.g(y, "model") + shared if split
+                 else y + par.g(shared, "model"))
+            split = sh_split = False
+    if split or sh_split:
+        y = par.g(y, "model")
     # Switch aux loss: E * sum(mean router prob * share of first choices)
     first = torch.zeros((e,), dtype=torch.float32, device=dev)
     first.index_add_(0, top_e[:, 0], torch.ones((n,), dtype=torch.float32,
                                                  device=dev))
-    aux = e * torch.sum(probs.mean(dim=0) * (first / n))
+    if dp > 1:
+        first = par.all_reduce(first, par.data_axes)
+        aux = e * torch.sum(probs.sum(dim=0) / (n * dp) * (first / (n * dp)))
+    else:
+        aux = e * torch.sum(probs.mean(dim=0) * (first / n))
     return y.reshape(b, s, d).to(dt), aux
 
 
-def embed(p, ids, cfg: ModelConfig):
-    out = p["table"][ids]
+def embed(p, ids, cfg: ModelConfig, par=None):
+    """The table's rows of ``ids``.  ``par`` with the table sharded on V
+    over ``model`` (vocab-parallel): each rank looks up the ids in its
+    vocabulary block (others give zero rows) and ``g`` sums them."""
+    table = p["table"]
+    if par is not None and par.tp > 1 and table.shape[0] != cfg.vocab_size:
+        v_loc = table.shape[0]
+        local = ids - par.model_rank * v_loc
+        ok = (local >= 0) & (local < v_loc)
+        out = table[local.clamp(0, v_loc - 1)] * ok[..., None].to(
+            table.dtype)
+        out = par.g(out, "model")
+    else:
+        out = table[ids]
     if cfg.family == "dense" and cfg.tie_embeddings:
         out = out * torch.sqrt(torch.tensor(float(cfg.d_model))).to(
             out.dtype)
@@ -747,6 +902,53 @@ def chunked_softmax_xent(x, w, labels, cfg: ModelConfig, *,
                                w[:, start:start + chunk], labels, start,
                                cfg.final_logit_softcap, use_reentrant=False)
     return m + torch.log(l) - tgt
+
+
+def vocab_parallel_xent(x, w, labels, cfg: ModelConfig, par, *,
+                        chunked: bool, chunk: int = 8192):
+    """Cross-entropy over a head sharded on V over ``model``: ``w`` (D,
+    V/tp) is this rank's vocabulary block.  Each rank computes its block's
+    running max, sum of exponentials and target logit (0 when the label
+    lies in another block) -- over its block in vocab chunks like
+    ``chunked_softmax_xent`` when ``chunked``, else as one f32-accumulated
+    product like ``logits_head`` -- then the max is all-reduced first
+    (no gradient: the log-sum-exp does not depend on it), the sums and
+    target logits after (``g``), into the global log-sum-exp: the (tokens,
+    V) logits never exist.  x (N, D) passes ``f``.  Returns the per-token
+    nll (N,) in f32."""
+    from torch.utils.checkpoint import checkpoint
+    n = x.shape[0]
+    v_loc = w.shape[1]
+    v0 = par.model_rank * v_loc
+    x = par.f(x, "model")
+    dev = x.device
+    m = torch.full((n,), NEG_INF, dtype=torch.float32, device=dev)
+    l = torch.zeros((n,), dtype=torch.float32, device=dev)
+    tgt = torch.zeros((n,), dtype=torch.float32, device=dev)
+    if chunked:
+        if v_loc % chunk:
+            chunk = v_loc
+        xf = x.to(torch.float32)
+        for start in range(0, v_loc, chunk):
+            m, l, tgt = checkpoint(_xent_chunk, m, l, tgt, xf,
+                                   w[:, start:start + chunk], labels,
+                                   v0 + start, cfg.final_logit_softcap,
+                                   use_reentrant=False)
+    else:
+        logits = matmul_f32(x, w)
+        cap = cfg.final_logit_softcap
+        if cap > 0:
+            logits = cap * torch.tanh(logits / cap)
+        m = logits.max(dim=-1).values
+        l = torch.exp(logits - m[:, None]).sum(dim=-1)
+        local = labels - v0
+        inside = (local >= 0) & (local < v_loc)
+        got = torch.gather(logits, 1,
+                           local.clamp(0, v_loc - 1)[:, None])[:, 0]
+        tgt = torch.where(inside, got, 0.0)
+    top = par.all_reduce(m, "model", op="max")
+    total = par.g(l * torch.exp(m - top), "model")
+    return top + torch.log(total) - par.g(tgt, "model")
 
 
 def logits_head(p_embed, p_head, x, cfg: ModelConfig):

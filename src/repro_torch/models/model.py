@@ -23,6 +23,10 @@ device.  As in JAX, the per-slot serving primitives (``prefill_one``,
 ``prefill_suffix_paged``) serve token-LM families only: vision, audio,
 vlm and any M-RoPE config raise NotImplementedError there, and run
 through ``forward``, ``prefill`` and ``decode_step``.
+
+Sharded training: ``Model(cfg, device, par=Parallel(...))`` (what
+``training.sharded_train_step`` builds) takes this rank's shards of the
+params and batch rows; ``loss`` is then the global loss (see there).
 """
 from __future__ import annotations
 
@@ -66,6 +70,9 @@ def _tokens(x, device):
 class Model:
     cfg: ModelConfig
     device: str = "cuda"
+    # sharded training: a ``sharding.Parallel`` (None: one process, whole
+    # params)
+    par: Any = None
 
     # ------------------------------------------------------------------ init
     def init(self, generator: torch.Generator) -> Dict[str, Any]:
@@ -110,8 +117,10 @@ class Model:
                                     positions=positions, cache=cache,
                                     cache_index=cache_index,
                                     block_tables=block_tables,
-                                    write_tables=write_tables, remat=remat)
-        return L.apply_norm(params["final_norm"], x, self.cfg), cache, aux
+                                    write_tables=write_tables, remat=remat,
+                                    par=self.par)
+        return L.apply_norm(self._top(params, "final_norm"), x,
+                            self.cfg), cache, aux
 
     def _lm_inputs(self, params, batch):
         """An LM batch's stack input and positions: ``batch["embeds"]``
@@ -128,20 +137,39 @@ class Model:
     def _dtype(self):
         return getattr(torch, self.cfg.dtype)
 
+    def _top(self, params, key):
+        """``params[key]`` with its FSDP-sharded leaves gathered over the
+        data axes (under ``par``; as it is otherwise)."""
+        p = params.get(key)
+        if self.par is None or p is None:
+            return p
+        if torch.is_tensor(p):
+            return self.par.gathered((key,), p)
+        return {n: self.par.gathered((key, n), t) for n, t in p.items()}
+
     def _embed(self, params, tokens):
-        return L.embed(params["embed"], _tokens(tokens, self.device),
-                       self.cfg).to(self._dtype())
+        return L.embed(self._top(params, "embed"),
+                       _tokens(tokens, self.device), self.cfg,
+                       self.par).to(self._dtype())
 
     def _head(self, params, x):
-        return L.logits_head(params["embed"], params.get("head"), x,
-                             self.cfg)
+        if self.par is None:
+            return L.logits_head(params["embed"], params.get("head"), x,
+                                 self.cfg)
+        w = self._head_weight(params)
+        if w.shape[1] != self.cfg.vocab_size:
+            raise NotImplementedError(
+                "the head's logits stay vocab-sharded over model: "
+                "Model.loss reduces them (vocab_parallel_xent)")
+        return L.logits_head({"table": w.t()}, None, x, self.cfg)
 
     def _head_weight(self, params):
         """The LM head's (D, V) weight: its own, or the embedding table's
-        transpose (a view) when tied."""
+        transpose (a view) when tied (under ``par``: this rank's V block,
+        gathered over the data axes)."""
         if self.cfg.tie_embeddings or params.get("head") is None:
-            return params["embed"]["table"].t()
-        return params["head"]["w"]
+            return self._top(params, "embed")["table"].t()
+        return self._top(params, "head")["w"]
 
     def _use_chunked_ce(self) -> bool:
         """Whether ``loss`` takes the fused head + cross-entropy: a
@@ -169,13 +197,13 @@ class Model:
         if cfg.family == "vision":
             x = _embeds(batch["embeds"], self.device, self._dtype())
             b, s, d = x.shape
-            x = torch.cat([params["cls"].to(x.dtype).expand(b, 1, d), x],
-                          dim=1)
-            x = x + params["pos_embed"][:, :s + 1].to(x.dtype)
+            x = torch.cat([self._top(params, "cls").to(x.dtype).expand(
+                b, 1, d), x], dim=1)
+            x = x + self._top(params, "pos_embed")[:, :s + 1].to(x.dtype)
             x, _, aux = T.run_stack(params["stack"], x, cfg, causal=False,
-                                    remat=remat)
-            x = L.apply_norm(params["final_norm"], x, cfg)
-            logits = L.matmul_f32(x[:, 0], params["head"]["w"])
+                                    remat=remat, par=self.par)
+            x = L.apply_norm(self._top(params, "final_norm"), x, cfg)
+            logits = L.matmul_f32(x[:, 0], self._top(params, "head")["w"])
         else:
             hidden, aux = self._hidden_for_loss(params, batch, remat=remat)
             logits = self._head(params, hidden)
@@ -192,8 +220,9 @@ class Model:
         x = _embeds(enc_embeds, self.device, self._dtype())
         pos = L.sinusoidal_positions(x.shape[1], cfg.d_model, x.device)
         x, _, _ = T.run_stack(params["enc_stack"], x + pos[None].to(x.dtype),
-                              cfg, causal=False, remat=remat)
-        return L.apply_norm(params["enc_norm"], x, cfg)
+                              cfg, causal=False, remat=remat, par=self.par,
+                              stack="enc_stack")
+        return L.apply_norm(self._top(params, "enc_norm"), x, cfg)
 
     # ------------------------------------------------------------------ loss
     def loss(self, params, batch, *, remat: bool = False):
@@ -204,7 +233,21 @@ class Model:
         mean, through the full logits or, when ``_use_chunked_ce``, the
         fused head + cross-entropy ``L.chunked_softmax_xent`` over the
         final hidden states (the logits never materialize).  No host
-        sync."""
+        sync.
+
+        Under ``par`` (sharded training) the batch is this rank's rows and
+        the loss is JAX's global one: the summed nll and the count of
+        unmasked labels are taken over the data axes before the division
+        (a mean of per-rank means is wrong whenever ranks mask different
+        counts), and each rank's MoE aux is its share of the global one.
+        This rank's share of the loss is summed over the data axes by
+        ``g``: its backward gives the gradient of the share, and the
+        shares' gradients are summed over the data axes by the step.
+        Over ``model`` > 1 the head is vocab-parallel
+        (``vocab_parallel_xent``); the vision, audio and M-RoPE front ends
+        raise NotImplementedError there."""
+        if self.par is not None:
+            return self._sharded_loss(params, batch, remat=remat)
         cfg = self.cfg
         labels = _tokens(batch["labels"], self.device)
         if cfg.family == "vision":
@@ -229,6 +272,41 @@ class Model:
         loss = (nll * mask).sum() / mask.sum().clamp_min(1.0)
         return loss + 0.01 * aux
 
+    def _sharded_loss(self, params, batch, *, remat=False):
+        cfg, par = self.cfg, self.par
+        if par.tp > 1 and (cfg.family in ("vision", "audio", "vlm")
+                           or cfg.mrope_sections):
+            raise NotImplementedError(
+                f"{cfg.name}: the {cfg.family} front end has no "
+                f"tensor-parallel compute in the port (model={par.tp}); "
+                f"run it on model=1")
+        labels = _tokens(batch["labels"], self.device)
+        if cfg.family == "vision":
+            logits, aux = self.forward(params, batch, remat=remat)
+            lp = torch.log_softmax(logits, dim=-1)
+            nll = -torch.gather(lp, -1, labels[:, None])[:, 0]
+            mask = torch.ones_like(nll)
+        else:
+            hidden, aux = self._hidden_for_loss(params, batch, remat=remat)
+            n = hidden.shape[0] * hidden.shape[1]
+            flat = labels.reshape(n)
+            hidden = hidden.reshape(n, cfg.d_model)
+            w = self._head_weight(params)
+            if w.shape[1] != cfg.vocab_size:
+                nll = L.vocab_parallel_xent(hidden, w, flat, cfg, par,
+                                            chunked=self._use_chunked_ce())
+            elif self._use_chunked_ce():
+                nll = L.chunked_softmax_xent(hidden, w, flat, cfg)
+            else:
+                lp = torch.log_softmax(L.logits_head(
+                    {"table": w.t()}, None, hidden, cfg), dim=-1)
+                nll = -torch.gather(lp, -1, flat.clamp_min(0)[:, None])[:, 0]
+            mask = (flat >= 0).to(torch.float32)
+        count = par.all_reduce(mask.sum(), par.data_axes)
+        share = (nll * mask).sum() / count.clamp_min(1.0) \
+            + 0.01 * self._aux(aux, nll.device)
+        return par.g(share, par.data_axes)
+
     def _hidden_for_loss(self, params, batch, *, remat=False):
         """The final-normed hidden states before the head, and aux, of
         the audio decoder or an LM family (the fused-CE path; ``forward``
@@ -238,8 +316,8 @@ class Model:
             enc = self.encode(params, batch["enc_embeds"], remat=remat)
             y = self._dec_in(params, batch["dec_tokens"])
             y, _, aux = T.run_stack(params["stack"], y, cfg, causal=True,
-                                    enc_out=enc, remat=remat)
-            return L.apply_norm(params["final_norm"], y, cfg), aux
+                                    enc_out=enc, remat=remat, par=self.par)
+            return L.apply_norm(self._top(params, "final_norm"), y, cfg), aux
         x, positions = self._lm_inputs(params, batch)
         hidden, _, aux = self._lm_hidden(params, x, positions=positions,
                                          remat=remat)

@@ -97,7 +97,7 @@ def init_block(generator, cfg: ModelConfig, blk: BlockSpec, device,
 def apply_block(p, x, cfg: ModelConfig, blk: BlockSpec, *, positions=None,
                 causal=True, state=None, cache_index=None, enc_out=None,
                 block_tables=None, write_tables=None,
-                attend_cache: bool = False):
+                attend_cache: bool = False, par=None):
     """Returns (x, state, aux) -- ``state`` is the block's cache, written
     in place (None without a cache; a recurrent mixer's every state leaf
     overwritten); ``aux`` the MoE FFN's load-balance loss (0.0 for a
@@ -108,7 +108,8 @@ def apply_block(p, x, cfg: ModelConfig, blk: BlockSpec, *, positions=None,
     encoder's output after its self-attention: with ``enc_out`` it
     projects the K/V fresh (and, given a cache, writes them into its
     ``cross_kv`` leaves: prefill); without, it reads the cached
-    ``cross_kv`` (decode); with neither it raises, as JAX's does."""
+    ``cross_kv`` (decode); with neither it raises, as JAX's does.
+    ``par``: sharded training (see ``run_stack``)."""
     h = L.apply_norm(p["norm1"], x, cfg)
     if blk.mixer in RECURRENT:
         st = state["ssm_state"] if state else None
@@ -122,7 +123,7 @@ def apply_block(p, x, cfg: ModelConfig, blk: BlockSpec, *, positions=None,
             window=cfg.window_size if blk.mixer == "attn_local" else 0,
             kv_cache=state.get("kv") if state else None,
             cache_index=cache_index, block_tables=block_tables,
-            write_tables=write_tables, attend_cache=attend_cache)
+            write_tables=write_tables, attend_cache=attend_cache, par=par)
     if cfg.post_block_norm:
         h = L.apply_norm(p["post_norm1"], h, cfg)
     x = x + h
@@ -148,9 +149,9 @@ def apply_block(p, x, cfg: ModelConfig, blk: BlockSpec, *, positions=None,
         return x, state, aux
     h = L.apply_norm(p["norm2"], x, cfg)
     if blk.ffn == "moe":
-        h, aux = L.apply_moe(p["ffn"], h, cfg)
+        h, aux = L.apply_moe(p["ffn"], h, cfg, par)
     else:
-        h = L.apply_mlp(p["ffn"], h, cfg)
+        h = L.apply_mlp(p["ffn"], h, cfg, par)
     if cfg.post_block_norm:
         h = L.apply_norm(p["post_norm2"], h, cfg)
     return x + h, state, aux
@@ -168,7 +169,8 @@ def run_stack(stack_params: List[Dict[str, Any]], x, cfg: ModelConfig, *,
               positions=None, causal: bool = True, cache=None,
               cache_index=None, enc_out=None, block_tables=None,
               write_tables=None, attend_cache: bool = False,
-              remat: bool = False, group_mask=None):
+              remat: bool = False, group_mask=None, par=None,
+              stack: str = "stack"):
     """Run every group of ``stack_params`` in order against the cache
     leaves' matching group entries (a plan stage passes its group slice of
     both).  Returns (x, cache, aux), aux the sum of the MoE layers'
@@ -198,7 +200,17 @@ def run_stack(stack_params: List[Dict[str, Any]], x, cfg: ModelConfig, *,
     group at 0 passes ``x`` and ``aux`` through unchanged and launches
     nothing, where JAX's scan computes it and selects; this is how the
     plan executor runs a stage padded to the plan's ``max_groups``.  For
-    the stateless forward only (no cache), as in JAX."""
+    the stateless forward only (no cache), as in JAX.
+
+    par: a ``sharding.Parallel`` (sharded training; no cache).  Each
+    group's leaves are this rank's shards, and a leaf the specs put on a
+    data axis (FSDP) is all-gathered just before its group runs
+    (``par.gather_group``, the specs under ``stack``): its gradient is
+    reduce-scattered back by the gather's backward, and under remat the
+    gather is redone in the recompute, so at most one group is gathered
+    at once.  Over ``model`` > 1 the attention and FFN blocks are tensor
+    parallel; a block kind without tensor-parallel compute here (mamba,
+    mLSTM, sLSTM, cross-attention) raises NotImplementedError."""
     if remat and cache is not None:
         raise ValueError("remat recomputes a stateless forward: no cache")
     if group_mask is not None:
@@ -214,8 +226,24 @@ def run_stack(stack_params: List[Dict[str, Any]], x, cfg: ModelConfig, *,
                              f"{len(stack_params)} groups")
         live = [float(m) > 0 for m in group_mask]
         stack_params = [gp for gp, on in zip(stack_params, live) if on]
+    if par is not None:
+        if cache is not None:
+            raise NotImplementedError("sharded training runs the stateless "
+                                      "forward: no cache")
+        if par.tp > 1:
+            kinds = [b.mixer for b in cfg.block_pattern
+                     if b.mixer in RECURRENT]
+            if enc_out is not None:
+                kinds.append("cross-attention")
+            if kinds:
+                raise NotImplementedError(
+                    f"{cfg.name}: a {kinds[0]} block has no "
+                    f"tensor-parallel compute in the port (model="
+                    f"{par.tp}); run it on model=1")
 
-    def group(gp, gc, x, aux):
+    def group(gp, gc, x, aux, g=0):
+        if par is not None:
+            gp = par.gather_group(gp, g, stack)
         for j, blk in enumerate(cfg.block_pattern):
             x, _, a = apply_block(
                 gp[f"b{j}"], x, cfg, blk, positions=positions,
@@ -223,18 +251,19 @@ def run_stack(stack_params: List[Dict[str, Any]], x, cfg: ModelConfig, *,
                 state=gc[f"b{j}"] if gc is not None else None,
                 cache_index=cache_index, enc_out=enc_out,
                 block_tables=block_tables,
-                write_tables=write_tables, attend_cache=attend_cache)
+                write_tables=write_tables, attend_cache=attend_cache,
+                par=par)
             aux = aux + a
         return x, aux
 
     aux = 0.0
     for g, gp in enumerate(stack_params):
         if remat:
-            x, aux = checkpoint(group, gp, None, x, aux,
+            x, aux = checkpoint(group, gp, None, x, aux, g,
                                 use_reentrant=False)
         else:
             gc = group_view(cache, g) if cache is not None else None
-            x, aux = group(gp, gc, x, aux)
+            x, aux = group(gp, gc, x, aux, g)
     return x, cache, aux
 
 

@@ -24,10 +24,10 @@ so every spec equals JAX's, and a stack's specs are ONE tree for all its
 groups in that stacked layout: entry 0 is the group axis, entries 1.. the
 dims of each group's tensor.  JAX can shard the group axis:
 ``_fsdp_extend`` falls back to dim 0 of a stacked 2-d (G, d) leaf, and
-``zero1_specs`` shards dim 0 when the data axis divides G.  Executing the
-specs (DTensor params, where a group-axis shard means each rank of that
-axis owns a contiguous block of whole groups) is not ported yet;
-``placements`` gives the DTensor placements of one spec.
+``zero1_specs`` shards dim 0 when the data axis divides G: each rank of
+that axis then owns a contiguous block of whole groups.  ``placements``
+gives the DTensor placements of one spec; ``execute`` builds the DTensor
+trees and ``training.sharded_train_step`` runs a step on them.
 """
 from __future__ import annotations
 

@@ -10,8 +10,9 @@ run's size); each new param is cast back to its param's dtype (there is
 no f32 master copy, as in JAX).  That is about fifteen passes over the
 leaves where a fused AdamW kernel would make one.
 Plain PyTorch: JAX's update is jnp, no Pallas kernel.  ``zero1_specs``
-gives the moments' ZeRO-1 specs, equal to JAX's; executing them (sharded
-moments in a train step) is not ported yet.
+gives the moments' ZeRO-1 specs, equal to JAX's; the sharded step
+(``trainer.sharded_train_step``) runs ``update`` on each rank's shards,
+with the global norm's sum of squares taken over the mesh (``sq_sum``).
 """
 from __future__ import annotations
 
@@ -84,15 +85,20 @@ class AdamW:
                           v=TR.tree_map(zeros, params))
 
     @torch.no_grad()
-    def update(self, grads, state: AdamWState, params):
+    def update(self, grads, state: AdamWState, params, *, sq_sum=None):
         """One AdamW step.  Returns (new params, new state, {"grad_norm":
         the raw global norm before the clip, "lr"}), all on the device
-        (no host sync)."""
+        (no host sync).
+
+        sq_sum: on shards, a function of the leaves' squared norms (in
+        leaf order) that returns the global sum of squares (each leaf's
+        summed over the mesh axes it is sharded on); None: their sum."""
         step = state.step + 1
         leaves = [TR.leaves(t) for t in (grads, state.m, state.v, params)]
         norms = [torch.linalg.vector_norm(g, dtype=torch.float32)
                  for g in leaves[0]]
-        gn = torch.sqrt(sum(n.square() for n in norms))
+        squares = [n.square() for n in norms]
+        gn = torch.sqrt(sum(squares) if sq_sum is None else sq_sum(squares))
         scale = torch.clamp(self.clip_norm / (gn + 1e-9), max=1.0)
         lr = self.schedule(step)
         stepf = step.to(torch.float32)
