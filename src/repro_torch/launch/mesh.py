@@ -22,14 +22,17 @@ fakes them.  JAX's ``use_mesh`` (an ambient mesh) has no counterpart:
 the mesh, or its ``DeviceMesh``, is passed explicitly.
 
 Two ways to run a mesh.  The pipeline executor (``pipeline.executor``)
-is ONE process that drives every slot.  Sharded training is one process
-a mesh rank, as ``torchrun`` starts them: ``init_distributed`` joins the
-process group (rank r on the device at the r-th flat position of
-``mesh.devices``) and ``device_mesh`` gives the
-``torch.distributed.device_mesh.DeviceMesh`` with the mesh's axis names
-and shape.  The backend is NCCL for CUDA ranks on distinct cards, gloo
-for CPU ranks and for ranks that share a card (NCCL refuses two ranks on
-one GPU); nothing falls back from one to the other.
+either is ONE process that drives every slot, or runs one process a
+mesh rank, as sharded training does and as ``torchrun`` starts them:
+``init_distributed`` joins the process group (rank r on the device at
+the r-th flat position of ``mesh.devices``) and ``device_mesh`` gives
+the ``torch.distributed.device_mesh.DeviceMesh`` with the mesh's axis
+names and shape (a plan mesh's: "stage", "data", "model", on which
+``sharding.Parallel`` sees ``tp`` = the model axis and ``dp`` = the data
+axis; "stage" is no batch axis).  The backend is NCCL for CUDA ranks on
+distinct cards, gloo for CPU ranks and for ranks that share a card
+(NCCL refuses two ranks on one GPU); nothing falls back from one to the
+other.
 """
 from __future__ import annotations
 

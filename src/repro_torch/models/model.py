@@ -26,7 +26,9 @@ through ``forward``, ``prefill`` and ``decode_step``.
 
 Sharded training: ``Model(cfg, device, par=Parallel(...))`` (what
 ``training.sharded_train_step`` builds) takes this rank's shards of the
-params and batch rows; ``loss`` is then the global loss (see there).
+params and batch rows; ``loss`` is then the global loss (see there), and
+``forward`` gives the rows' full logits (the vocab-parallel head's blocks
+gathered over ``model``), as the plan runner's last stage uses it.
 """
 from __future__ import annotations
 
@@ -153,15 +155,18 @@ class Model:
                        self.par).to(self._dtype())
 
     def _head(self, params, x):
+        """f32 logits.  Under ``par`` with the vocabulary sharded over
+        ``model``, each rank's block is all-gathered over ``model`` (no
+        gradient flows back through the gather: ``Model.loss`` reduces
+        the shards with ``vocab_parallel_xent`` instead)."""
         if self.par is None:
             return L.logits_head(params["embed"], params.get("head"), x,
                                  self.cfg)
         w = self._head_weight(params)
+        out = L.logits_head({"table": w.t()}, None, x, self.cfg)
         if w.shape[1] != self.cfg.vocab_size:
-            raise NotImplementedError(
-                "the head's logits stay vocab-sharded over model: "
-                "Model.loss reduces them (vocab_parallel_xent)")
-        return L.logits_head({"table": w.t()}, None, x, self.cfg)
+            out = self.par.gather_plain(out, -1, "model")
+        return out
 
     def _head_weight(self, params):
         """The LM head's (D, V) weight: its own, or the embedding table's

@@ -202,7 +202,8 @@ def run_stack(stack_params: List[Dict[str, Any]], x, cfg: ModelConfig, *,
     plan executor runs a stage padded to the plan's ``max_groups``.  For
     the stateless forward only (no cache), as in JAX.
 
-    par: a ``sharding.Parallel`` (sharded training; no cache).  Each
+    par: a ``sharding.Parallel`` (sharded training, or a plan mesh rank
+    with ``group_mask``; no cache).  Each
     group's leaves are this rank's shards, and a leaf the specs put on a
     data axis (FSDP) is all-gathered just before its group runs
     (``par.gather_group``, the specs under ``stack``): its gradient is

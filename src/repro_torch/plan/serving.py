@@ -48,6 +48,7 @@ from repro_torch.launch.mesh import local_devices, make_plan_mesh
 from repro_torch.models import transformer as T
 from repro_torch.pipeline.executor import _to, run_stage
 from repro_torch.plan.ir import ExecutionPlan, ServingPlan
+from repro_torch.sharding.execute import plan_rank_tree
 # the embed / final-norm + head / stage-slice helpers are shared with the
 # validation path, so the parity contract has one implementation per term
 from repro_torch.plan.validate import _embed, _finish, _stage_slice
@@ -110,12 +111,19 @@ def stage_walk(model, plan: ExecutionPlan, params, cache, tokens,
     return _finish(model, params, x)
 
 
-def place_params(params, plan: ExecutionPlan, devices=None):
+def place_params(params, plan: ExecutionPlan, devices=None, par=None):
     """One stage-sharded copy of the params on a ``make_plan_mesh`` of
     ``devices`` (default: every local CUDA device).  Returns (params,
     mesh), or (params, None) unchanged when the devices are fewer than the
     stages or are all one device (``[cuda:0] * 2``: the slots share the
     card, and the params stay where they are).
+
+    One process a mesh rank (``par``, a ``sharding.Parallel`` over the
+    plan mesh): returns (this rank's tree, None): its stage's groups,
+    each leaf its ``model`` shard, the embedding on stage 0 and the final
+    norm and head on the last stage, copied onto the rank's device
+    (``sharding.plan_rank_tree``); ``devices`` is not read.  The caller
+    may then drop the full params: the tree holds no view of them.
 
     A uniform plan whose stage count divides the groups puts each stage's
     groups on its slot's lead device, JAX's ``P("stage")``.  Every other
@@ -125,6 +133,8 @@ def place_params(params, plan: ExecutionPlan, devices=None):
     stage's device at each call (nothing where it is the lead device), as
     JAX's step takes a stage's shard out of a replicated leaf.  The engine
     does not call this, as JAX's does not."""
+    if par is not None:
+        return plan_rank_tree(params, plan, par), None
     devs = [torch.device(d) for d in (devices if devices is not None
                                       else local_devices("cuda"))]
     S = plan.n_stages

@@ -1,5 +1,5 @@
 """Collectives over named mesh axes: the one place the port's sharded
-training reaches a process group.
+training and its plan runner (one process a rank) reach a process group.
 
 ``Parallel`` wraps a ``torch.distributed.device_mesh.DeviceMesh`` whose
 dims carry JAX's axis names ("pod", "data", "model").  Every layer, the
@@ -17,7 +17,11 @@ Autograd-aware, Megatron's pair and its gather/scatter twins:
     of the gathered tensor is a part of the whole);
   * ``reduce_scatter(x, dim, axes)``: the transpose of ``all_gather``.
 Plain (no gradient): ``all_reduce`` (sum or max), ``gather_plain``,
-``scatter_plain``; and the module's ``barrier``.
+``scatter_plain``; and the module's ``barrier``.  Point to point along
+a plan mesh's "stage" axis (JAX's ``ppermute`` over "stage" in the
+pipeline executor): ``send(t, shift)`` and ``recv(shape, dtype, shift)``
+move a tensor to the rank ``shift`` stages on with the same data and
+model coordinates; ``stats()`` counts them as ``send`` with their bytes.
 
 ``axes`` is one axis name or a tuple of them; axes of size 1 are skipped
 (no collective is counted for them), and a collective over several axes
@@ -30,7 +34,14 @@ host memory itself), which is what ranks sharing a card run on: the
 card's probe found gloo taking all eight collectives it was offered on
 CUDA tensors (``chip_smoke.py`` phase 10, PERF.md), so nothing here
 stages a buffer or picks a transport, and nothing falls back on an
-error.
+error.  Gloo's ``send``/``recv`` (and ``isend``/``irecv``,
+``batch_isend_irecv``) do NOT take CUDA tensors: on the card's probe
+(``chip_smoke.py --probe-p2p``, PERF.md) they handed the device pointer
+to the TCP transport, which failed ("Bad address") and aborted the
+process.  So a stage link is a broadcast from the sender over a process
+group of the two ranks (``Parallel`` makes one for every two ranks on a
+line of the "stage" axis): the one transport, on gloo and NCCL alike,
+CPU or CUDA.
 """
 from __future__ import annotations
 
@@ -96,7 +107,10 @@ class Parallel:
     (``sharding.param_specs``); the model reads them to all-gather the
     FSDP-sharded leaves before use (``gathered``, ``gather_group``).
     The batch is split over every batch axis of the mesh
-    (``data_axes``)."""
+    (``data_axes``); "stage" is none.  On a mesh whose "stage" axis has
+    more than one rank, building a ``Parallel`` is a collective: it makes
+    the stage links' process groups, so every rank builds it, at the
+    same point."""
 
     def __init__(self, dmesh, param_specs=None):
         self.dmesh = dmesh
@@ -108,6 +122,7 @@ class Parallel:
         self.dp = math.prod(self.shape[a] for a in self.data_axes)
         self.model_rank = self.rank("model")
         self.data_rank = self.coord(self.data_axes)
+        self._make_pairs()
 
     # ------------------------------------------------------------ the mesh
     def rank(self, axis: str) -> int:
@@ -132,6 +147,14 @@ class Parallel:
 
     def group(self, axis: str):
         return self.dmesh.get_group(axis)
+
+    @property
+    def device(self) -> torch.device:
+        """This rank's device: its current CUDA card on a CUDA mesh (set
+        by ``launch.mesh.init_distributed``), else the CPU."""
+        if self.dmesh.device_type == "cuda":
+            return torch.device("cuda", torch.cuda.current_device())
+        return torch.device(self.dmesh.device_type)
 
     # ------------------------------------------------- raw, one axis each
     def _all_reduce(self, t, axis, op="sum"):
@@ -184,6 +207,55 @@ class Parallel:
         out = t.detach()
         for a in self.live_axes(axes):
             out = self._reduce_scatter(out, dim, a)
+        return out
+
+    # ------------------------------------------------- point to point
+    def _make_pairs(self):
+        """A process group for every two ranks on one line of the "stage"
+        axis (the other coordinates equal): the links ``send``/``recv``
+        run over.  Every rank makes every group, in one order, as
+        ``new_group`` asks."""
+        self._pairs = {}
+        n = self.shape.get("stage", 1)
+        if n < 2:
+            return
+        lines = self.dmesh.mesh.movedim(self.axis_names.index("stage"),
+                                        -1).reshape(-1, n).tolist()
+        for line in lines:
+            for i in range(n):
+                for j in range(i + 1, n):
+                    self._pairs[(line[i], line[j])] = dist.new_group(
+                        [line[i], line[j]])
+
+    def rank_at(self, **coords) -> int:
+        """The global rank at this rank's mesh coordinates with ``coords``
+        (axis name -> index) put in their place."""
+        c = list(self.dmesh.get_coordinate())
+        for a, i in coords.items():
+            c[self.axis_names.index(a)] = i
+        return int(self.dmesh.mesh[tuple(c)])
+
+    def _pair(self, a: int, b: int):
+        return self._pairs[(min(a, b), max(a, b))]
+
+    def send(self, t, shift: int = 1):
+        """Send ``t`` to the rank ``shift`` steps along "stage" with this
+        rank's data and model coordinates (one pair of JAX's ``ppermute``
+        over "stage"): a broadcast from this rank over the two ranks' link
+        group; it blocks until the transport has taken ``t``.  Counted as a
+        ``send`` of its bytes."""
+        me = dist.get_rank()
+        peer = self.rank_at(stage=self.rank("stage") + shift)
+        dist.broadcast(t.contiguous(), me, group=self._pair(me, peer))
+        _count("send", t.numel() * t.element_size())
+
+    def recv(self, shape, dtype, shift: int = 1):
+        """What the rank ``shift`` steps back along "stage" sends with
+        ``send(..., shift)``: a new tensor of ``shape`` and ``dtype`` on
+        this rank's device."""
+        src = self.rank_at(stage=self.rank("stage") - shift)
+        out = torch.empty(shape, dtype=dtype, device=self.device)
+        dist.broadcast(out, src, group=self._pair(dist.get_rank(), src))
         return out
 
     # ------------------------------------------------ autograd collectives

@@ -14,6 +14,10 @@ tensors (made from one seed, or read from one checkpoint) and keeps its
 own shard (``distribute_tensor(..., src_data_rank=None)``).
 ``gather_tree`` gathers through ``collectives.Parallel``, the one door to
 the process groups.
+
+``plan_rank_tree`` is the plan runner's counterpart (one process a rank
+of a ("stage", "data", "model") mesh): plain tensors, this rank's stage
+only, each leaf its ``model`` shard.
 """
 from __future__ import annotations
 
@@ -25,7 +29,9 @@ import torch
 
 from repro_torch import tree as TR
 from repro_torch.bridge import STACKS
-from repro_torch.sharding.rules import batch_axes_for, placements
+from repro_torch.sharding.collectives import entry_axes
+from repro_torch.sharding.rules import (batch_axes_for, param_specs,
+                                        placements)
 
 
 def axes_view(dmesh):
@@ -239,3 +245,80 @@ def shard_batch(batch, dmesh, grad_accum: int = 1):
             return torch.cat(parts, axis)
         return np.concatenate(parts, axis)
     return {k: cut(k, x) for k, x in batch.items()}
+
+
+# ---------------------------------------------------------------------------
+# a plan mesh's rank: its stage's groups, its model shards
+# ---------------------------------------------------------------------------
+
+FIRST_STAGE = ("embed",)
+LAST_STAGE = ("final_norm", "head")
+
+
+def _refuse_beyond_model(specs, path=()):
+    """A plan mesh shards the params over ``model`` only: a spec entry
+    naming any other axis (FSDP's data axis) raises, naming the leaf."""
+    if isinstance(specs, dict):
+        for k, v in specs.items():
+            _refuse_beyond_model(v, path + (k,))
+        return
+    other = [a for e in specs for a in entry_axes(e) if a != "model"]
+    if other:
+        raise ValueError(
+            f"{'/'.join(path)}: spec {specs} shards over {other}; on a plan "
+            f"mesh the params shard over model only (FSDP there is not "
+            f"ported: run_stack numbers the live groups of a masked stage "
+            f"from 0, so a group-axis gather would pick the wrong group)")
+
+
+def _take(node, spec, par, device, lead=0):
+    """``node``'s shard on this rank: each dim that ``spec`` (past its
+    ``lead`` entries: a stack's group axis) shards, narrowed to this
+    rank's block over the entry's axes, copied onto ``device`` as a
+    tensor of its own (no view keeps the full tensor alive)."""
+    if isinstance(node, dict):
+        return {k: _take(v, spec[k], par, device, lead)
+                for k, v in node.items()}
+    t = node
+    for d, e in enumerate(spec[lead:]):
+        axes = entry_axes(e)
+        if axes:
+            n = t.shape[d] // par.size(axes)
+            t = t.narrow(d, par.coord(axes) * n, n)
+    return t.to(device=device, memory_format=torch.contiguous_format,
+                copy=True)
+
+
+def plan_rank_tree(params, plan, par, specs=None):
+    """This rank's tree for ``plan`` run one process a rank over the plan
+    mesh of ``par`` (a ``collectives.Parallel`` on ("stage", "data",
+    "model")), on its device: the stage's groups as ``plan_stage_params``
+    gathers them (``plan.max_groups`` entries, a padded entry the same
+    dict as its stage's last group, masked out by the runner), each leaf
+    this rank's ``model`` shard under ``specs`` (default: ``param_specs``
+    on the plan mesh, JAX's ``param_shardings`` there); the embedding on
+    stage 0 only; the final norm and the head on the last stage only (the
+    embedding's shard there when the head is tied to it).  ``params``: the
+    port's layout (a list of groups under ``stack``), on any device.
+    Specs that shard over another axis than ``model`` raise ValueError."""
+    specs = specs if specs is not None else param_specs(params,
+                                                        axes_view(par.dmesh))
+    _refuse_beyond_model(specs)
+    s, last = par.rank("stage"), plan.n_stages - 1
+    device = par.device
+    taken: Dict[int, Any] = {}
+    stack = []
+    for g in plan.group_index_matrix()[s]:
+        g = int(g)
+        if g not in taken:
+            taken[g] = _take(params["stack"][g], specs["stack"], par, device,
+                             lead=1)
+        stack.append(taken[g])
+    keys = (FIRST_STAGE if s == 0 else ()) + (LAST_STAGE if s == last
+                                               else ())
+    if s == last and "head" not in params:
+        keys += ("embed",)
+    out = {k: _take(params[k], specs[k], par, device)
+           for k in dict.fromkeys(keys) if k in params}
+    out["stack"] = stack
+    return out
