@@ -141,9 +141,10 @@ device it fails (it never runs on the CPU instead).  Phases, in order:
      The kernels' launch counters are zeroed just before each serve and
      read just after: each must be nonzero (on serve-hybrid the fused
      selective scan counts admissions, the linear scan decode steps),
-     and every logit finite.  serve-plan: serve-full's model, requests
-     and engine under the launcher's ``--strategy hybrid:2 --replicas 2
-     --chunk 128`` (the searched 2-stage plan, its ``describe()``
+     and every logit finite.  serve-plan: serve-full's model (its first
+     ``SERVE_PLAN_LAYERS`` layers), requests and engine under the
+     launcher's ``--strategy hybrid:2 --replicas 2 --chunk 128`` (the
+     searched 2-stage plan, its ``describe()``
      printed; both stages and replicas share the card; its paged
      prefill launches sorted by chunk), its numbers beside
      serve-full's.  serve-overlap and serve-plan-overlap: serve-full and
@@ -3619,7 +3620,8 @@ def serve_adapt_run(dev, model, params, cfg, prompts, kernels, fp, pl):
             ("TTFT max", ttft[-1], fp["ttft_s"][-1], pl["ttft_s"][-1], " s"),
             ("decode tick, host", tick_s * 1e3, fp["tick_s"] * 1e3,
              pl["tick_s"] * 1e3, " ms")):
-        print(f"[serve] serve-adapt vs serve-full vs serve-plan, {key}: "
+        print(f"[serve] serve-adapt vs serve-full vs serve-plan ("
+              f"{SERVE_PLAN_LAYERS} layers), {key}: "
               f"{a:.4f} vs {b:.4f} vs {c:.4f}{unit}")
     check(len(done) == len(prompts) + len(tail)
           and all(len(done[u].out_tokens) == 64 for u in range(len(prompts)))
@@ -3657,6 +3659,9 @@ def lap_timer(prefix):
 # serve-int8-spec's depth: 16 of yi-6b's 32 layers, for the smoke's time
 # (at 32 it was the slowest cell with serve-plan's two)
 SERVE_INT8_SPEC_LAYERS = 16
+# serve-plan's and serve-plan-overlap's depth: 16 of 32, for the smoke's
+# time (at 32 they were its slowest cells)
+SERVE_PLAN_LAYERS = 16
 
 
 def serve_phase(dev, kernels):
@@ -3724,11 +3729,15 @@ def serve_phase(dev, kernels):
     torch.cuda.empty_cache()
     lap("serve-overlap")
 
-    # serve-plan: the same model, requests and engine under the launcher's
-    # --strategy hybrid:2 --replicas 2 --chunk 128 (stages and replicas
-    # share the card)
+    # serve-plan: the same model (its first SERVE_PLAN_LAYERS layers),
+    # requests and engine under the launcher's --strategy hybrid:2
+    # --replicas 2 --chunk 128 (stages and replicas share the card)
     from repro_torch.launch.serve import _build_serving_plan
-    splan = _build_serving_plan(cfg, "hybrid:2", 4, 2, 128, 1024)
+    # at SERVE_PLAN_LAYERS: the first groups of the same weights (no copy)
+    pmodel = build_model(dataclasses.replace(
+        cfg, num_layers=SERVE_PLAN_LAYERS), device=dev)
+    pparams = {**params, "stack": params["stack"][:SERVE_PLAN_LAYERS]}
+    splan = _build_serving_plan(pmodel.cfg, "hybrid:2", 4, 2, 128, 1024)
     print(f"[serve] plan hybrid:2:\n{splan.describe()}")
     def chunk_kind(q, kp, vp, bt, offset, *_):     # q (B, S, H, D)
         s = q.shape[1]
@@ -3736,7 +3745,7 @@ def serve_phase(dev, kernels):
                 f"{'offset 0' if int(offset) == 0 else 'offset > 0'}")
     with tally_calls("dispatch_paged_prefill_attention",
                      chunk_kind) as chunk_shapes:
-        eng, pl = serve_run("plan hybrid:2 paged", model, params, prompts,
+        eng, pl = serve_run("plan hybrid:2 paged", pmodel, pparams, prompts,
                             {k: kernels[k] for k in ("fused_paged_decode",
                                                      "paged_prefill")},
                             plan=splan)
@@ -3752,9 +3761,11 @@ def serve_phase(dev, kernels):
                                          Request)
     for key, unit in (("tok_s", ""), ("tick_s", " s"), ("peak_memory_gb",
                                                          " GB")):
-        print(f"[serve] serve-plan vs serve-full, {key}: {pl[key]:.4f} vs "
+        print(f"[serve] serve-plan ({SERVE_PLAN_LAYERS} layers) vs "
+              f"serve-full ({cfg.num_layers}), {key}: {pl[key]:.4f} vs "
               f"{fp[key]:.4f}{unit}")
-    print(f"[serve] serve-plan vs serve-full, TTFT p50/max: "
+    print(f"[serve] serve-plan ({SERVE_PLAN_LAYERS} layers) vs serve-full "
+          f"({cfg.num_layers}), TTFT p50/max: "
           f"{pl['ttft_s'][len(pl['ttft_s']) // 2]:.4f}/{pl['ttft_s'][-1]:.4f}"
           f" vs {fp['ttft_s'][len(fp['ttft_s']) // 2]:.4f}/"
           f"{fp['ttft_s'][-1]:.4f} s; prefill phase "
@@ -3769,7 +3780,7 @@ def serve_phase(dev, kernels):
     lap("serve-plan")
 
     # serve-plan-overlap: serve-plan, overlapped
-    eng, plo = serve_run("plan hybrid:2 paged overlap", model, params,
+    eng, plo = serve_run("plan hybrid:2 paged overlap", pmodel, pparams,
                          prompts, paged, plan=splan, overlap=True)
     plo["profile"] = profile_decode(eng, prompts[4:], Request)
     unwatch(eng)
@@ -5203,13 +5214,15 @@ def flash_grad_rows(dev, flush, results):
             del q, k, v, g, out, grads, pout, pgrads
 
 
-def scan_grad_rows(dev, flush, results):
+def scan_grad_rows(dev, flush, results, shape=GRAD_SCAN,
+                   name="mamba_scan_fused_train"):
     """The selective scan's gradient route (mamba's training prefill):
     the kernel forward inside ``_SelectiveScan`` and its plain backward
-    against autograd through ``ref.mamba_scan_fused_ref``, f32."""
+    against autograd through ``ref.mamba_scan_fused_ref``, f32, at
+    ``shape`` (N, S, d_inner, d_state), as row ``name``."""
     from repro_torch.kernels import ref as TR
     from repro_torch.kernels import selective_scan as TS
-    n_, s, di, n = GRAD_SCAN
+    n_, s, di, n = shape
     gen = torch.Generator(device=dev).manual_seed(5)
 
     def t(*shape, scale=1.0):
@@ -5241,10 +5254,10 @@ def scan_grad_rows(dev, flush, results):
     nbytes = 4 * (6 * n_ * s * di + 6 * n_ * s * n + 2 * di * n
                   + 2 * n_ * di * n)
     bound, by = bound_ms(nbytes, 21 * n_ * s * di * n, torch.float32)
-    results[("mamba_scan_fused_train", torch.float32)] = dict(
+    results[(name, torch.float32)] = dict(
         max_abs_err=err, grad_err=gerr, ms=ms, fwd_ms=fwd_ms,
         plain_ms=plain_ms, bound_ms=bound, bound_by=by, library_ms=None)
-    print(f"[train] mamba_scan_fused_train f32 (N={n_} S={s} "
+    print(f"[train] {name} f32 (N={n_} S={s} "
           f"d_inner={di} d_state={n}): forward + backward {ms:.4f} ms "
           f"(kernel forward {fwd_ms:.4f}), plain {plain_ms:.4f}, bound "
           f"{bound:.4f} ms ({by}); outputs {err:.3g}, gradients {gerr:.3g} "
@@ -5789,7 +5802,7 @@ def placement_phase(dev, kernels, card):
 SHARD_ARCH = "yi-6b"
 SHARD_RANKS = 2
 SHARD_TOL = 1e-4              # loss (absolute), grad_norm (relative), params
-SHARD_PARITY_LAYERS = 2       # f32, ~0.93 B params
+SHARD_PARITY_LAYERS = 1       # f32, ~0.70 B params (one layer: time)
 SHARD_PARITY_SHAPE = (4, 128)  # B, S
 SHARD_PARITY_MESHES = ((1, 2), (2, 1))
 # AdamW for the params' parity: at the default eps (1e-8) the first steps
@@ -5897,11 +5910,11 @@ def _shard_cfg(layers, dtype):
                                dtype=dtype, param_dtype=dtype)
 
 
-def _shard_errs(sharded, full, dm):
+def _shard_errs(sharded, full, dm, relative=True):
     """Largest |shard - its block of the full leaf| over the full leaf's
-    largest |value|, the max over this rank's leaves (``full`` in the
-    port's layout; its blocks cut as the DTensors are placed, on this
-    rank, no communication)."""
+    largest |value| (``relative``; else as it is), the max over this
+    rank's leaves (``full`` in the port's layout; its blocks cut as the
+    DTensors are placed, on this rank, no communication)."""
     from torch.distributed.tensor import distribute_tensor
     from repro_torch import sharding as S
     from repro_torch.sharding.execute import flat
@@ -5912,7 +5925,8 @@ def _shard_errs(sharded, full, dm):
         block = distribute_tensor(ref, dm, t.placements,
                                   src_data_rank=None).to_local()
         errs.append(max_err(t.to_local(), block)
-                    / max(float(ref.float().abs().max()), 1e-30))
+                    / (max(float(ref.float().abs().max()), 1e-30)
+                       if relative else 1.0))
     return max(errs)
 
 
@@ -6725,6 +6739,784 @@ def report_plan_mesh(res, card):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 12: tensor parallelism for every block -- mamba, mLSTM, sLSTM,
+# cross-attention, a cut query head, the ViT class head and qwen2-vl's
+# M-RoPE embeds over model = 2; two ranks on the one card over gloo
+# ---------------------------------------------------------------------------
+
+TPB_RANKS = 2
+TPB_ARCHS = ("jamba-1.5-large-398b", "xlstm-125m", "whisper-base", "deit-t",
+             "qwen2-vl-72b")
+# xlstm-125m at one pattern period: at two its f32 gradients are
+# ill-conditioned (tests/test_torch_loss.py); the hybrid at one period
+# (mamba, attention, MoE), for time
+TPB_LAYERS = {"xlstm-125m": 4, "jamba-1.5-large-398b": 8}
+# loss and the params after one AdamW step (absolute: JAX's own tolerance;
+# of a leaf's largest, a zero-initialized leaf such as mamba's conv_b is
+# ~lr, and AdamW's first update turns f32 noise in a gradient element
+# near eps into 1.4e-4 of it on the CPU), gradients (of a leaf's
+# largest); grad_norm relative
+TPB_TOL = 1e-4
+TPB_NORM_RTOL = 1e-5
+TPB_PARITY_SHAPE = (4, 32)     # B, S (whisper: S decoder tokens, 2 S frames)
+TPB_PLAN_LAYERS = 16           # the hybrid reduced: 2 periods, 14 mamba
+TPB_PLAN_SHAPE = (4, 64)
+TPB_PLAN_TOL = 1e-4            # of Model.forward's largest |logit|
+TPB_XLSTM = (12, 4, 512)       # layers, B, S: bf16 at published width
+TPB_WHISPER = (4, 1500, 448)   # B, frames, decoder tokens
+TPB_DEIT = (6, 196)            # B, patches
+TPB_JAMBA = (8, 1, 512)        # layers (one period), B, S
+TPB_VLM = (1, 2, 512)          # layers, B, S
+TPB_COSINE = 0.99
+# xlstm-125m's gradients are ill-conditioned (its exponential gates): in
+# f32 its parity gates follow its own noise floor, the unsharded step on
+# weights times 1 + 1e-7 N(0, 1) (``TPB_FLOOR``: the sharded step's
+# gradient error and grad_norm within twice the floor's, or the gates);
+# in bf16 its cosine is read at ``TPB_XLSTM_COS_SEQ`` tokens beside the
+# unsharded bf16 step's against the unsharded f32 one's (the witness: at
+# 12 layers bf16 rounding alone moves the gradients' direction), and not
+# gated; the gated cosine there is the f32 sharded step's against the
+# f32 unsharded one's, at the same width, depth and batch
+TPB_FLOOR = ("xlstm-125m",)
+TPB_FLOOR_NOISE = 1e-7
+TPB_XLSTM_COS_SEQ = 32
+TPB_TIMEOUT = 420              # s, both ranks together
+# the kernel rows at a rank's shapes: the selective scan on half of
+# jamba's channels (N, S, d_inner, d_state), forward and forward +
+# backward; flash at whisper's cross-attention on half its heads (B, H,
+# Sq, Skv, D), non-causal, forward + backward
+TPB_SCAN = (1, 512, 8192, 16)
+TPB_SCAN_TRAIN = (1, 128, 8192, 16)
+TPB_CROSS = (4, 4, 448, 1500, 64)
+
+
+def tpb_reduced(arch, layers=0):
+    """``reduced(arch)`` at head_dim 64 (flash takes 40, 60, 64, 128 and
+    256; ``reduced`` gives 16), M-RoPE's sections (8, 12, 12) to match."""
+    from repro_torch.configs import REGISTRY, reduced
+    cfg = reduced(REGISTRY[arch], layers=layers)
+    return dataclasses.replace(
+        cfg, head_dim=64,
+        mrope_sections=(8, 12, 12) if cfg.mrope_sections else ())
+
+
+def tpb_batch(cfg, b, s, seed, frames=None):
+    """A batch of ``cfg``'s family drawn with numpy: tokens; ViT patch
+    embeddings and class labels; whisper's frames (``frames``, default
+    2 S) and decoder tokens; qwen2-vl's merged embeddings on three
+    distinct M-RoPE streams (t the token index, h and w a 2 x 3 grid's
+    rows and columns)."""
+    r = np.random.default_rng(seed)
+    v, d = cfg.vocab_size, cfg.d_model
+
+    def ids(*shape):
+        return r.integers(0, v, shape).astype(np.int32)
+
+    def emb(*shape):
+        return r.standard_normal(shape).astype(np.float32)
+    if cfg.family == "vision":
+        return {"embeds": emb(b, s, d), "labels": ids(b)}
+    if cfg.family == "audio":
+        return {"enc_embeds": emb(b, frames or 2 * s, d),
+                "dec_tokens": ids(b, s), "labels": ids(b, s)}
+    if cfg.family == "vlm":
+        t = np.arange(s)
+        pos = np.stack([t, t // 6 + (t % 6) // 3, t % 3])
+        return {"embeds": emb(b, s, d), "labels": ids(b, s),
+                "positions": np.broadcast_to(
+                    pos[:, None], (3, b, s)).astype(np.int32).copy()}
+    return {"tokens": ids(b, s), "labels": ids(b, s)}
+
+
+def _tpb_counts():
+    from repro_torch.kernels.flash_attention import flash_attention_bhsd
+    from repro_torch.kernels.selective_scan import mamba_scan_fused
+    return {"flash": flash_attention_bhsd.launches,
+            "scan": mamba_scan_fused.launches}
+
+
+def _tpb_since(n0):
+    return {k: v - n0[k] for k, v in _tpb_counts().items()}
+
+
+def tpb_parity(dev, rank, dm, out):
+    """f32, each of ``TPB_ARCHS`` reduced (``tpb_reduced``, ``TPB_LAYERS``),
+    its own seed
+    and ``tpb_batch``: the unsharded step on each rank (so that each
+    holds its shards to their blocks without a gather), then
+    ``sharded_train_step`` on (1, 2): the first gradients
+    (``value_and_grad``), loss, grad_norm and the params after one AdamW
+    step at ``SHARD_OPT``; flash and scan launches and the collectives of
+    the sharded step."""
+    from repro_torch import sharding as S
+    from repro_torch.models import build_model
+    from repro_torch.training import (AdamW, init_sharded, make_train_step,
+                                      sharded_train_step)
+    from repro_torch.training.trainer import value_and_grad
+    view = S.axes_view(dm)
+    b, s = TPB_PARITY_SHAPE
+    rows = {}
+    for i, arch in enumerate(TPB_ARCHS):
+        t0 = time.perf_counter()
+        cfg = tpb_reduced(arch, TPB_LAYERS.get(arch, 0))
+        model = build_model(cfg, dev)
+        opt = AdamW(**SHARD_OPT)
+        full = model.init(torch.Generator(device=dev).manual_seed(i))
+        bt = tpb_batch(cfg, b, s, 10 + i)
+        step = make_train_step(model, opt, remat=True)
+        ref_g = value_and_grad(model, full, bt, remat=False)[1]
+        ref_p, _, ref_met = step(full, opt.init(full), bt)
+        pspecs = S.param_specs(full, view)
+        fn = sharded_train_step(step, dm, pspecs, pspecs,
+                                S.input_specs_tree(bt, view))
+        sp = S.shard_tree(full, pspecs, dm)
+        so = init_sharded(opt, sp, pspecs, dm)
+        n0 = _tpb_counts()
+        S.reset_stats()
+        loss, grads = fn.value_and_grad(sp, S.shard_batch(bt, dm))
+        g_err = _shard_errs(grads, ref_g, dm)
+        sp, so, met = fn.apply(sp, so, loss, grads)
+        floor = None
+        if arch in TPB_FLOOR:
+            gen = torch.Generator(device=dev).manual_seed(100 + i)
+            noisy = [t * (1 + TPB_FLOOR_NOISE * torch.randn(
+                t.shape, generator=gen, device=dev)) for t in _leaves(full)]
+            from repro_torch import tree as TR
+            w_g = value_and_grad(model, TR.unflatten_like(
+                full, iter(noisy)), bt, remat=False)[1]
+            w_norm = sum(float(g.double().square().sum())
+                         for g in _leaves(w_g)) ** 0.5
+            floor = dict(grad_err=_tree_err(w_g, ref_g),
+                         norm_rel=abs(w_norm - float(ref_met["grad_norm"]))
+                         / float(ref_met["grad_norm"]))
+            del noisy, w_g
+        rows[arch] = dict(
+            floor=floor, worst=_worst_element(sp, ref_p, grads, dm),
+            loss=float(met["loss"]), ref_loss=float(ref_met["loss"]),
+            grad_norm=float(met["grad_norm"]),
+            ref_norm=float(ref_met["grad_norm"]), grad_err=g_err,
+            param_err=_shard_errs(sp, ref_p, dm),
+            param_abs=_shard_errs(sp, ref_p, dm, relative=False),
+            launches=_tpb_since(n0),
+            stats=S.stats(), layers=cfg.num_layers,
+            s=time.perf_counter() - t0)
+        del full, ref_g, ref_p, sp, so, grads
+    out["parity"] = rows
+
+
+def tpb_plan(dev, rank, pdm, pmesh, out):
+    """f32 rank-mode ``plan_forward`` of the hybrid (jamba dense-FFN)
+    reduced to ``TPB_PLAN_LAYERS`` layers: the plan's one stage of both
+    groups (14 mamba, 2 attention layers) on the (1, 1, 2) plan mesh, M=2,
+    against ``Model.forward`` on rank 0."""
+    from repro_torch import sharding as S
+    from repro_torch.models import build_model
+    from repro_torch.pipeline import gather_logits, plan_forward
+    from repro_torch.plan import uniform_plan
+    from repro_torch.plan.serving import place_params
+    cfg = tpb_reduced(HYBRID, TPB_PLAN_LAYERS)
+    model = build_model(cfg, dev)
+    full = model.init(torch.Generator(device=dev).manual_seed(7))
+    b, s = TPB_PLAN_SHAPE
+    tokens = np.random.default_rng(3).integers(
+        0, cfg.vocab_size, (b, s)).astype(np.int32)
+    par = S.Parallel(pdm)
+    plan = uniform_plan(cfg.num_groups, 1, 2)
+    tree, _ = place_params(full, plan, par=par)
+    n0 = _tpb_counts()
+    S.reset_stats()
+    got = plan_forward(dataclasses.replace(model, par=par), tree,
+                       {"tokens": tokens}, pmesh, plan)
+    row = dict(launches=_tpb_since(n0), stats=S.stats(),
+               in_proj=list(tree["stack"][0]["b0"]["mixer"]["in_proj"].shape))
+    logits = gather_logits(got, par, b, plan.total_microbatches, s,
+                           cfg.vocab_size)
+    if rank == 0:
+        ref = model.forward(full, {"tokens": tokens})[0]
+        row.update(err=max_err(logits, ref)
+                   / float(ref.abs().max()),
+                   finite=bool(torch.isfinite(logits).all()))
+    out["plan"] = row
+
+
+def _tpb_cosines(got, want):
+    """(the whole gradient's cosine, the smallest leaf's and its path):
+    two trees in the port's layout, compared leaf by leaf by path."""
+    from repro_torch import sharding as S
+    from repro_torch.sharding.execute import flat
+    a, b = flat(S.stacked(got)), flat(S.stacked(want))
+    dot = na = nb = 0.0
+    worst = (2.0, "")
+    for k in a:
+        x, y = a[k].double().reshape(-1), b[k].double().reshape(-1)
+        d, u, v = float(x @ y), float(x @ x), float(y @ y)
+        dot, na, nb = dot + d, na + u, nb + v
+        if u and v:
+            worst = min(worst, (d / (u * v) ** 0.5, "/".join(k)))
+    return dot / (na * nb) ** 0.5, worst[0], worst[1]
+
+
+def tpb_step(dev, rank, dm, cfg, batch, units, label, out, cos_batch=None):
+    """bf16 ``cfg``: one timed sharded step on (1, 2) (remat;
+    ``value_and_grad`` then ``apply``): ms, ``units`` (count, name) a
+    second, loss, grad_norm, peak memory a rank, flash and scan launches,
+    collectives and bytes.  Its gradients, gathered, are held on rank 0
+    to the unsharded step's (cosine).  With ``cos_batch`` the cosine is
+    read on that batch instead (a sharded ``value_and_grad`` more), beside
+    the witness: the unsharded bf16 gradients' cosine with the unsharded
+    f32 ones there; and the same width in f32 (a sharded f32
+    ``value_and_grad`` on that batch) gives the cosine that is gated."""
+    import torch.distributed as dist
+    from repro_torch import sharding as S
+    from repro_torch.models import build_model
+    from repro_torch.training import (AdamW, init_sharded, make_train_step,
+                                      sharded_train_step)
+    from repro_torch.training.trainer import value_and_grad
+    view = S.axes_view(dm)
+    model = build_model(cfg, dev)
+    opt = AdamW(warmup_steps=10, total_steps=100)
+    full = model.init(torch.Generator(device=dev).manual_seed(0))
+    step = make_train_step(model, opt, remat=True)
+    pspecs = S.param_specs(full, view)
+    fn = sharded_train_step(step, dm, pspecs, pspecs,
+                            S.input_specs_tree(batch, view))
+    sp = S.shard_tree(full, pspecs, dm)
+    so = init_sharded(opt, sp, pspecs, dm)
+    rows = S.shard_batch(batch, dm)
+    gc.collect()
+    torch.cuda.empty_cache()
+    dist.barrier()
+    torch.cuda.reset_peak_memory_stats()
+    n0 = _tpb_counts()
+    S.reset_stats()
+    t0 = time.perf_counter()
+    loss, grads = fn.value_and_grad(sp, rows)
+    sp, so, met = fn.apply(sp, so, loss, grads)
+    torch.cuda.synchronize()
+    step_s = time.perf_counter() - t0
+    row = dict(step_ms=step_s * 1e3, per_s=units[0] / step_s, unit=units[1],
+               loss=float(met["loss"]), grad_norm=float(met["grad_norm"]),
+               peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+               launches=_tpb_since(n0), stats=S.stats(),
+               params=sum(t.numel() for t in S.execute.flat(sp).values()))
+    del sp, so
+    ref_in = batch
+    f32_grads = None
+    if cos_batch is not None:
+        ref_in = cos_batch
+        sp = S.shard_tree(full, pspecs, dm)
+        loss, grads = fn.value_and_grad(sp, S.shard_batch(cos_batch, dm))
+        row["cos_loss"] = float(loss)
+        del sp
+        # the same step in f32 at the same width, for the gated cosine
+        f32 = build_model(dataclasses.replace(
+            cfg, dtype="float32", param_dtype="float32"), dev)
+        f32_fn = sharded_train_step(make_train_step(f32, opt, remat=True),
+                                    dm, pspecs, pspecs,
+                                    S.input_specs_tree(cos_batch, view))
+        sp = S.shard_tree(_tree_map(lambda t: t.float(), full), pspecs, dm)
+        f32_grads = S.gather_tree(f32_fn.value_and_grad(
+            sp, S.shard_batch(cos_batch, dm))[1])
+        del sp
+    grads = S.gather_tree(grads)
+    if rank:
+        del grads, full, f32_grads
+    gc.collect()
+    torch.cuda.empty_cache()
+    if rank == 0:
+        t0 = time.perf_counter()
+        ref_loss, ref_g = value_and_grad(model, full, ref_in, remat=True)
+        torch.cuda.synchronize()
+        cos, worst, leaf = _tpb_cosines(grads, ref_g)
+        row.update(ref_ms=(time.perf_counter() - t0) * 1e3,
+                   ref_loss=float(ref_loss), cosine=cos, worst_cosine=worst,
+                   worst_leaf=leaf)
+        if cos_batch is not None:
+            f32 = dataclasses.replace(cfg, dtype="float32",
+                                      param_dtype="float32")
+            wide = _tree_map(lambda t: t.float(), full)
+            del full
+            gc.collect()
+            torch.cuda.empty_cache()
+            w_loss, w_g = value_and_grad(build_model(f32, dev), wide,
+                                         cos_batch, remat=True)
+            wcos, wworst, wleaf = _tpb_cosines(ref_g, w_g)
+            fcos, fworst, fleaf = _tpb_cosines(f32_grads, w_g)
+            row.update(witness=wcos, witness_worst=wworst,
+                       witness_leaf=wleaf, witness_loss=float(w_loss),
+                       sharded_vs_f32=_tpb_cosines(grads, w_g)[0],
+                       f32_cosine=fcos, f32_worst_cosine=fworst,
+                       f32_worst_leaf=fleaf)
+            del wide, w_g
+        else:
+            del full
+        del ref_g, grads, f32_grads
+        gc.collect()
+        torch.cuda.empty_cache()
+    dist.barrier()
+    out[label] = row
+
+
+def _tree_map(fn, tree):
+    from repro_torch import tree as TR
+    return TR.tree_map(fn, tree)
+
+
+def _card_used_gb():
+    free, total = torch.cuda.mem_get_info()
+    return (total - free) / 1e9
+
+
+def tpb_forward(dev, rank, world, dm, cfg, batch, label, out):
+    """bf16 ``cfg``'s forward on (1, 2) against the unsharded forward on
+    rank 0: the ranks build the full params one at a time (each keeps its
+    ``model`` shards, ``plan_rank_tree`` of a one-stage plan; rank 0 also
+    the full params for its reference), the card's used memory read at
+    each build; the sharded forward's ms, launches and collectives; the
+    logits' cosine and the decided argmaxes that differ."""
+    import torch.distributed as dist
+    from repro_torch import sharding as S
+    from repro_torch.models import build_model
+    from repro_torch.plan import uniform_plan
+    par = S.Parallel(dm)
+    model = build_model(cfg, dev)
+    torch.cuda.reset_peak_memory_stats()
+    full, tree, card = None, None, []
+    for r in range(world):
+        if r == rank:
+            full = model.init(torch.Generator(device=dev).manual_seed(0))
+            tree = S.plan_rank_tree(full, uniform_plan(cfg.num_groups, 1, 1),
+                                    par)
+            card.append(_card_used_gb())
+            if rank:
+                full = None
+            gc.collect()
+            torch.cuda.empty_cache()
+        dist.barrier()
+        card.append(_card_used_gb())
+    rows = S.shard_batch(batch, dm)
+    rank_model = dataclasses.replace(model, par=par)
+    with torch.no_grad():
+        rank_model.forward(tree, rows)          # warm-up
+        torch.cuda.synchronize()
+        dist.barrier()
+        n0 = _tpb_counts()
+        S.reset_stats()
+        t0 = time.perf_counter()
+        logits = rank_model.forward(tree, rows)[0]
+        torch.cuda.synchronize()
+        row = dict(ms=(time.perf_counter() - t0) * 1e3,
+                   launches=_tpb_since(n0), stats=S.stats(),
+                   resident_gb=sum(t.numel() * t.element_size()
+                                   for t in _leaves(tree)) / 1e9,
+                   card_gb=max(card), build_peak_gb=(
+                       torch.cuda.max_memory_allocated() / 1e9))
+        if rank == 0:
+            t0 = time.perf_counter()
+            ref = model.forward(full, batch)[0]
+            torch.cuda.synchronize()
+            row["ref_ms"] = (time.perf_counter() - t0) * 1e3
+            card.append(_card_used_gb())
+            row["card_gb"] = max(card)
+            x, y = logits.double().reshape(-1), ref.double().reshape(-1)
+            top = torch.topk(ref, 2, dim=-1).values
+            decided = (top[..., 0] - top[..., 1]) \
+                > PLACE_ULPS * bf16_ulp(top[..., 0])
+            row.update(
+                cosine=float(x @ y / (x.norm() * y.norm())),
+                finite=bool(torch.isfinite(logits).all()),
+                decided=int(decided.sum()),
+                argmax_differ=int(((logits.argmax(-1) != ref.argmax(-1))
+                                   & decided).sum()),
+                shape=list(logits.shape))
+            del ref, full
+    del tree, logits
+    gc.collect()
+    torch.cuda.empty_cache()
+    dist.barrier()
+    out[label] = row
+
+
+def _leaves(tree):
+    from repro_torch import tree as TR
+    return TR.leaves(tree)
+
+
+def tpb_runs(dev, rank, world, dm, out):
+    """bf16 at published width on (1, 2): train steps of xlstm-125m (all
+    12 layers), whisper-base whole and deit-t whole; forwards of one
+    period of the hybrid (jamba-398b dense-FFN) and of qwen2-vl-72b's
+    first layer and head (``TPB_*``)."""
+    from repro_torch.configs import REGISTRY
+
+    def cfg_of(arch, layers=0):
+        cfg = REGISTRY[arch]
+        return dataclasses.replace(cfg, num_layers=layers or cfg.num_layers,
+                                   dtype="bfloat16", param_dtype="bfloat16")
+    layers, b, s = TPB_XLSTM
+    cfg = cfg_of("xlstm-125m", layers)
+    t0 = time.perf_counter()
+    tpb_step(dev, rank, dm, cfg, tpb_batch(cfg, b, s, 21), (b * s, "tokens"),
+             "xlstm", out, cos_batch=tpb_batch(cfg, b, TPB_XLSTM_COS_SEQ, 26))
+    out["xlstm"]["s"] = time.perf_counter() - t0
+    b, frames, dec = TPB_WHISPER
+    cfg = cfg_of("whisper-base")
+    t0 = time.perf_counter()
+    tpb_step(dev, rank, dm, cfg, tpb_batch(cfg, b, dec, 22, frames),
+             (b * dec, "decoder tokens"), "whisper", out)
+    out["whisper"]["s"] = time.perf_counter() - t0
+    b, s = TPB_DEIT
+    cfg = cfg_of("deit-t")
+    t0 = time.perf_counter()
+    tpb_step(dev, rank, dm, cfg, tpb_batch(cfg, b, s, 23), (b, "images"),
+             "deit", out)
+    out["deit"]["s"] = time.perf_counter() - t0
+    layers, b, s = TPB_JAMBA
+    cfg = cfg_of(HYBRID, layers)
+    t0 = time.perf_counter()
+    tpb_forward(dev, rank, world, dm, cfg, tpb_batch(cfg, b, s, 24),
+                "jamba", out)
+    out["jamba"]["s"] = time.perf_counter() - t0
+    layers, b, s = TPB_VLM
+    cfg = cfg_of("qwen2-vl-72b", layers)
+    t0 = time.perf_counter()
+    tpb_forward(dev, rank, world, dm, cfg, tpb_batch(cfg, b, s, 25), "vlm",
+                out)
+    out["vlm"]["s"] = time.perf_counter() - t0
+
+
+def tp_blocks_rank(rank, world, store, out_dir, kind="cuda"):
+    """One rank of phase 12 (its own process, on device 0 of ``kind``
+    over gloo): writes ``rank<r>.json`` into ``out_dir``.  Returns the
+    exit code."""
+    import torch.distributed as dist
+    from repro_torch.kernels import _build
+    from repro_torch.launch.mesh import Mesh, device_mesh, init_distributed
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    if kind == "cuda":
+        _build.load_library()
+    dev0 = torch.device(kind, 0) if kind == "cuda" else torch.device(kind)
+    devs = np.asarray([dev0] * world, dtype=object)
+    mesh = Mesh(devs.reshape(1, world), ("data", "model"))
+    dev = init_distributed(mesh, rank, world, init_method=f"file://{store}")
+    dm = device_mesh(mesh)
+    pmesh = Mesh(devs.reshape(1, 1, world), ("stage", "data", "model"))
+    pdm = device_mesh(pmesh)
+    out = dict(rank=rank, backend=dist.get_backend(),
+               setup_s=time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    tpb_parity(dev, rank, dm, out)
+    out["parity_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    tpb_plan(dev, rank, pdm, pmesh, out)
+    out["plan_s"] = time.perf_counter() - t0
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    tpb_runs(dev, rank, world, dm, out)
+    out["run_s"] = time.perf_counter() - t0
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f, default=str)
+    dist.destroy_process_group()
+    return 0
+
+
+def tpb_kernel_rows(dev, flush, results):
+    """Phase 12's kernel rows at a rank's shapes, against their plain
+    versions on the same CUDA tensors: the selective scan on half of
+    jamba's channels (``TPB_SCAN``, f32, forward; ``TPB_SCAN_TRAIN``
+    forward + backward through ``scan_grad_rows``), and flash at
+    whisper's cross-attention on half its heads (``TPB_CROSS``,
+    non-causal, forward + backward, f32 and bf16, beside SDPA)."""
+    from repro_torch.kernels import flash_attention as TF
+    from repro_torch.kernels import ref as TR
+    from repro_torch.kernels import selective_scan as SS
+    F = torch.nn.functional
+    gen = torch.Generator(device=dev).manual_seed(41)
+
+    def rnd(shape):
+        return torch.randn(shape, generator=gen, device=dev)
+    n_, s_, di, ds = TPB_SCAN
+    a_mat = -torch.arange(1, ds + 1, dtype=torch.float32,
+                          device=dev).repeat(di, 1)
+    args = (F.softplus(rnd((n_, s_, di)) * 0.1 - 4.6), rnd((n_, s_, di)),
+            rnd((n_, s_, ds)), rnd((n_, s_, ds)), a_mat, None)
+    y, hl = SS.mamba_scan_fused(*args)
+    ry, rh = TR.mamba_scan_fused_ref(*args)
+    torch.cuda.synchronize()
+    err = max(max_err(y, ry), max_err(hl, rh))
+    check(all(torch.allclose(u, v, atol=1e-5, rtol=1e-5)
+              for u, v in ((y, ry), (hl, rh))),
+          f"mamba_scan_fused_tp2: the kernel disagrees with its plain "
+          f"version ({err:.3g})")
+    nbytes = 4 * (3 * n_ * s_ * di + 2 * n_ * s_ * ds + di * ds
+                  + n_ * di * ds)
+    bnd, by = bound_ms(nbytes, n_ * s_ * di * (7 * ds + 1), torch.float32)
+    results[("mamba_scan_fused_tp2", torch.float32)] = dict(
+        max_abs_err=err, ms=bench(lambda: SS.mamba_scan_fused(*args), flush),
+        plain_ms=bench(lambda: TR.mamba_scan_fused_ref(*args), flush,
+                       iters=5, warmup=1),
+        library_ms=None, bound_ms=bnd, bound_by=by,
+        device_ms=device_ms(lambda: SS.mamba_scan_fused(*args), flush,
+                            bound=bnd),
+        plan=SS.mamba_scan_fused.last_plan,
+        shape=f"N={n_} S={s_} d_inner={di} d_state={ds}")
+    r = results[("mamba_scan_fused_tp2", torch.float32)]
+    print(f"[tp-blocks] mamba_scan_fused_tp2 f32 ({r['shape']}, plan "
+          f"{r['plan']}): {r['ms']:.4f} ms (device "
+          f"{fmt_ms(r['device_ms'])}), plain {r['plain_ms']:.4f} ms, bound "
+          f"{bnd:.4f} ms ({by}); max_abs_err {err:.3g}")
+    del y, hl, ry, rh, args
+    scan_grad_rows(dev, flush, results, TPB_SCAN_TRAIN,
+                   "mamba_scan_fused_train_tp2")
+    b, h, sq, skv, d = TPB_CROSS
+    qp = torch.arange(sq, dtype=torch.int32, device=dev)
+    kp = torch.arange(skv, dtype=torch.int32, device=dev)
+    ones = torch.ones((skv,), dtype=torch.int32, device=dev)
+    for dt in (torch.float32, torch.bfloat16):
+        q, k, v = (rnd(shape).to(dt).requires_grad_() for shape in (
+            (b, h, sq, d), (b, h, skv, d), (b, h, skv, d)))
+        g = rnd((b, h, sq, d)).to(dt)
+
+        def kern():
+            return _grads_of(lambda *t: TF.flash_attention_bhsd(
+                *t, qp, kp, ones, causal=False), (q, k, v), g)
+
+        def plain():
+            return _grads_of(lambda *t: TR.flash_attention_ref(
+                *t, qp, kp, ones, causal=False), (q, k, v), g)
+
+        def lib():
+            return _grads_of(F.scaled_dot_product_attention, (q, k, v), g)
+        n0 = TF.flash_attention_bhsd.launches
+        (out, grads), (pout, pgrads) = kern(), plain()
+        torch.cuda.synchronize()
+        check(TF.flash_attention_bhsd.launches == n0 + 1,
+              "flash_attention_train_cross_tp2: the gradient route must "
+              "launch the kernel once")
+        err = assert_close("flash_attention_train_cross_tp2", out, pout, dt)
+        gerr = max(grad_err(a, r) for a, r in zip(grads, pgrads))
+        check(gerr <= TOL[dt], f"flash_attention_train_cross_tp2 {dt}: "
+                               f"gradients {gerr:.3g} of their largest")
+        ms = bench(kern, flush)
+        fwd_ms = bench(lambda: TF.flash_attention_bhsd(
+            q.detach(), k.detach(), v.detach(), qp, kp, ones, causal=False),
+            flush)
+        plain_ms = bench(plain, flush, iters=5, warmup=1)
+        lib_ms = bench(lib, flush)
+        esz = q.element_size()
+        nbytes = esz * (2 * q.numel() + 2 * g.numel()
+                        + 2 * (k.numel() + v.numel()))
+        bound, by = bound_ms(nbytes, 12 * d * b * h * sq * skv, dt)
+        results[("flash_attention_train_cross_tp2", dt)] = dict(
+            max_abs_err=err, grad_err=gerr, ms=ms, fwd_ms=fwd_ms,
+            plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+            library_ms=lib_ms)
+        print(f"[tp-blocks] flash_attention_train_cross_tp2 {str(dt)[6:]} "
+              f"(B={b} H={h} Sq={sq} Skv={skv} D={d} non-causal): forward "
+              f"+ backward {ms:.4f} ms (kernel forward {fwd_ms:.4f}), plain "
+              f"{plain_ms:.4f}, sdpa {lib_ms:.4f}, bound {bound:.4f} ms "
+              f"({by}); gradients {gerr:.3g} of their largest from the "
+              f"plain version's")
+        del q, k, v, g, out, grads, pout, pgrads
+    torch.cuda.empty_cache()
+
+
+def tp_blocks_phase(dev, kernels, card):
+    """Phase 12: the kernel rows at a rank's shapes (this process), then
+    ``TPB_RANKS`` rank processes on the one card over gloo
+    (``tp_blocks_rank``); their results checked and printed here.
+    Returns the phase's readings and its kernel rows."""
+    t0 = time.perf_counter()
+    results = {}
+    flush = torch.empty(64 * 2**20, dtype=torch.int8, device=dev)
+    tpb_kernel_rows(dev, flush, results)
+    del flush
+    gc.collect()
+    torch.cuda.empty_cache()
+    rows_s = time.perf_counter() - t0
+    out_dir = os.path.join(HERE, "build", "tp_blocks_phase")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    os.makedirs(out_dir)
+    spawn_ranks("tp_blocks", "tp_blocks_rank(", TPB_RANKS, out_dir, dev,
+                TPB_TIMEOUT)
+    res = [json.load(open(os.path.join(out_dir, f"rank{r}.json")))
+           for r in range(TPB_RANKS)]
+    out = report_tp_blocks(res, card)
+    out["kernel_rows_s"] = rows_s
+    out["phase_s"] = time.perf_counter() - t0
+    out["kernels"] = results
+    print(f"[tp-blocks] phase {out['phase_s']:.1f} s (kernel rows "
+          f"{rows_s:.1f} s)")
+    return out
+
+
+def report_tp_blocks(res, card):
+    """Phase 12's checks and lines, from the ranks' results."""
+    r0 = res[0]
+    print(f"[tp-blocks] {TPB_RANKS} ranks on one device over "
+          f"{r0['backend']}, (data, model) = (1, {TPB_RANKS}): setup "
+          f"{r0['setup_s']:.1f} s, parity {r0['parity_s']:.1f} s, plan "
+          f"{r0['plan_s']:.1f} s, runs {r0['run_s']:.1f} s")
+    for arch in TPB_ARCHS:
+        row = r0["parity"][arch]
+        g_err = max(r["parity"][arch]["grad_err"] for r in res)
+        p_err = max(r["parity"][arch]["param_abs"] for r in res)
+        p_rel = max((r["parity"][arch]["worst"] for r in res),
+                    key=lambda w: w[0])
+        dl = abs(row["loss"] - row["ref_loss"])
+        dg = abs(row["grad_norm"] - row["ref_norm"]) / row["ref_norm"]
+        print(f"[tp-blocks] f32 {arch} reduced ({row['layers']} layers), "
+              f"B, S = {TPB_PARITY_SHAPE}, mesh (1, 2), one step: loss "
+              f"{row['loss']:.6f} vs unsharded {row['ref_loss']:.6f} (|d| "
+              f"{dl:.3g}), grad_norm rel {dg:.3g}, gradients {g_err:.3g} "
+              f"of a leaf's largest, params |d| {p_err:.3g} (AdamW "
+              f"{SHARD_OPT}; of a leaf's largest at most {p_rel[0]:.3g}, "
+              f"{p_rel[1]}: |d| {p_rel[2]:.3g}, its gradient "
+              f"{p_rel[3]:.3g}) (both ranks); "
+              f"launches {row['launches']}; {row['s']:.1f} s; a step: "
+              f"{_fmt_coll(row['stats'])}")
+        g_tol, n_tol = TPB_TOL, TPB_NORM_RTOL
+        if row["floor"] is not None:
+            fl = row["floor"]
+            g_tol = max(g_tol, 2 * fl["grad_err"])
+            n_tol = max(n_tol, 2 * fl["norm_rel"])
+            print(f"[tp-blocks] f32 {arch}'s noise floor: the unsharded step "
+                  f"on weights times 1 + {TPB_FLOOR_NOISE} N(0, 1): "
+                  f"gradients {fl['grad_err']:.3g} of a leaf's largest, "
+                  f"grad_norm rel {fl['norm_rel']:.3g}; gates here "
+                  f"{g_tol:.3g}, {n_tol:.3g}")
+        check(dl <= TPB_TOL and dg <= n_tol and g_err <= g_tol
+              and p_err <= TPB_TOL,
+              f"phase 12 parity, {arch}: loss {dl:.3g}, grad_norm {dg:.3g} "
+              f"(gate {n_tol:.3g}), gradients {g_err:.3g} (gate "
+              f"{g_tol:.3g}), params {p_err:.3g}")
+        check(row["launches"]["flash"] > 0 or arch == "xlstm-125m",
+              f"phase 12 parity, {arch}: flash never launched")
+    check(r0["parity"]["jamba-1.5-large-398b"]["launches"]["scan"] > 0,
+          "phase 12 parity: the selective scan never launched")
+    pl = r0["plan"]
+    print(f"[tp-blocks] f32 {HYBRID} reduced ({TPB_PLAN_LAYERS} layers), "
+          f"B, S = {TPB_PLAN_SHAPE}: rank-mode plan_forward, its one stage "
+          f"of both groups on the (1, 1, 2) plan mesh, M=2: "
+          f"{pl['err']:.3g} of Model.forward's largest |logit|; a rank's "
+          f"in_proj {pl['in_proj']}, launches {pl['launches']}; a call: "
+          f"{_fmt_coll(pl['stats'])}")
+    check(pl["finite"] and pl["err"] <= TPB_PLAN_TOL
+          and all(r["plan"]["launches"]["scan"] > 0 for r in res),
+          f"phase 12 plan: {pl['err']:.3g} of the largest |logit| "
+          f"(tolerance {TPB_PLAN_TOL}), launches {pl['launches']}")
+    for label, what in (("xlstm", f"xlstm-125m {TPB_XLSTM[0]} layers, B, "
+                                  f"S = {TPB_XLSTM[1:]}"),
+                        ("whisper", f"whisper-base, B={TPB_WHISPER[0]}, "
+                                    f"{TPB_WHISPER[1]} frames, "
+                                    f"{TPB_WHISPER[2]} decoder tokens"),
+                        ("deit", f"deit-t, B={TPB_DEIT[0]}, "
+                                 f"{TPB_DEIT[1]} patches")):
+        row = r0[label]
+        peaks = ", ".join(f"{r[label]['peak_gb']:.3f}" for r in res)
+        cos = (f"gradients' cosine with the unsharded step's "
+               f"{row['cosine']:.6f} (smallest leaf {row['worst_cosine']:.6f}"
+               f", {row['worst_leaf']})")
+        if "witness" in row:
+            cos = (f"at S={TPB_XLSTM_COS_SEQ}: loss {row['cos_loss']:.4f} "
+                   f"(unsharded {row['ref_loss']:.4f}, f32 "
+                   f"{row['witness_loss']:.4f}), {cos}; the witness, "
+                   f"the unsharded bf16 gradients' cosine with the f32 "
+                   f"ones: {row['witness']:.6f} (smallest leaf "
+                   f"{row['witness_worst']:.6f}, {row['witness_leaf']}), "
+                   f"the sharded bf16 ones' {row['sharded_vs_f32']:.6f}: "
+                   f"not gated; in f32 the sharded gradients' cosine with "
+                   f"the unsharded ones {row['f32_cosine']:.6f} (smallest "
+                   f"leaf {row['f32_worst_cosine']:.6f}, "
+                   f"{row['f32_worst_leaf']}): gated")
+        else:
+            cos = f"unsharded loss {row['ref_loss']:.4f}; {cos}"
+        print(f"[tp-blocks] bf16 {what}, remat, mesh (1, 2) ({card}): a "
+              f"step {row['step_ms']:.2f} ms ({row['per_s']:.1f} "
+              f"{row['unit']}/s), loss {row['loss']:.4f}, grad_norm "
+              f"{row['grad_norm']:.4g}; {cos}; the unsharded "
+              f"value_and_grad {row['ref_ms']:.2f} ms; peak by rank "
+              f"{peaks} GB; launches {row['launches']}; a step: "
+              f"{_fmt_coll(row['stats'])}; {row['s']:.1f} s")
+        check(np.isfinite(row["loss"]) and np.isfinite(row["grad_norm"])
+              and row.get("f32_cosine", row["cosine"]) >= TPB_COSINE,
+              f"phase 12 {label}: loss {row['loss']}, gradients' cosine "
+              f"{row.get('f32_cosine', row['cosine']):.4f} (at least "
+              f"{TPB_COSINE})")
+        check(row["launches"]["flash"] > 0 or label == "xlstm",
+              f"phase 12 {label}: flash never launched")
+    for label, what in (("jamba", f"{HYBRID}, one period ({TPB_JAMBA[0]} "
+                                  f"layers), B, S = {TPB_JAMBA[1:]}"),
+                        ("vlm", f"qwen2-vl-72b, {TPB_VLM[0]} layer and the "
+                                f"head, B, S = {TPB_VLM[1:]}, distinct "
+                                f"M-RoPE streams")):
+        row = r0[label]
+        res_gb = ", ".join(f"{r[label]['resident_gb']:.3f}" for r in res)
+        card_gb = max(r[label]["card_gb"] for r in res)
+        print(f"[tp-blocks] bf16 {what}, forward on (1, 2) ({card}): "
+              f"{row['ms']:.2f} ms against the unsharded "
+              f"{row['ref_ms']:.2f} ms; logits {row['shape']} cosine "
+              f"{row['cosine']:.6f}, {row['argmax_differ']} of "
+              f"{row['decided']} decided argmaxes differ; resident params "
+              f"by rank {res_gb} GB, the card's used memory at most "
+              f"{card_gb:.2f} GB (builds one rank at a time); launches "
+              f"{row['launches']}; a forward: {_fmt_coll(row['stats'])}; "
+              f"{row['s']:.1f} s")
+        check(row["finite"] and row["cosine"] >= TPB_COSINE
+              and row["argmax_differ"] == 0 and card_gb < 70,
+              f"phase 12 {label}: cosine {row['cosine']:.4f}, "
+              f"{row['argmax_differ']} decided argmaxes differ, card "
+              f"{card_gb:.1f} GB")
+    check(r0["jamba"]["launches"]["scan"] > 0
+          and r0["vlm"]["launches"]["flash"] > 0,
+          f"phase 12 forwards: launches {r0['jamba']['launches']}, "
+          f"{r0['vlm']['launches']}")
+    return dict(ranks=res,
+                scan_launches=r0["jamba"]["launches"]["scan"],
+                scan_train_launches=r0["parity"][
+                    "jamba-1.5-large-398b"]["launches"]["scan"],
+                cross_launches=r0["whisper"]["launches"]["flash"])
+
+
+def tp_blocks_only():
+    """``python3 chip_smoke.py --tp-blocks``: the card's line, the
+    kernels' build and phase 12 alone; the ranks' results go to
+    ``chiprun_out/phase12/``.  It prints no kernels line and no ok
+    line."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    t_start = time.perf_counter()
+    card = card_line()
+    print(card)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_attention import flash_attention_bhsd
+    _build.load_library()
+    print(f"[build] {time.perf_counter() - t_start:.1f} s")
+    rc = 0
+    try:
+        tp_blocks_phase("cuda", {"flash_attention": flash_attention_bhsd},
+                        card)
+    except CheckFailed as e:
+        print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
+        rc = 1
+    out_dir = os.path.join(HERE, "chiprun_out", "phase12")
+    os.makedirs(out_dir, exist_ok=True)
+    src = os.path.join(HERE, "build", "tp_blocks_phase")
+    if os.path.isdir(src):
+        for name in os.listdir(src):
+            if not name.startswith("store"):
+                shutil.copy(os.path.join(src, name), out_dir)
+    print(f"[done] {time.perf_counter() - t_start:.1f} s")
+    return rc
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke test runs only "
@@ -6847,6 +7639,8 @@ def main():
         placement = placement_phase(dev, kernels, card)
         sharded = sharded_phase(dev, kernels, card)
         plan_mesh = plan_mesh_phase(dev, kernels, card)
+        tp_blocks = tp_blocks_phase(dev, kernels, card)
+        results.update(tp_blocks.pop("kernels"))
     except CheckFailed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -6920,6 +7714,15 @@ def main():
            for row in GRAD_FLASH},
         "mamba_scan_fused_train": ("src/repro_torch/csrc/selective_scan.cu",
                                    "src/repro/models/ssm.py:31"),
+        # phase 12: a rank's shapes at model=2
+        "mamba_scan_fused_tp2": ("src/repro_torch/csrc/selective_scan.cu",
+                                 "src/repro/models/ssm.py:31"),
+        "mamba_scan_fused_train_tp2": (
+            "src/repro_torch/csrc/selective_scan.cu",
+            "src/repro/models/ssm.py:31"),
+        "flash_attention_train_cross_tp2": (
+            "src/repro_torch/csrc/flash_attention.cu",
+            "src/repro/kernels/flash_attention.py:85"),
         **{name: ("src/repro_torch/csrc/fused_matmul.cu",
                   "src/repro/kernels/fused_matmul.py:59")
            for name in FRONT_DOOR_MATMULS},
@@ -7015,7 +7818,14 @@ def main():
                 "flash_attention_tp2_fwd": plan_mesh["flash_launches"],
                 "mamba_scan_fused_train":
                     training["model_grads"]["jamba-hybrid-reduced"][
-                        "launches"]["mamba_scan_fused"]}
+                        "launches"]["mamba_scan_fused"],
+                # phase 12, rank 0: the bf16 hybrid period's forward (the
+                # row's shape), the f32 jamba step's scans (reduced), the
+                # bf16 whisper step's flash (encoder, self and cross)
+                "mamba_scan_fused_tp2": tp_blocks["scan_launches"],
+                "mamba_scan_fused_train_tp2": tp_blocks["scan_train_launches"],
+                "flash_attention_train_cross_tp2":
+                    tp_blocks["cross_launches"]}
     low = [f"{n} {str(dt)[6:]}: {r['device_ms']:.4f} < {r['bound_ms']:.4f}"
            for (n, dt), r in results.items()
            if r.get("device_ms") is not None
@@ -7049,6 +7859,7 @@ def main():
                    "parity": parity, "repair": repair, "serve": served,
                    "training": training, "placement": placement,
                    "sharded": sharded, "plan_mesh": plan_mesh,
+                   "tp_blocks": tp_blocks,
                    "device_unread": device_ms.unread,
                    "build": _build.last_build,
                    "seconds": time.perf_counter() - t_start}, f, indent=1,
@@ -7195,5 +8006,6 @@ def probe_p2p_only():
 
 if __name__ == "__main__":
     sys.exit({"--sharded": sharded_only, "--plan-mesh": plan_mesh_only,
+              "--tp-blocks": tp_blocks_only,
               "--probe-p2p": probe_p2p_only}.get(
                   " ".join(sys.argv[1:]), main)())

@@ -28,6 +28,12 @@ with ``--init-method file://PATH`` (or ``tcp://localhost:PORT``):
     torchrun --nproc-per-node 4 -m repro_torch.launch.train --mesh 2,2 \
         --device cpu --steps 3 --seq 32 --batch 8
 
+Every arch of the registry takes ``model`` > 1: attention (self and
+cross), the dense and MoE FFNs, mamba, mLSTM and sLSTM blocks, the ViT
+class head and qwen2-vl's ``embeds`` path run tensor parallel on each
+rank's shards (``--arch xlstm-125m --mesh 1,2`` prints the one-process
+run's losses to their last digits).
+
 Rank r runs on card r over NCCL; with more ranks than cards the ranks
 share them, over gloo (NCCL refuses two ranks on one card); with
 ``--device cpu``, on the CPU over gloo.  Only rank 0 prints.  A

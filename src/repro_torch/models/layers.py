@@ -315,7 +315,8 @@ def multi_head_attention(p, x, cfg: ModelConfig, *, positions=None,
     """GQA attention with RoPE over an optional KV cache.
 
     par: tensor parallelism over ``model`` (``_attention_tp``), for the
-    stateless self-attention of training only.
+    stateless forward of training only: self-attention, or
+    cross-attention over ``kv_source``.
 
     positions: explicit RoPE positions, (B, S), or (3, B, S) for M-RoPE
     (qwen2-vl).  They rotate q and k only: every mask keeps the query
@@ -362,16 +363,14 @@ def multi_head_attention(p, x, cfg: ModelConfig, *, positions=None,
         written through ``write_tables``, then every query attends all
         mapped pages).
     Returns (out, kv_cache) -- the cache written in place."""
-    if par is not None and par.tp > 1 \
-            and p["wq"].shape[1] != cfg.num_heads * cfg.head_dim:
-        if kv_cache is not None or kv_source is not None \
-                or precomputed_kv is not None:
+    if tensor_parallel(p, cfg, par):
+        if kv_cache is not None or precomputed_kv is not None:
             raise NotImplementedError(
-                "tensor-parallel attention runs the stateless "
-                "self-attention of training: no cache, no cross-attention")
+                "tensor-parallel attention runs the stateless forward of "
+                "training: no cache (cross-attention takes kv_source)")
         return _attention_tp(p, x, cfg, par, positions=positions,
                              causal=causal, window=window,
-                             use_rope=use_rope), None
+                             use_rope=use_rope, kv_source=kv_source), None
     b, s, _ = x.shape
     h, hk, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     dt = x.dtype
@@ -554,55 +553,85 @@ def _shared(norm_p, par):
     return {k: par.f(v, "model") for k, v in norm_p.items()}
 
 
+def tensor_parallel(p, cfg: ModelConfig, par) -> bool:
+    """Whether attention params ``p`` hold ``model`` shards (JAX's rules
+    cut wq's columns whenever ``model`` divides them)."""
+    return par is not None and par.tp > 1 \
+        and p["wq"].shape[1] != cfg.num_heads * cfg.head_dim
+
+
 def _attention_tp(p, x, cfg: ModelConfig, par, *, positions, causal,
-                  window, use_rope):
+                  window, use_rope, kv_source=None):
     """Megatron attention over ``model``: wq/wk/wv column-parallel behind
-    ``f``, a rank's query heads through flash unchanged, wo row-parallel
-    and ``g``.  A rank's wq shard must hold whole query heads.  When its
-    wk/wv shard does not hold whole KV heads (JAX shards them whenever
-    ``model`` divides Hkv * head_dim, which GSPMD handles), K and V are
-    all-gathered over ``model`` after the projection and each rank takes
-    the KV heads of its query heads."""
+    ``f``, wo row-parallel and ``g``.
+
+    When the rank's wq columns hold whole query heads, its heads go
+    through flash unchanged.  When they cut a head (deit-t: 3 heads over
+    ``model`` = 2), q (and K and V) are all-gathered over ``model`` after
+    the projection, every rank attends every head, and takes the columns
+    of the output that its wo rows multiply.  When the rank's wk/wv shard
+    does not hold whole KV heads (JAX shards them whenever ``model``
+    divides Hkv * head_dim, which GSPMD handles), K and V are
+    all-gathered too and each rank takes the KV heads of its query
+    heads.  Each of those gathers feeds a distinct part of the
+    row-parallel sum, so its summing backward is right.
+
+    kv_source: cross-attention (whisper's decoder) over the encoder's
+    output (replicated over ``model``): K and V from it behind ``f``,
+    f32-accumulated and cast as ``cross_kv`` gives them, non-causal and
+    unrotated."""
     b, s, _ = x.shape
     h, hk, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     tp, r = par.tp, par.model_rank
-    if h % tp:
-        raise NotImplementedError(
-            f"{cfg.name}: {h} query heads over model={tp}: a rank's wq "
-            f"shard would not hold whole heads")
-    if p["wk"].shape[1] == hk * hd:
+    dt, dev = x.dtype, x.device
+    grp = h // hk
+    wk, wv = p["wk"], p["wv"]
+    if wk.shape[1] == hk * hd:
         raise NotImplementedError(
             f"{cfg.name}: wk/wv replicated under a sharded wq (model={tp} "
             f"does not divide Hkv * head_dim = {hk * hd})")
-    dt, dev = x.dtype, x.device
-    hq, grp = h // tp, h // hk
     xm = par.f(x, "model")
-    q = torch.matmul(xm, p["wq"]).reshape(b, s, hq, hd)
-    k = torch.matmul(xm, p["wk"])
-    v = torch.matmul(xm, p["wv"])
-    if hk % tp == 0:
+    if kv_source is None:
+        k, v = torch.matmul(xm, wk), torch.matmul(xm, wv)
+    else:
+        src = par.f(kv_source, "model")
+        k, v = (matmul_f32(src, w).to(dt) for w in (wk, wv))
+    skv = k.shape[1]
+    q = torch.matmul(xm, p["wq"])
+    whole = h % tp == 0
+    if whole:
+        hq, q0 = h // tp, r * h // tp
+    else:
+        hq, q0 = h, 0
+        q = par.all_gather(q, -1, "model")
+    q = q.reshape(b, s, hq, hd)
+    if whole and hk % tp == 0:
         nk = hk // tp
-        k, v = (t.reshape(b, s, nk, hd) for t in (k, v))
+        k, v = (t.reshape(b, skv, nk, hd) for t in (k, v))
     else:
         if hq % grp and grp % hq:
             raise NotImplementedError(
                 f"{cfg.name}: {hq} query heads a rank cut across GQA groups "
                 f"of {grp}")
-        lo = r * hq // grp
+        lo = q0 // grp
         nk = max(hq // grp, 1)
-        k, v = (par.all_gather(t, -1, "model").reshape(b, s, hk, hd)
+        k, v = (par.all_gather(t, -1, "model").reshape(b, skv, hk, hd)
                 [:, :, lo:lo + nk] for t in (k, v))
     if "q_norm" in p:
         q = apply_norm(_shared(p["q_norm"], par), q, cfg)
         k = apply_norm(_shared(p["k_norm"], par), k, cfg)
-    if positions is None:
-        positions = torch.arange(s, device=dev)[None, :].expand(b, s)
-    if use_rope and cfg.rope_theta > 0:
+    rope = use_rope and cfg.rope_theta > 0 and kv_source is None
+    if rope:
+        if positions is None:
+            positions = torch.arange(s, device=dev)[None, :].expand(b, s)
         q = apply_rope(q, positions, cfg.rope_theta, cfg.mrope_sections)
         k = apply_rope(k, positions, cfg.rope_theta, cfg.mrope_sections)
-    pos = torch.arange(s, device=dev)
-    out = _attend(q, k, v, cfg, q_pos=pos, k_pos=pos, k_valid=None,
-                  causal=causal, window=window, dt=dt)
+    out = _attend(q, k, v, cfg, q_pos=torch.arange(s, device=dev),
+                  k_pos=torch.arange(skv, device=dev), k_valid=None,
+                  causal=causal and kv_source is None, window=window, dt=dt)
+    if not whole:
+        rows = p["wo"].shape[0]
+        out = out[..., r * rows:(r + 1) * rows]
     return par.g(torch.matmul(out, p["wo"]), "model")
 
 

@@ -26,9 +26,10 @@ through ``forward``, ``prefill`` and ``decode_step``.
 
 Sharded training: ``Model(cfg, device, par=Parallel(...))`` (what
 ``training.sharded_train_step`` builds) takes this rank's shards of the
-params and batch rows; ``loss`` is then the global loss (see there), and
-``forward`` gives the rows' full logits (the vocab-parallel head's blocks
-gathered over ``model``), as the plan runner's last stage uses it.
+params and batch rows, for every family; ``loss`` is then the global
+loss (see there), and ``forward`` gives the rows' full logits (the
+vocab-parallel head's blocks, or the ViT class head's, gathered over
+``model``), as the plan runner's last stage uses it.
 """
 from __future__ import annotations
 
@@ -200,19 +201,30 @@ class Model:
         pass (``run_stack``)."""
         cfg = self.cfg
         if cfg.family == "vision":
-            x = _embeds(batch["embeds"], self.device, self._dtype())
-            b, s, d = x.shape
-            x = torch.cat([self._top(params, "cls").to(x.dtype).expand(
-                b, 1, d), x], dim=1)
-            x = x + self._top(params, "pos_embed")[:, :s + 1].to(x.dtype)
-            x, _, aux = T.run_stack(params["stack"], x, cfg, causal=False,
-                                    remat=remat, par=self.par)
-            x = L.apply_norm(self._top(params, "final_norm"), x, cfg)
-            logits = L.matmul_f32(x[:, 0], self._top(params, "head")["w"])
+            x, aux = self._vision_cls(params, batch, remat=remat)
+            w = self._top(params, "head")["w"]
+            logits = L.matmul_f32(x, w)
+            if w.shape[1] != cfg.vocab_size:
+                logits = self.par.gather_plain(logits, -1, "model")
         else:
             hidden, aux = self._hidden_for_loss(params, batch, remat=remat)
             logits = self._head(params, hidden)
         return logits, self._aux(aux, logits.device)
+
+    def _vision_cls(self, params, batch, *, remat=False):
+        """vision: the final-normed cls rows (B, D) and aux -- a cls token
+        prepended to ``batch["embeds"]``, learned positions added, the
+        bidirectional stack."""
+        cfg = self.cfg
+        x = _embeds(batch["embeds"], self.device, self._dtype())
+        b, s, d = x.shape
+        x = torch.cat([self._top(params, "cls").to(x.dtype).expand(
+            b, 1, d), x], dim=1)
+        x = x + self._top(params, "pos_embed")[:, :s + 1].to(x.dtype)
+        x, _, aux = T.run_stack(params["stack"], x, cfg, causal=False,
+                                remat=remat, par=self.par)
+        return L.apply_norm(self._top(params, "final_norm"), x,
+                            cfg)[:, 0], aux
 
     @staticmethod
     def _aux(aux, device):
@@ -248,9 +260,10 @@ class Model:
         This rank's share of the loss is summed over the data axes by
         ``g``: its backward gives the gradient of the share, and the
         shares' gradients are summed over the data axes by the step.
-        Over ``model`` > 1 the head is vocab-parallel
-        (``vocab_parallel_xent``); the vision, audio and M-RoPE front ends
-        raise NotImplementedError there."""
+        Over ``model`` > 1 a head cut on its vocabulary (the ViTs' class
+        head on its classes) is vocab-parallel (``vocab_parallel_xent``),
+        for every family: the audio decoder's cross-attention and the
+        vlm's M-RoPE ``embeds`` path run tensor parallel in ``run_stack``."""
         if self.par is not None:
             return self._sharded_loss(params, batch, remat=remat)
         cfg = self.cfg
@@ -279,34 +292,27 @@ class Model:
 
     def _sharded_loss(self, params, batch, *, remat=False):
         cfg, par = self.cfg, self.par
-        if par.tp > 1 and (cfg.family in ("vision", "audio", "vlm")
-                           or cfg.mrope_sections):
-            raise NotImplementedError(
-                f"{cfg.name}: the {cfg.family} front end has no "
-                f"tensor-parallel compute in the port (model={par.tp}); "
-                f"run it on model=1")
         labels = _tokens(batch["labels"], self.device)
         if cfg.family == "vision":
-            logits, aux = self.forward(params, batch, remat=remat)
-            lp = torch.log_softmax(logits, dim=-1)
-            nll = -torch.gather(lp, -1, labels[:, None])[:, 0]
-            mask = torch.ones_like(nll)
+            hidden, aux = self._vision_cls(params, batch, remat=remat)
+            flat = labels
+            w = self._top(params, "head")["w"]
         else:
             hidden, aux = self._hidden_for_loss(params, batch, remat=remat)
             n = hidden.shape[0] * hidden.shape[1]
             flat = labels.reshape(n)
             hidden = hidden.reshape(n, cfg.d_model)
             w = self._head_weight(params)
-            if w.shape[1] != cfg.vocab_size:
-                nll = L.vocab_parallel_xent(hidden, w, flat, cfg, par,
-                                            chunked=self._use_chunked_ce())
-            elif self._use_chunked_ce():
-                nll = L.chunked_softmax_xent(hidden, w, flat, cfg)
-            else:
-                lp = torch.log_softmax(L.logits_head(
-                    {"table": w.t()}, None, hidden, cfg), dim=-1)
-                nll = -torch.gather(lp, -1, flat.clamp_min(0)[:, None])[:, 0]
-            mask = (flat >= 0).to(torch.float32)
+        if w.shape[1] != cfg.vocab_size:
+            nll = L.vocab_parallel_xent(hidden, w, flat, cfg, par,
+                                        chunked=self._use_chunked_ce())
+        elif self._use_chunked_ce():
+            nll = L.chunked_softmax_xent(hidden, w, flat, cfg)
+        else:
+            lp = torch.log_softmax(L.logits_head(
+                {"table": w.t()}, None, hidden, cfg), dim=-1)
+            nll = -torch.gather(lp, -1, flat.clamp_min(0)[:, None])[:, 0]
+        mask = (flat >= 0).to(torch.float32)
         count = par.all_reduce(mask.sum(), par.data_axes)
         share = (nll * mask).sum() / count.clamp_min(1.0) \
             + 0.01 * self._aux(aux, nll.device)

@@ -39,6 +39,34 @@ projection keeps its f32 accumulator (``matmul_f32``).  ``conv_w``,
 the scan runs in f32.  mLSTM's q, k and v keep their f32 accumulators,
 its gate weights ``w_i``/``w_f``, ``f_bias`` and ``out_norm`` are f32;
 sLSTM's ``w_h``, ``bias`` and ``f_bias`` are f32, its recurrence f32.
+
+Tensor parallelism (``par``, a ``sharding.Parallel`` with ``model`` > 1;
+the stateless training forward): each mixer computes with the shards
+that JAX's specs (``sharding/rules.py``) give its rank, and where a cut
+does not fall on a boundary of the math it moves activations, never
+the stored params:
+  * mamba: ``in_proj``'s columns hold a block of ``[xi | z]``, so its
+    output is all-gathered over ``model`` and the rank takes its
+    ``d_inner / tp`` channels of each; the conv, ``dt_proj``, the scan
+    and the gate run on those channels; ``x_proj`` and ``out_proj`` are
+    row-parallel (the x projection's partial sum is all-reduced before
+    its split);
+  * mLSTM: ``up_proj``'s output is gathered the same way; ``wq``/``wk``/
+    ``wv`` give the rank's heads (every head, gathered, when ``model``
+    does not divide the heads: the rank then keeps its ``d_inner / tp``
+    columns of the normed output), the gate weights, ``f_bias`` and
+    ``out_norm`` are read at the rank's heads; ``down_proj`` is
+    row-parallel;
+  * sLSTM: a gate's chunk reads the recurrent outputs of every head, so
+    the recurrence runs whole on every rank: ``w_x``'s output and
+    ``w_h`` are gathered for it (``gather_replicated``: its gradient is
+    the rank's block, not a sum), then ``up``'s output is gathered and
+    cut as mamba's and ``down`` is row-parallel.
+A leaf the rules leave whole (its dim not divisible by ``model``) is
+used whole: sLSTM's ``w_h`` when ``model`` does not divide the heads,
+its ``down`` when it does not divide the GLU's width (``up``'s output
+then gathered for replicated compute); mamba and mLSTM cut ``d_inner``
+and their up projection's 2 d_inner alike.
 """
 from __future__ import annotations
 
@@ -129,19 +157,48 @@ def mamba_scan_fused(delta, xi, bm, cm, a_mat, h0=None):
         None if h0 is None else h0.to(torch.float32).contiguous())
 
 
-def apply_mamba(p, x, cfg: ModelConfig, state: Optional[dict] = None):
+def _is_cut(par, t, dim: int, full: int) -> bool:
+    """Whether leaf ``t`` holds a ``model`` shard of ``dim`` (``full``
+    long whole)."""
+    return par is not None and par.tp > 1 and t.shape[dim] != full
+
+
+def _gathered_halves(par, y, half: int):
+    """This rank's blocks of both halves of ``[a | b]`` (each ``half``
+    long) from ``y``, its shard of the columns: ``y`` all-gathered over
+    ``model`` (each rank uses a distinct part, so the summing backward is
+    right), then the rank's ``half / tp`` columns of each half."""
+    full = par.all_gather(y, -1, "model")
+    c = half // par.tp
+    lo = par.model_rank * c
+    return full[..., lo:lo + c], full[..., half + lo:half + lo + c]
+
+
+def apply_mamba(p, x, cfg: ModelConfig, state: Optional[dict] = None,
+                par=None):
     """x: (B, S, d).  state: {"conv": (B, k-1, di), "ssm": (B, di, n)} or
-    None.  Returns (out (B, S, d) in x's dtype, {"conv", "ssm"})."""
+    None.  Returns (out (B, S, d) in x's dtype, {"conv", "ssm"}).
+    ``par``: tensor parallel over ``model`` (module docstring; the
+    state then covers the rank's channels)."""
     d_inner, dt_rank = mamba_dims(cfg)
     n = cfg.ssm.d_state
     dt_ = x.dtype
     f32 = torch.float32
+    tp = _is_cut(par, p["conv_b"], 0, d_inner)
 
-    xz = torch.matmul(x, p["in_proj"]).to(dt_)
-    xi, z = torch.split(xz, d_inner, dim=-1)
+    if tp:
+        xz = torch.matmul(par.f(x, "model"), p["in_proj"]).to(dt_)
+        xi, z = _gathered_halves(par, xz, d_inner)
+    else:
+        xz = torch.matmul(x, p["in_proj"]).to(dt_)
+        xi, z = torch.split(xz, d_inner, dim=-1)
     xi, new_conv = _mamba_conv(p, xi, state["conv"] if state else None)
 
     proj = matmul_f32(xi, p["x_proj"])
+    if tp:
+        # the row-parallel partial sums, summed; every rank then feeds
+        # the whole to its own channels
+        proj = par.f(par.g(proj, "model"), "model")
     dt_raw, bm, cm = torch.split(proj, [dt_rank, n, n], dim=-1)
     delta = F.softplus(torch.matmul(dt_raw, p["dt_proj"]) + p["dt_bias"])
     a_mat = -torch.exp(p["A_log"])                              # (di, n)
@@ -159,6 +216,8 @@ def apply_mamba(p, x, cfg: ModelConfig, state: Optional[dict] = None):
     y = y + xf * p["D"]
     y = (y * F.silu(z.to(f32))).to(dt_)
     out = torch.matmul(y, p["out_proj"]).to(dt_)
+    if tp:
+        out = par.g(out, "model")
     return out, {"conv": new_conv, "ssm": h_last}
 
 
@@ -199,32 +258,60 @@ def init_mlstm(generator, cfg: ModelConfig, device):
     }
 
 
-def apply_mlstm(p, x, cfg: ModelConfig, state: Optional[dict] = None):
+def apply_mlstm(p, x, cfg: ModelConfig, state: Optional[dict] = None,
+                par=None):
     """Stabilized exponential-gating mLSTM, step by step over the
     sequence as JAX's ``lax.scan``.  x: (B, S, d); state: {"C", "n", "m"}
-    or None.  Returns (out (B, S, d) in x's dtype, the last state)."""
+    or None.  Returns (out (B, S, d) in x's dtype, the last state).
+    ``par``: tensor parallel over ``model`` (module docstring; the state
+    then covers the heads the rank runs)."""
     b, s, _ = x.shape
     h = cfg.num_heads
     d_inner, hd = mlstm_dims(cfg)
     dt_ = x.dtype
     f32 = torch.float32
+    tp = _is_cut(par, p["wq"], 1, d_inner)
+    w_i, w_f, f_bias = p["w_i"], p["w_f"], p["f_bias"]
+    scale = p["out_norm"]["scale"]
 
-    up = torch.matmul(x, p["up_proj"]).to(dt_)
-    xin, z = torch.split(up, d_inner, dim=-1)
-    q = matmul_f32(xin, p["wq"]).reshape(b, s, h, hd) / math.sqrt(hd)
-    k = matmul_f32(xin, p["wk"]).reshape(b, s, h, hd)
-    v = matmul_f32(xin, p["wv"]).reshape(b, s, h, hd)
+    if tp:
+        # the whole xin for the rank's q/k/v columns, z at its channels
+        up = par.all_gather(torch.matmul(par.f(x, "model"), p["up_proj"])
+                            .to(dt_), -1, "model")
+        cols = d_inner // par.tp
+        lo = par.model_rank * cols
+        xin, z = up[..., :d_inner], up[..., d_inner + lo:d_inner + lo + cols]
+    else:
+        up = torch.matmul(x, p["up_proj"]).to(dt_)
+        xin, z = torch.split(up, d_inner, dim=-1)
+    q, k, v = (matmul_f32(xin, p[w]) for w in ("wq", "wk", "wv"))
+    h0, nh = 0, h
+    if tp:
+        if h % par.tp:
+            # a column block cuts a head: every rank runs every head
+            q, k, v = (par.all_gather(t, -1, "model") for t in (q, k, v))
+        else:
+            nh = h // par.tp
+            h0 = par.model_rank * nh
+        # the replicated gate weights and norm scale at the rank's heads
+        w_i, w_f, f_bias, scale = (par.f(t, "model")
+                                   for t in (w_i, w_f, f_bias, scale))
+        w_i, w_f = w_i[:, h0:h0 + nh], w_f[:, h0:h0 + nh]
+        f_bias, scale = f_bias[h0:h0 + nh], scale[h0 * hd:(h0 + nh) * hd]
+    q = q.reshape(b, s, nh, hd) / math.sqrt(hd)
+    k = k.reshape(b, s, nh, hd)
+    v = v.reshape(b, s, nh, hd)
     xf = xin.to(f32)
-    i_gate = torch.matmul(xf, p["w_i"])                          # (B,S,H)
-    log_f = F.logsigmoid(torch.matmul(xf, p["w_f"]) + p["f_bias"])
+    i_gate = torch.matmul(xf, w_i)                               # (B,S,H)
+    log_f = F.logsigmoid(torch.matmul(xf, w_f) + f_bias)
 
     if state is None:
-        c = torch.zeros((b, h, hd, hd), dtype=f32, device=x.device)
-        n = torch.zeros((b, h, hd), dtype=f32, device=x.device)
-        m = torch.full((b, h), -1e30, dtype=f32, device=x.device)
+        c = torch.zeros((b, nh, hd, hd), dtype=f32, device=x.device)
+        n = torch.zeros((b, nh, hd), dtype=f32, device=x.device)
+        m = torch.full((b, nh), -1e30, dtype=f32, device=x.device)
     else:
         c, n, m = state["C"], state["n"], state["m"]
-    hs = torch.empty((b, s, h, hd), dtype=f32, device=x.device)
+    hs = torch.empty((b, s, nh, hd), dtype=f32, device=x.device)
     for t in range(s):
         q_t, k_t, v_t = q[:, t], k[:, t], v[:, t]
         i_t, lf_t = i_gate[:, t], log_f[:, t]
@@ -242,10 +329,14 @@ def apply_mlstm(p, x, cfg: ModelConfig, state: Optional[dict] = None):
 
     # per-head RMS output norm, then the z gate and the down projection
     var = hs.square().mean(dim=-1, keepdim=True)
-    hn = (hs * torch.rsqrt(var + 1e-6)).reshape(b, s, d_inner)
-    hn = hn * p["out_norm"]["scale"]
+    hn = (hs * torch.rsqrt(var + 1e-6)).reshape(b, s, nh * hd)
+    hn = hn * scale
+    if tp and nh == h:
+        hn = hn[..., lo:lo + cols]
     hn = (hn * F.silu(z.to(f32))).to(dt_)
     out = torch.matmul(hn, p["down_proj"]).to(dt_)
+    if tp:
+        out = par.g(out, "model")
     return out, {"C": c, "n": n, "m": m}
 
 
@@ -279,7 +370,8 @@ def init_slstm(generator, cfg: ModelConfig, device):
     }
 
 
-def apply_slstm(p, x, cfg: ModelConfig, state: Optional[dict] = None):
+def apply_slstm(p, x, cfg: ModelConfig, state: Optional[dict] = None,
+                par=None):
     """Strictly sequential scalar-memory LSTM with exponential gating.
     x: (B, S, d); state: {"c", "n", "h", "m"}, each (B, d), or None.
     Returns (out (B, S, d) in x's dtype, the last state).
@@ -287,21 +379,31 @@ def apply_slstm(p, x, cfg: ModelConfig, state: Optional[dict] = None):
     The recurrent product is per head, ``(B, H, hd) @ (H, hd, 4 hd)``,
     laid out (B, 4 d); ``gx + rec`` is then cut into four contiguous
     chunks of d for i, f, z and o, as JAX cuts it (so a gate's chunk
-    takes the recurrent outputs of every head)."""
+    takes the recurrent outputs of every head).  ``par``: tensor
+    parallel over ``model`` (module docstring: the recurrence runs whole
+    on every rank)."""
     b, s, d = x.shape
     h = cfg.num_heads
     hd = d // h
+    d_ff = int(cfg.xlstm.slstm_proj_factor * d)
     dt_ = x.dtype
     f32 = torch.float32
 
-    gates_x = matmul_f32(x, p["w_x"]) + p["bias"]               # (B,S,4d)
+    if _is_cut(par, p["w_x"], 1, 4 * d):
+        gates_x = par.gather_replicated(
+            matmul_f32(par.f(x, "model"), p["w_x"]), -1, "model")
+    else:
+        gates_x = matmul_f32(x, p["w_x"])
+    gates_x = gates_x + p["bias"]                               # (B,S,4d)
+    w_h = p["w_h"]                                              # (H,hd,4hd)
+    if _is_cut(par, w_h, 0, h):
+        w_h = par.gather_replicated(w_h, 0, "model")
     if state is None:
         c = torch.zeros((b, d), dtype=f32, device=x.device)
         n, hh = torch.zeros_like(c), torch.zeros_like(c)
         m = torch.full((b, d), -1e30, dtype=f32, device=x.device)
     else:
         c, n, hh, m = state["c"], state["n"], state["h"], state["m"]
-    w_h = p["w_h"]                                              # (H,hd,4hd)
     hs = torch.empty((b, s, d), dtype=f32, device=x.device)
     for t in range(s):
         rec = torch.matmul(hh.reshape(b, h, hd).transpose(0, 1), w_h)
@@ -318,10 +420,22 @@ def apply_slstm(p, x, cfg: ModelConfig, state: Optional[dict] = None):
         hs[:, t] = hh
 
     # post up/down projection: a GLU with JAX's default (tanh) GELU
-    up = matmul_f32(hs.to(dt_), p["up"])
-    a, gate = torch.chunk(up, 2, dim=-1)
+    split = False
+    if _is_cut(par, p["up"], 1, 2 * d_ff):
+        up = matmul_f32(par.f(hs.to(dt_), "model"), p["up"])
+        split = _is_cut(par, p["down"], 0, d_ff)
+        if split:
+            a, gate = _gathered_halves(par, up, d_ff)
+        else:
+            a, gate = torch.chunk(par.gather_replicated(up, -1, "model"), 2,
+                                  dim=-1)
+    else:
+        up = matmul_f32(hs.to(dt_), p["up"])
+        a, gate = torch.chunk(up, 2, dim=-1)
     y = (F.gelu(a, approximate="tanh") * gate).to(dt_)
     out = torch.matmul(y, p["down"]).to(dt_)
+    if split:
+        out = par.g(out, "model")
     return out, {"c": c, "n": n, "h": hh, "m": m}
 
 

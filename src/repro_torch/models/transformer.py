@@ -113,7 +113,8 @@ def apply_block(p, x, cfg: ModelConfig, blk: BlockSpec, *, positions=None,
     h = L.apply_norm(p["norm1"], x, cfg)
     if blk.mixer in RECURRENT:
         st = state["ssm_state"] if state else None
-        h, new = RECURRENT[blk.mixer][1](p["mixer"], h, cfg, state=st)
+        h, new = RECURRENT[blk.mixer][1](p["mixer"], h, cfg, state=st,
+                                         par=par)
         if st is not None:
             for name, leaf in new.items():
                 st[name].copy_(leaf)
@@ -129,7 +130,11 @@ def apply_block(p, x, cfg: ModelConfig, blk: BlockSpec, *, positions=None,
     x = x + h
     if "cross" in p:
         h = L.apply_norm(p["norm_x"], x, cfg)
-        if enc_out is not None:
+        if enc_out is not None and L.tensor_parallel(p["cross"], cfg, par):
+            # the rank's heads, K/V from its wk/wv columns (no cache
+            # under par: run_stack refuses one)
+            kv = {"kv_source": enc_out, "par": par}
+        elif enc_out is not None:
             ck, cv = L.cross_kv(p["cross"], enc_out, cfg)
             if state is not None:
                 if "cross_kv" not in state:
@@ -137,12 +142,14 @@ def apply_block(p, x, cfg: ModelConfig, blk: BlockSpec, *, positions=None,
                                      "cross_kv leaves (make_cache(enc_len=))")
                 state["cross_kv"]["k"].copy_(ck)
                 state["cross_kv"]["v"].copy_(cv)
+            kv = {"precomputed_kv": (ck, cv)}
         elif state is not None and "cross_kv" in state:
-            ck, cv = state["cross_kv"]["k"], state["cross_kv"]["v"]
+            kv = {"precomputed_kv": (state["cross_kv"]["k"],
+                                     state["cross_kv"]["v"])}
         else:
             raise ValueError("cross-attention block needs enc_out or cache")
         h, _ = L.multi_head_attention(p["cross"], h, cfg, causal=False,
-                                      use_rope=False, precomputed_kv=(ck, cv))
+                                      use_rope=False, **kv)
         x = x + h
     aux = 0.0
     if blk.ffn == "none":
@@ -169,8 +176,8 @@ def run_stack(stack_params: List[Dict[str, Any]], x, cfg: ModelConfig, *,
               positions=None, causal: bool = True, cache=None,
               cache_index=None, enc_out=None, block_tables=None,
               write_tables=None, attend_cache: bool = False,
-              remat: bool = False, group_mask=None, par=None,
-              stack: str = "stack"):
+              remat: bool = False, group_mask=None, group_ids=None,
+              par=None, stack: str = "stack"):
     """Run every group of ``stack_params`` in order against the cache
     leaves' matching group entries (a plan stage passes its group slice of
     both).  Returns (x, cache, aux), aux the sum of the MoE layers'
@@ -202,6 +209,10 @@ def run_stack(stack_params: List[Dict[str, Any]], x, cfg: ModelConfig, *,
     plan executor runs a stage padded to the plan's ``max_groups``.  For
     the stateless forward only (no cache), as in JAX.
 
+    group_ids: the model's group index of each entry (default 0, 1, ...;
+    a plan stage passes its row of ``plan.group_index_matrix()``): FSDP's
+    ``par.gather_group`` takes the group by that index.
+
     par: a ``sharding.Parallel`` (sharded training, or a plan mesh rank
     with ``group_mask``; no cache).  Each
     group's leaves are this rank's shards, and a leaf the specs put on a
@@ -209,11 +220,16 @@ def run_stack(stack_params: List[Dict[str, Any]], x, cfg: ModelConfig, *,
     (``par.gather_group``, the specs under ``stack``): its gradient is
     reduce-scattered back by the gather's backward, and under remat the
     gather is redone in the recompute, so at most one group is gathered
-    at once.  Over ``model`` > 1 the attention and FFN blocks are tensor
-    parallel; a block kind without tensor-parallel compute here (mamba,
-    mLSTM, sLSTM, cross-attention) raises NotImplementedError."""
+    at once.  Over ``model`` > 1 every block is tensor parallel on the
+    rank's shards: attention (self and cross), the dense and MoE FFNs,
+    mamba, mLSTM and sLSTM (``models/ssm.py``)."""
     if remat and cache is not None:
         raise ValueError("remat recomputes a stateless forward: no cache")
+    ids = list(range(len(stack_params))) if group_ids is None \
+        else [int(g) for g in group_ids]
+    if len(ids) != len(stack_params):
+        raise ValueError(f"group_ids has {len(ids)} entries for "
+                         f"{len(stack_params)} groups")
     if group_mask is not None:
         if cache is not None:
             raise ValueError("group_mask is for the stateless pipelined "
@@ -226,21 +242,11 @@ def run_stack(stack_params: List[Dict[str, Any]], x, cfg: ModelConfig, *,
             raise ValueError(f"group_mask has {len(group_mask)} entries for "
                              f"{len(stack_params)} groups")
         live = [float(m) > 0 for m in group_mask]
+        ids = [g for g, on in zip(ids, live) if on]
         stack_params = [gp for gp, on in zip(stack_params, live) if on]
-    if par is not None:
-        if cache is not None:
-            raise NotImplementedError("sharded training runs the stateless "
-                                      "forward: no cache")
-        if par.tp > 1:
-            kinds = [b.mixer for b in cfg.block_pattern
-                     if b.mixer in RECURRENT]
-            if enc_out is not None:
-                kinds.append("cross-attention")
-            if kinds:
-                raise NotImplementedError(
-                    f"{cfg.name}: a {kinds[0]} block has no "
-                    f"tensor-parallel compute in the port (model="
-                    f"{par.tp}); run it on model=1")
+    if par is not None and cache is not None:
+        raise NotImplementedError("sharded training runs the stateless "
+                                  "forward: no cache")
 
     def group(gp, gc, x, aux, g=0):
         if par is not None:
@@ -258,12 +264,12 @@ def run_stack(stack_params: List[Dict[str, Any]], x, cfg: ModelConfig, *,
         return x, aux
 
     aux = 0.0
-    for g, gp in enumerate(stack_params):
+    for i, (g, gp) in enumerate(zip(ids, stack_params)):
         if remat:
             x, aux = checkpoint(group, gp, None, x, aux, g,
                                 use_reentrant=False)
         else:
-            gc = group_view(cache, g) if cache is not None else None
+            gc = group_view(cache, i) if cache is not None else None
             x, aux = group(gp, gc, x, aux, g)
     return x, cache, aux
 

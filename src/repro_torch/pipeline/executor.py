@@ -31,7 +31,9 @@ shards by the rules.  The port runs a plan two ways:
     "stage").  The embedding runs on stage 0, the final norm and the
     vocab-parallel head (gathered over ``model``) on the last stage,
     whose ranks return their rows' logits; ``gather_logits`` brings them
-    to rank 0.  FSDP (a ``data`` entry in a spec) is refused there.
+    to rank 0.  Under FSDP's specs (a ``data`` entry; ``par`` carrying
+    them) each group is gathered by its model group index
+    (``run_stack(group_ids=)``).
 
 Uneven stages: every stage's group list is padded to ``plan.max_groups``
 by a clamped gather (repeating the stage's last real group: list entries,
@@ -196,6 +198,7 @@ def _rank_runner(cfg: ModelConfig, mesh, plan: ExecutionPlan, par
                          f"{mesh.shape.get('stage')} stage slots and "
                          f"{par.shape.get('stage')} stage ranks")
     s = par.rank("stage")
+    ids = plan.group_index_matrix()[s]      # FSDP's group-axis gathers
 
     def pipelined(params_stage, group_mask, x_mb):
         if len(x_mb) != M:
@@ -208,7 +211,8 @@ def _rank_runner(cfg: ModelConfig, mesh, plan: ExecutionPlan, par
                 continue
             x = x_mb[m] if s == 0 else par.recv(shape, dtype)
             y, _, _ = T.run_stack(params_stage, x, cfg,
-                                  group_mask=group_mask[s], par=par)
+                                  group_mask=group_mask[s],
+                                  group_ids=ids, par=par)
             if s == S - 1:
                 outputs.append(y)
             else:

@@ -15,6 +15,11 @@ Autograd-aware, Megatron's pair and its gather/scatter twins:
   * ``all_gather(x, dim, axes)``: forward gathers the shards along
     ``dim``, backward reduce-scatters the gradient back (each rank's use
     of the gathered tensor is a part of the whole);
+  * ``gather_replicated(x, dim, axes)``: the same forward, for a tensor
+    that every rank then uses whole in the same replicated compute: each
+    rank's gradient of it is already the whole one, so the backward
+    keeps this rank's block of it and sums nothing (the summing backward
+    would count it ``size(axes)`` times);
   * ``reduce_scatter(x, dim, axes)``: the transpose of ``all_gather``.
 Plain (no gradient): ``all_reduce`` (sum or max), ``gather_plain``,
 ``scatter_plain``; and the module's ``barrier``.  Point to point along
@@ -165,12 +170,12 @@ class Parallel:
         _count("all_reduce", t.numel() * t.element_size())
         return t
 
-    def _all_gather(self, t, dim, axis):
+    def _all_gather(self, t, dim, axis, name="all_gather"):
         src = _to_front(t, dim)
         out = torch.empty((self.shape[axis] * src.shape[0],) + src.shape[1:],
                           dtype=src.dtype, device=src.device)
         dist.all_gather_into_tensor(out, src, group=self.group(axis))
-        _count("all_gather", out.numel() * out.element_size())
+        _count(name, out.numel() * out.element_size())
         return out.movedim(0, dim)
 
     def _reduce_scatter(self, t, dim, axis):
@@ -193,12 +198,12 @@ class Parallel:
             self._all_reduce(out, a, op)
         return out
 
-    def gather_plain(self, t, dim: int, axes: Axes):
+    def gather_plain(self, t, dim: int, axes: Axes, name="all_gather"):
         """``t``'s shards along ``dim`` over ``axes``, gathered (no
-        gradient)."""
+        gradient); counted under ``name``."""
         out = t.detach()
         for a in reversed(self.live_axes(axes)):
-            out = self._all_gather(out, dim, a)
+            out = self._all_gather(out, dim, a, name)
         return out
 
     def scatter_plain(self, t, dim: int, axes: Axes):
@@ -274,6 +279,15 @@ class Parallel:
     def reduce_scatter(self, x, dim: int, axes: Axes):
         axes = self.live_axes(axes)
         return _Scatter.apply(x, self, dim % x.dim(), axes) if axes else x
+
+    def gather_replicated(self, x, dim: int, axes: Axes):
+        """``x``'s shards along ``dim`` gathered over ``axes`` for compute
+        that every rank runs whole and alike: the backward keeps this
+        rank's block of the gradient and sums nothing.  Counted as
+        ``all_gather_replicated``."""
+        axes = self.live_axes(axes)
+        return _GatherReplicated.apply(x, self, dim % x.dim(), axes) \
+            if axes else x
 
     # ---------------------------------------------------------- FSDP
     def spec_of(self, path: Sequence[str]):
@@ -365,6 +379,21 @@ class _Gather(torch.autograd.Function):
     def backward(ctx, grad):
         return ctx.par.scatter_plain(grad, ctx.dim, ctx.axes), None, None, \
             None
+
+
+class _GatherReplicated(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, par, dim, axes):
+        ctx.par, ctx.dim, ctx.axes = par, dim, axes
+        return par.gather_plain(x, dim, axes, "all_gather_replicated")
+
+    @staticmethod
+    def backward(ctx, grad):
+        # this rank's block, the first axis outer as the gather lays it
+        par, dim, axes = ctx.par, ctx.dim, ctx.axes
+        n = grad.shape[dim] // par.size(axes)
+        return grad.narrow(dim, par.coord(axes) * n, n).contiguous(), \
+            None, None, None
 
 
 class _Scatter(torch.autograd.Function):

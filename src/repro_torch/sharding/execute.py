@@ -255,22 +255,6 @@ FIRST_STAGE = ("embed",)
 LAST_STAGE = ("final_norm", "head")
 
 
-def _refuse_beyond_model(specs, path=()):
-    """A plan mesh shards the params over ``model`` only: a spec entry
-    naming any other axis (FSDP's data axis) raises, naming the leaf."""
-    if isinstance(specs, dict):
-        for k, v in specs.items():
-            _refuse_beyond_model(v, path + (k,))
-        return
-    other = [a for e in specs for a in entry_axes(e) if a != "model"]
-    if other:
-        raise ValueError(
-            f"{'/'.join(path)}: spec {specs} shards over {other}; on a plan "
-            f"mesh the params shard over model only (FSDP there is not "
-            f"ported: run_stack numbers the live groups of a masked stage "
-            f"from 0, so a group-axis gather would pick the wrong group)")
-
-
 def _take(node, spec, par, device, lead=0):
     """``node``'s shard on this rank: each dim that ``spec`` (past its
     ``lead`` entries: a stack's group axis) shards, narrowed to this
@@ -295,24 +279,33 @@ def plan_rank_tree(params, plan, par, specs=None):
     "model")), on its device: the stage's groups as ``plan_stage_params``
     gathers them (``plan.max_groups`` entries, a padded entry the same
     dict as its stage's last group, masked out by the runner), each leaf
-    this rank's ``model`` shard under ``specs`` (default: ``param_specs``
-    on the plan mesh, JAX's ``param_shardings`` there); the embedding on
-    stage 0 only; the final norm and the head on the last stage only (the
-    embedding's shard there when the head is tied to it).  ``params``: the
-    port's layout (a list of groups under ``stack``), on any device.
-    Specs that shard over another axis than ``model`` raise ValueError."""
-    specs = specs if specs is not None else param_specs(params,
-                                                        axes_view(par.dmesh))
-    _refuse_beyond_model(specs)
+    this rank's shard under ``specs`` (default: ``par.specs``, else
+    ``param_specs`` on the plan mesh, JAX's ``param_shardings`` there);
+    the embedding on stage 0 only; the final norm and the head on the
+    last stage only (the embedding's shard there when the head is tied
+    to it).  ``params``: the port's layout (a list of groups under
+    ``stack``), on any device.
+
+    Specs with FSDP's data axis (``param_specs(..., fsdp=True)``; the
+    runner's ``par`` must carry the same specs, which ``run_stack``'s
+    gathers read): a leaf is cut over data on the dim its spec names; a
+    stack leaf whose spec shards the group axis comes as the rank's
+    block of whole groups of the full stack (every group entry the same
+    tensor), out of which ``Parallel.gather_group`` takes the model's
+    group (``run_stack(group_ids=)``)."""
+    if specs is None:
+        specs = par.specs if par.specs is not None \
+            else param_specs(params, axes_view(par.dmesh))
     s, last = par.rank("stage"), plan.n_stages - 1
     device = par.device
     taken: Dict[int, Any] = {}
+    blocks = _group_axis_blocks(params["stack"], specs["stack"], par, device)
     stack = []
     for g in plan.group_index_matrix()[s]:
         g = int(g)
         if g not in taken:
-            taken[g] = _take(params["stack"][g], specs["stack"], par, device,
-                             lead=1)
+            taken[g] = _overlay(_take(params["stack"][g], specs["stack"],
+                                      par, device, lead=1), blocks)
         stack.append(taken[g])
     keys = (FIRST_STAGE if s == 0 else ()) + (LAST_STAGE if s == last
                                                else ())
@@ -322,3 +315,32 @@ def plan_rank_tree(params, plan, par, specs=None):
            for k in dict.fromkeys(keys) if k in params}
     out["stack"] = stack
     return out
+
+
+def _group_axis_blocks(groups, spec, par, device, path=()):
+    """{path: the rank's block of whole groups} for each stack leaf whose
+    spec shards the group axis (dim 0 of JAX's stacked layout)."""
+    if isinstance(spec, dict):
+        out = {}
+        for k, v in spec.items():
+            out.update(_group_axis_blocks(groups, v, par, device,
+                                          path + (k,)))
+        return out
+    axes = entry_axes(spec[0])
+    if not axes:
+        return {}
+
+    def leaf(g):
+        node = g
+        for k in path:
+            node = node[k]
+        return node
+    full = torch.stack([leaf(g) for g in groups])
+    return {path: _take(full, spec, par, device)}
+
+
+def _overlay(tree, blocks, path=()):
+    """``tree`` with the leaf at each path of ``blocks`` replaced by it."""
+    if isinstance(tree, dict):
+        return {k: _overlay(v, blocks, path + (k,)) for k, v in tree.items()}
+    return blocks.get(path, tree)

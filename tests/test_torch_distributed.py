@@ -25,8 +25,9 @@ One spawn a mesh, several cases a spawn (the ``runs`` fixture, once):
   * the sharded launcher: two ranks on (2, 1), then resumed on (1, 2).
 The MoE steps' params are held to the port's unsharded step (see
 there).
-In-process: a mesh with ``model`` > 1 on a block without tensor-parallel
-compute raises NotImplementedError.
+In-process: a cache under ``model`` > 1 (serving) raises
+NotImplementedError; every block kind's tensor-parallel training is
+``tests/test_torch_tp_blocks.py``'s.
 
 Tolerances, JAX's own (``tests/test_distributed.py``): loss 1e-4,
 params after one AdamW step at lr 1e-3 1e-4; grad_norm 1e-5 relative;
@@ -590,37 +591,28 @@ def test_sharded_checkpoint_restores_in_jax(runs):
 
 
 # ---------------------------------------------------------------------------
-# in-process: blocks without tensor-parallel compute
+# in-process: what stays refused under model > 1
 # ---------------------------------------------------------------------------
 
 def _stub_par(tp):
-    """What ``run_stack`` and the facade read before any collective."""
+    """What ``run_stack`` reads before any collective."""
     return SimpleNamespace(tp=tp, dp=1, specs=None, model_rank=0,
                            data_axes=("data",),
                            gathered=lambda path, t: t,
                            gather_group=lambda gp, g, stack="stack": gp)
 
 
-@pytest.mark.parametrize("arch,kind", [
-    ("jamba-1.5-large-398b", "mamba"), ("xlstm-125m", "mlstm")])
-def test_model_axis_raises_on_recurrent_blocks(arch, kind):
-    cfg = reduced(T_REGISTRY[arch])
-    params = build_model(cfg, "cpu").init(torch.Generator().manual_seed(0))
+def test_model_axis_refuses_a_cache():
+    """Serving under ``par`` (a cache over ``model``) stays refused: the
+    sharded forward is the stateless one of training.  Every block kind
+    runs tensor parallel (``tests/test_torch_tp_blocks.py``)."""
+    cfg = reduced(T_REGISTRY["jamba-1.5-large-398b"])
+    model = build_model(cfg, "cpu")
+    params = model.init(torch.Generator().manual_seed(0))
     x = torch.zeros((1, 4, cfg.d_model))
-    with pytest.raises(NotImplementedError, match=kind):
-        TT.run_stack(params["stack"], x, cfg, par=_stub_par(2))
-    # model=1 (data parallel only) runs them
-    TT.run_stack(params["stack"], x, cfg, par=_stub_par(1))
-
-
-@pytest.mark.parametrize("arch", ["whisper-base", "deit-t",
-                                  "qwen2-vl-72b"])
-def test_model_axis_raises_on_front_ends(arch):
-    import dataclasses
-    cfg = reduced(T_REGISTRY[arch])
-    model = dataclasses.replace(build_model(cfg, "cpu"), par=_stub_par(2))
-    with pytest.raises(NotImplementedError, match="front end"):
-        model.loss({}, {"labels": np.zeros((1, 4), np.int32)})
+    with pytest.raises(NotImplementedError, match="no cache"):
+        TT.run_stack(params["stack"], x, cfg, cache=model.init_cache(1, 8),
+                     cache_index=0, par=_stub_par(2))
 
 
 @pytest.mark.parametrize("accum,want", [
